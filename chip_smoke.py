@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""Smoke test of tpurt_torch on one NVIDIA card: builds the CUDA kernels
+from the sources in this checkout, holds each against its plain PyTorch
+version, renders the five golden images, and renders the c3-mesh preset
+through the CLI's code.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure raises, so the script
+exits non-zero and prints no result):
+  1. device   — a CUDA card is required; no CPU fallback
+  2. build    — nvcc build of tpurt_torch/kernels/csrc (seconds, registers)
+  3. kernels  — slab_step, leaf_phase and traverse_nearest against their
+                plain versions, on the card, at main-path shapes
+  4. goldens  — g1..g5 through tpurt_torch.render.render against
+                tests/golden/*.ppm (under 0.2% of bytes off by more than
+                1, none by more than 8)
+  5. c3-mesh  — 81,920 triangles, 1280x720, max_depth 8, through
+                tpurt_torch.cli with spp cut from 128 to 4 to fit the
+                smoke's time; launch counts reset just before the render
+                and read just after
+  6. imports  — no JAX module loaded, and of tpurt only its JAX-free host
+                modules (bvh, meshgen, native, io, film, metrics)
+Then the card's nvidia-smi line, the kernel table as one JSON object, and
+as the last line {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parent
+GOLDEN_DIR = REPO / "tests" / "golden"
+C3_SPP = 4                 # c3-mesh's 128 spp cut to 4 for the smoke
+PACKETS = 4096             # main-path batch: 2**19 rays = 4096 packets
+BOUNCE_BATCH = 1 << 19     # main-path ray batch (RenderConfig.ray_batch)
+CHECK_RAYS = 1 << 18       # primary + bounce rays: one 2**19-ray batch
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def time_ms(fn, reps: int) -> dict:
+    """Per-call times of fn() over reps calls after one warm-up: "device",
+    the CUDA kernels' own time as torch.profiler records it (None if the
+    profiler records none), and "wall", CUDA events around the calls, host
+    launch overhead included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    wall = start.elapsed_time(stop) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) or 0
+                 for e in prof.key_averages())
+    return {"device": dev_us / 1e3 / reps if dev_us > 0 else None,
+            "wall": wall}
+
+
+def timed(kernel_fn, plain_fn, reps: int, plain_reps: int) -> dict:
+    """Kernel and plain-version times: "ms" / "plain_ms" are device time
+    (event wall time where the profiler saw no device time), the wall
+    times are kept beside them."""
+    k = time_ms(kernel_fn, reps)
+    p = time_ms(plain_fn, plain_reps)
+    return {"ms": k["device"] if k["device"] is not None else k["wall"],
+            "plain_ms": p["device"] if p["device"] is not None else p["wall"],
+            "wall_ms": k["wall"], "plain_wall_ms": p["wall"],
+            "timer": "profiler" if k["device"] is not None else "events"}
+
+
+def smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
+                 "smoke test needs an NVIDIA card and has no CPU fallback")
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    print(smi, flush=True)
+    emit("device", name=name, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi)
+    return name, smi
+
+
+def phase_build():
+    from tpurt_torch.kernels import _build
+    t0 = time.perf_counter()
+    info = _build.build()
+    _build.load()
+    regs = [ln.strip() for ln in info["log"].splitlines()
+            if "registers" in ln or "Compiling entry" in ln]
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs)
+
+
+def _t(a, dev):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def check_slab_step(dev):
+    """Random rows with int-bit metas; the kernel must be bit-equal."""
+    import numpy as np
+    import torch
+    from tpurt_torch.kernels import slab
+    rs = np.random.RandomState(1)
+    rows = rs.randn(PACKETS, 16).astype(np.float32)
+    rows[:, 12:15] = rs.randint(-1, 1 << 20, (PACKETS, 3)).astype(
+        np.int32).view(np.float32)
+    args = [_t(rows, dev)] + [_t(rs.randn(PACKETS, 128).astype(np.float32),
+                                 dev) for _ in range(6)]
+    args.append(_t((np.abs(rs.randn(PACKETS, 128)) * 10).astype(np.float32),
+                   dev))
+    got = slab.slab_step(*args)
+    want = slab.slab_step_plain(*args)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError("slab_step disagrees with its plain version")
+    return {"max_abs_err": 0.0, "check": "bit-equal",
+            "shape": f"P={PACKETS}",
+            **timed(lambda: slab.slab_step(*args),
+                    lambda: slab.slab_step_plain(*args), 50, 10)}
+
+
+def check_leaf_phase(scene, dev):
+    """Leaf rows of the c3 scene, 128 rays per packet aimed at the row's
+    own triangles: t within 1 ulp, mat and gid equal where t is not tied."""
+    import numpy as np
+    import torch
+    from tpurt.bvh import LEAF_F, PACKET_LEAF_N as LN
+    from tpurt_torch.kernels import leaf
+    rs = np.random.RandomState(5)
+    p, r = PACKETS, 128
+    rows = scene.pk_leaves[rs.randint(0, scene.pk_leaves.shape[0], p)]
+    comp = rows.reshape(p, LEAF_F, LN)
+    j = rs.randint(0, LN, (p, r))
+
+    def pick(k):
+        return np.take_along_axis(comp[:, k:k + 3], j[:, None, :], axis=2)
+
+    a = rs.uniform(0.05, 0.9, (p, r))
+    b = rs.uniform(0.0, 1.0, (p, r)) * (1.0 - a)
+    target = pick(0) + a[:, None] * pick(3) + b[:, None] * pick(6)
+    org = target + rs.normal(0, 0.3, (p, 3, r))
+    d = target - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_in = np.full((p, r), 3.0e38, np.float32)
+    shut = rs.uniform(size=(p, r)) < 0.2
+    t_in[shut] = rs.uniform(0.0, 0.3, shut.sum()).astype(np.float32)
+    pending = (rs.uniform(size=p) < 0.9).astype(np.int32)
+    args = ([_t(rows, dev)]
+            + [_t(org[:, k].astype(np.float32), dev) for k in range(3)]
+            + [_t(d[:, k].astype(np.float32), dev) for k in range(3)]
+            + [_t(t_in, dev), _t(pending, dev)])
+    got = leaf.leaf_phase(*args)
+    want = leaf.leaf_phase_plain(*args)
+    gt, wt = got[0], want[0]
+    ulps = (gt.view(torch.int32).long() - wt.view(torch.int32).long()).abs()
+    if int(ulps.max()) > 1:
+        raise AssertionError(f"leaf_phase t off by {int(ulps.max())} ulps")
+    untied = gt == wt
+    for k in (4, 5):
+        if not torch.equal(got[k][untied], want[k][untied]):
+            raise AssertionError("leaf_phase mat/gid disagree")
+    improved = float((gt < args[7]).float().mean())
+    if improved < 0.3:
+        raise AssertionError(f"leaf_phase check hit too little: {improved}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:4], want[:4]))
+    return {"max_abs_err": err, "max_t_ulps": int(ulps.max()),
+            "improved_share": improved, "shape": f"P={PACKETS}",
+            **timed(lambda: leaf.leaf_phase(*args),
+                    lambda: leaf.leaf_phase_plain(*args), 50, 5)}
+
+
+def make_rays(dscene, cam, n, seed, dev):
+    """n primary rays through random pixels of the 1280x720 frame and n
+    bounce-like rays from their hits in random directions."""
+    import numpy as np
+    import torch
+    from tpurt_torch import camera
+    from tpurt_torch.kernels import traverse
+    rs = np.random.RandomState(seed)
+    pix = _t(rs.randint(0, 1280 * 720, n), dev)
+    jit = _t(rs.uniform(size=(4, n)).astype(np.float32), dev)
+    o1, d1 = camera.generate_rays(cam, 1280, 720, pix, jit)
+    t1, _, _, f1, _ = traverse.nearest_tri(
+        dscene, o1, d1, torch.full((n,), 3.0e38, device=dev))
+    o2 = (o1 + torch.where(f1, t1, 3.0)[:, None] * d1).contiguous()
+    d2 = _t(rs.normal(size=(n, 3)).astype(np.float32), dev)
+    d2 = (d2 / d2.norm(dim=1, keepdim=True)).contiguous()
+    return o1, d1, o2, d2
+
+
+def check_traverse(dscene, cam, dev):
+    """2**18 primary + 2**18 bounce-like rays of the full c3 scene (one
+    main-path batch, an eighth of it dead): found equal, t within 1e-6
+    relative, gid equal except on exact t-ties (which are counted). Then
+    both versions timed on one 2**19-ray bounce batch."""
+    import torch
+    from tpurt_torch.kernels import traverse
+    o1, d1, o2, d2 = make_rays(dscene, cam, CHECK_RAYS, 9, dev)
+    o = torch.cat([o1, o2]).contiguous()
+    d = torch.cat([d1, d2]).contiguous()
+    t_max = torch.full((o.shape[0],), 3.0e38, device=dev)
+    t_max[::8] = 0.0                                  # dead lanes
+    got = traverse.nearest_tri(dscene, o, d, t_max)
+    want = traverse.nearest_tri_plain(dscene, o, d, t_max)
+    if not torch.equal(got[3], want[3]):
+        raise AssertionError("traverse: found differs")
+    f = got[3]
+    rel = ((got[0][f] - want[0][f]).abs() / want[0][f].abs()).max()
+    if float(rel) > 1e-6:
+        raise AssertionError(f"traverse: t off by {float(rel)} relative")
+    gdiff = f & (got[4] != want[4])
+    ties = int((gdiff & (got[0] == want[0])).sum())
+    if int(gdiff.sum()) != ties:
+        raise AssertionError("traverse: gid differs away from t-ties")
+    err = float((got[0][f] - want[0][f]).abs().max())
+
+    _, _, ob, db = make_rays(dscene, cam, BOUNCE_BATCH, 11, dev)
+    tb = torch.full((BOUNCE_BATCH,), 3.0e38, device=dev)
+    return {"max_abs_err": err, "t_ties": ties,
+            "found_share": float(f.float().mean()),
+            "check_rays": int(o.shape[0]),
+            "shape": f"bounce batch N={BOUNCE_BATCH}",
+            **timed(lambda: traverse.nearest_tri(dscene, ob, db, tb),
+                    lambda: traverse.nearest_tri_plain(dscene, ob, db, tb),
+                    10, 1)}
+
+
+def phase_kernels(dev):
+    from tpurt_torch import config, scene as scene_mod
+    from tpurt_torch.kernels import _build
+    t0 = time.perf_counter()
+    cfg = config.PRESETS["c3-mesh"]
+    scene, cam = config.build_scene(cfg)
+    dscene = scene_mod.to_device(scene, dev)
+    emit("c3_scene", seconds=time.perf_counter() - t0,
+         triangles=int((scene.tri_src >= 0).sum()),
+         node_rows=int(scene.pk_nodes.shape[0]),
+         leaf_rows=int(scene.pk_leaves.shape[0]))
+    results = {
+        "slab_step": check_slab_step(dev),
+        "leaf_phase": check_leaf_phase(scene, dev),
+        "traverse_nearest": check_traverse(dscene, cam, dev),
+    }
+    for name, res in results.items():
+        emit("kernel", name=name, **res)
+    # the checks' launches are not the main path's
+    _build.reset_launches()
+    return results
+
+
+GOLDENS = {
+    "g1-primary": dict(width=64, height=48, spp=2, seed=11,
+                       scene="spheres_plane", mode="primary"),
+    "g2-spheres-path": dict(width=64, height=48, spp=6, seed=11,
+                            scene="spheres_plane", mode="mega", max_depth=6),
+    "g3-cornell": dict(width=48, height=48, spp=8, seed=11, scene="cornell",
+                       mode="mega", max_depth=6),
+    "g4-mesh": dict(width=64, height=48, spp=4, seed=11, scene="blob",
+                    mesh_subdiv=2, mode="mega", max_depth=5),
+    "g5-rr": dict(width=48, height=36, spp=6, seed=11,
+                  scene="spheres_plane", mode="mega", max_depth=10,
+                  rr_start=2),
+}
+
+
+def phase_goldens(dev):
+    import numpy as np
+    from tpurt import film
+    from tpurt.io import ppm
+    from tpurt_torch import config, render
+    from tpurt_torch.kernels import _build
+    for name, kw in sorted(GOLDENS.items()):
+        cfg = config.RenderConfig(**kw)
+        _build.reset_launches()
+        img, stats = render.render(cfg, device=dev)
+        launches = dict(_build.LAUNCHES)
+        golden = ppm.read(str(GOLDEN_DIR / f"{name}.ppm"))
+        diff = np.abs(film.tonemap(img).astype(int) - golden.astype(int))
+        frac, worst = float((diff > 1).mean()), int(diff.max())
+        emit("golden", name=name, rays=stats["rays"], frac_off_gt1=frac,
+             max_diff=worst, launches=launches)
+        if frac >= 0.002 or worst > 8:
+            raise AssertionError(f"{name}: outside the golden tolerance")
+        if cfg.scene == "blob" and launches["traverse_nearest"] == 0:
+            raise AssertionError(f"{name}: traversal kernel never launched")
+
+
+def phase_c3():
+    import numpy as np
+    from tpurt_torch import cli
+    from tpurt_torch.kernels import _build
+    _build.reset_launches()
+    img, stats = cli.run(["render", "--preset", "c3-mesh", "--spp",
+                          str(C3_SPP)])
+    launches = dict(_build.LAUNCHES)
+    if img.shape != (720, 1280, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"c3: bad film {img.shape}")
+    if not 0.05 < float(img.mean()) < 1.5:
+        raise AssertionError(f"c3: implausible mean radiance {img.mean()}")
+    if launches["traverse_nearest"] == 0:
+        raise AssertionError("c3: traversal kernel never launched")
+    emit("c3-mesh", rays=stats["rays"], wall_s=stats["wall_s"],
+         mrays_per_s=stats["mrays_per_s"], spp=C3_SPP, spp_preset=128,
+         width=1280, height=720, launches=launches,
+         mean_radiance=float(img.mean()))
+    return launches
+
+
+# tpurt's JAX-free host modules, which the port shares instead of porting
+SHARED_HOST_MODULES = {"tpurt", "tpurt.bvh", "tpurt.meshgen", "tpurt.native",
+                       "tpurt.io", "tpurt.io.ppm", "tpurt.io.obj",
+                       "tpurt.film", "tpurt.metrics"}
+
+
+def phase_imports():
+    """Nothing of JAX was imported, and of tpurt only the shared host
+    modules: the render above ran on the port alone."""
+    loaded = sorted(m for m in sys.modules
+                    if m == "tpurt" or m.startswith("tpurt."))
+    jax = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+    other = [m for m in loaded if m not in SHARED_HOST_MODULES]
+    emit("imports", jax=jax, tpurt_modules=loaded)
+    if jax or other:
+        raise AssertionError(f"imported {jax + other}")
+
+
+SOURCES = {
+    "slab_step": ("tpurt_torch/kernels/csrc/slab_step.cu",
+                  "tpurt/kernels/slab.py:75"),
+    "leaf_phase": ("tpurt_torch/kernels/csrc/leaf_phase.cu",
+                   "tpurt/kernels/leaf.py:116"),
+    "traverse_nearest": ("tpurt_torch/kernels/csrc/traverse.cu",
+                         "tpurt/kernels/traverse.py:204"),
+}
+
+
+def main() -> int:
+    import torch
+    name, smi = phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    results = phase_kernels(dev)
+    phase_goldens(dev)
+    launches = phase_c3()
+    phase_imports()
+
+    def row(k):
+        src, rep = SOURCES[k]
+        res = results[k]
+        return {"name": k, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[k], "max_abs_err": res["max_abs_err"],
+                "ms": res["ms"], "plain_ms": res["plain_ms"]}
+
+    print(smi, flush=True)
+    # "kernels": what the main path launches. slab_step and leaf_phase run
+    # on the main path as device functions inside traverse_nearest; their
+    # own entry points are checked and timed above, outside that path.
+    print(json.dumps({"kernels": [row("traverse_nearest")],
+                      "entry_points": [row("slab_step"),
+                                       row("leaf_phase")]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,133 @@
+"""The tpurt_torch slice as a whole, on the CPU: the goldens within the
+golden tolerance, rays_cast equal to tpurt's, the CLI, and a process in
+which JAX cannot be imported."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+from golden_defs import GOLDENS  # noqa: E402
+
+from tpurt import config as jconfig  # noqa: E402
+from tpurt import cpu_ref, film  # noqa: E402
+from tpurt import render as jrender  # noqa: E402
+from tpurt.io import ppm  # noqa: E402
+from tpurt_torch import cli as tcli  # noqa: E402
+from tpurt_torch import config as tconfig  # noqa: E402
+from tpurt_torch import render as trender  # noqa: E402
+from tpurt_torch import scene as tscene  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+GOLDEN_DIR = REPO / "tests" / "golden"
+
+
+def _port_cfg(cfg):
+    return tconfig.RenderConfig(**cfg.__dict__)
+
+
+@pytest.mark.parametrize("name", sorted(GOLDENS))
+def test_port_matches_golden_and_rays_cast(name):
+    """Within tests/test_golden.py's device tolerance (under 0.2% of bytes
+    off by more than 1, none by more than 8), and rays_cast equal to
+    tpurt's NumPy oracle (which wrote the goldens) and, for the scenes
+    without a mesh, to tpurt's jnp render as well. (The mesh golden's jnp
+    render compiles for half a minute on the CPU; test_golden.py pins it
+    to the same oracle.)"""
+    cfg = GOLDENS[name]
+    img, stats = trender.render(_port_cfg(cfg), device="cpu")
+    golden = ppm.read(str(GOLDEN_DIR / f"{name}.ppm"))
+    diff = np.abs(film.tonemap(img).astype(int) - golden.astype(int))
+    assert (diff > 1).mean() < 0.002, name
+    assert diff.max() <= 8, name
+
+    scene, cam = jconfig.build_scene(cfg)
+    _, oracle = cpu_ref.render(cfg, scene, cam)
+    assert stats["rays"] == oracle["rays"]
+    if cfg.scene != "blob":
+        _, jstats = jrender.render(cfg, scene, cam)
+        assert stats["rays"] == jstats["rays"]
+
+
+def test_chip_smoke_goldens_equal_golden_defs():
+    """chip_smoke.py cannot import golden_defs (it imports tpurt.config,
+    hence JAX), so it carries its own copy; keep the two equal."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    assert sorted(chip_smoke.GOLDENS) == sorted(GOLDENS)
+    for name, kw in chip_smoke.GOLDENS.items():
+        assert tconfig.RenderConfig(**kw) == _port_cfg(GOLDENS[name]), name
+
+
+def test_sample_ranges_sum_to_the_whole():
+    """render_samples is the checkpointable unit: samples [0, 3) in one
+    call equal [0, 1) then [1, 3), to float32 summation order."""
+    cfg = tconfig.RenderConfig(width=32, height=24, spp=3, seed=4,
+                               scene="spheres_plane", max_depth=4)
+    scene, cam = tconfig.build_scene(cfg)
+    dev = tscene.to_device(scene, "cpu")
+    whole, rays = trender.render_samples(cfg, dev, cam, 0, 3)
+    part, r1 = trender.render_samples(cfg, dev, cam, 0, 1)
+    part, r2 = trender.render_samples(cfg, dev, cam, 1, 3, film_flat=part)
+    assert rays == r1 + r2
+    np.testing.assert_allclose(part.numpy(), whole.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_unported_modes_and_sharding_raise():
+    cfg = tconfig.RenderConfig(width=16, height=16, mode="wavefront")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trender.render(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.run(["render", "--preset", "c5-multichip", "--device", "cpu"])
+
+
+def test_cli_renders_on_cpu_when_asked(tmp_path, capsys):
+    out = tmp_path / "g4.ppm"
+    rc = tcli.main(["render", "--scene", "blob", "--mesh-subdiv", "2",
+                    "--width", "64", "--height", "48", "--spp", "4",
+                    "--seed", "11", "--max-depth", "5", "--device", "cpu",
+                    "--out", str(out)])
+    assert rc == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["backend"] == "cpu"
+    assert stats["rays"] == 29521          # = the g4-mesh golden's count
+    assert stats["kernel_launches"]["traverse_nearest"] == 0
+    golden = ppm.read(str(GOLDEN_DIR / "g4-mesh.ppm"))
+    assert ppm.read(str(out)).shape == golden.shape
+
+
+def test_cli_without_a_card_refuses_the_default_device():
+    """--device defaults to cuda; with no card that is an error, never a
+    silent CPU render."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tcli.run(["render", "--width", "8", "--height", "8"])
+
+
+def test_port_never_imports_jax():
+    """In a process where `import jax` fails, tpurt_torch imports and
+    renders g4-mesh (the BVH path) on the CPU."""
+    code = """
+import sys
+sys.modules["jax"] = None
+from tpurt_torch import config, render
+cfg = config.RenderConfig(width=64, height=48, spp=4, seed=11, scene="blob",
+                          mesh_subdiv=2, mode="mega", max_depth=5)
+img, stats = render.render(cfg, device="cpu")
+loaded = [m for m, v in sys.modules.items()
+          if v is not None and (m == "jax" or m.startswith("jax."))]
+print(stats["rays"], len(loaded))
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["29521", "0"]

@@ -1,0 +1,124 @@
+"""Render loop: pixel blocks x sample chunks (port of tpurt/render.py,
+modes ``mega`` and ``primary``).
+
+The frame is cut into (pixel-block x sample-chunk) ray batches that the
+host loops over; the film is summed on the device in tile order and
+permuted back at the end. RNG streams are keyed by (seed, pixel,
+sample), so the image does not depend on the batching.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpurt import metrics
+
+from . import camera as camera_mod
+from . import rng, trace
+from .config import RenderConfig, build_scene
+from .scene import Scene, to_device
+
+PACKET_R = 128            # pixel blocks are padded to whole packets
+BRUTE_RAY_BATCH = 1 << 17  # batch cap for no-BVH bounce paths
+_TILE_W, _TILE_H = 16, 8   # one 128-ray packet = one 16x8 tile
+
+_NOT_PORTED = {
+    "wavefront": "ROADMAP queue 1, 'wavefront and persist mode'",
+    "persist": "ROADMAP queue 1, 'wavefront and persist mode'",
+}
+
+
+def effective_ray_batch(cfg: RenderConfig, scene: Scene) -> int:
+    """Rays per batch: cfg.ray_batch, capped at BRUTE_RAY_BATCH for the
+    bounce paths of scenes without a BVH (tpurt's rule, kept so both
+    packages group samples identically)."""
+    if scene.pk_nodes is None and cfg.mode != "primary":
+        return min(cfg.ray_batch, BRUTE_RAY_BATCH)
+    return cfg.ray_batch
+
+
+def tile_order(width: int, height: int) -> np.ndarray:
+    """Pixel ids permuted so each run of 128 is (mostly) one 16x8 tile;
+    the id values are unchanged."""
+    gx, gy = np.meshgrid(np.arange(width), np.arange(height))
+    key = (
+        (gy // _TILE_H).astype(np.int64) * ((width + _TILE_W - 1) // _TILE_W)
+        + (gx // _TILE_W)
+    ) * (_TILE_W * _TILE_H) + (gy % _TILE_H) * _TILE_W + (gx % _TILE_W)
+    return np.argsort(key.reshape(-1), kind="stable").astype(np.int32)
+
+
+def render_samples(cfg: RenderConfig, scene: Scene, cam,
+                   sample_start: int, sample_stop: int, film_flat=None):
+    """Add the radiance sum of samples [sample_start, sample_stop) to
+    film_flat (npix, 3) on the scene's device. Returns (film_flat,
+    rays_cast)."""
+    if cfg.mode in _NOT_PORTED:
+        raise NotImplementedError(
+            f"mode {cfg.mode!r} is not ported yet: {_NOT_PORTED[cfg.mode]}")
+    if cfg.mode not in ("primary", "mega"):
+        raise ValueError(f"unknown mode {cfg.mode!r}")
+    dev = scene.sph_c.device
+    npix = cfg.width * cfg.height
+    if film_flat is None:
+        film_flat = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+
+    ray_batch = effective_ray_batch(cfg, scene)
+    block = min(npix, ray_batch)
+    block += (-block) % PACKET_R
+    spp_chunk = cfg.spp_chunk or max(1, ray_batch // block)
+    spp_chunk = min(spp_chunk, max(1, sample_stop - sample_start))
+
+    order = tile_order(cfg.width, cfg.height)
+    npix_pad = -(-npix // block) * block
+    order_pad = torch.as_tensor(np.concatenate(
+        [order, np.full(npix_pad - npix, order[-1], np.int32)]),
+        device=dev).long()
+    valid_pad = torch.arange(npix_pad, device=dev) < npix
+    inv_order = torch.as_tensor(np.argsort(order), device=dev)
+
+    film_tiled = torch.where(valid_pad[:, None], film_flat[order_pad], 0.0)
+    nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    for s0 in range(sample_start, sample_stop, spp_chunk):
+        c = min(spp_chunk, sample_stop - s0)
+        sample_ids = torch.arange(s0, s0 + c, device=dev)
+        for p0 in range(0, npix_pad, block):
+            pix = order_pad[p0:p0 + block]
+            valid = valid_pad[p0:p0 + block]
+            pixf = pix.repeat(c)                     # sample-major
+            validf = valid.repeat(c)
+            smp = sample_ids.repeat_interleave(block)
+            keys = rng.make_streams(cfg.seed, pixf, smp)
+            jit = rng.camera_draws(keys)
+            o, d = camera_mod.generate_rays(cam, cfg.width, cfg.height,
+                                            pixf, jit)
+            if cfg.mode == "primary":
+                rad, _ = trace.shade_primary(scene, o, d)
+                rad = torch.where(validf[:, None], rad, 0.0)
+                nrays = nrays + validf.sum()
+            else:
+                rad, n = trace.trace(scene, o, d, keys, cfg.max_depth,
+                                     cfg.rr_start, valid=validf)
+                nrays = nrays + n
+            film_tiled[p0:p0 + block] += rad.reshape(c, block, 3).sum(dim=0)
+    return film_tiled[inv_order], int(nrays)
+
+
+def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,
+           device="cuda"):
+    """Render a full frame on ``device``. Returns (film (H,W,3) linear f32
+    ndarray, the per-pixel mean over cfg.spp, and a stats dict)."""
+    if scene is None or cam is None:
+        scene, cam = build_scene(cfg)
+    scene = to_device(scene, device)
+    t0 = time.perf_counter()
+    film_flat, total_rays = render_samples(cfg, scene, cam, 0, cfg.spp)
+    film = (film_flat / cfg.spp).cpu().numpy().reshape(
+        cfg.height, cfg.width, 3)
+    wall = time.perf_counter() - t0
+    return film, metrics.build_stats(total_rays, wall, cfg.width,
+                                     cfg.height, cfg.spp)
