@@ -1,28 +1,37 @@
 #!/usr/bin/env python3
 """Smoke test of tpurt_torch on one NVIDIA card: builds the CUDA kernels
 from the sources in this checkout, holds each against its plain PyTorch
-version, renders the five golden images, and renders the c3-mesh preset
+version, renders the five golden images in every mode, and renders the
+c3-mesh, c2-cornell and c4-wavefront presets (and c4 in mode persist)
 through the CLI's code.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure raises, so the script
 exits non-zero and prints no result):
-  1. device   — a CUDA card is required; no CPU fallback
-  2. build    — nvcc build of tpurt_torch/kernels/csrc (seconds, registers)
-  3. kernels  — slab_step, leaf_phase and traverse_nearest against their
-                plain versions, on the card, at main-path shapes
-  4. goldens  — g1..g5 through tpurt_torch.render.render against
-                tests/golden/*.ppm (under 0.2% of bytes off by more than
-                1, none by more than 8)
-  5. c3-mesh  — 81,920 triangles, 1280x720, max_depth 8, through
-                tpurt_torch.cli with spp cut from 128 to 4 to fit the
-                smoke's time; launch counts reset just before the render
-                and read just after
-  6. imports  — no JAX module loaded, and of tpurt only its JAX-free host
-                modules (bvh, meshgen, native, io, film, metrics)
-Then the card's nvidia-smi line, the kernel table as one JSON object, and
-as the last line {"ok": true, "device": {...}}.
+  1. device    — a CUDA card is required; no CPU fallback
+  2. build     — nvcc build of tpurt_torch/kernels/csrc (seconds, registers)
+  3. kernels   — slab_step, leaf_phase and traverse_nearest against their
+                 plain versions on the c3 scene, and nearest_tri_small on
+                 c2 bounce-like rays (tables of 12, 64 and 1 triangles),
+                 on the card, at main-path shapes
+  4. goldens   — g1..g5 through tpurt_torch.render.render against
+                 tests/golden/*.ppm (under 0.2% of bytes off by more than
+                 1, none by more than 8), and g2..g5 again in modes
+                 wavefront and persist with the megakernel's ray count
+  5. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
+                 128 to 4
+  6. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
+                 cut from 64 to 8
+  7. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
+                 from bounce 3, spp cut from 256 to 2; occupancy
+  8. c4-persist — the c4 scene and size in mode persist at 1 spp
+  9. imports   — no JAX module loaded, and of tpurt only its JAX-free host
+                 modules (bvh, meshgen, native, io, film, metrics)
+Phases 5-8 run through tpurt_torch.cli, each with the launch counts reset
+just before its render and read just after. Then the card's nvidia-smi
+line, the kernel table as one JSON object, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -36,6 +45,10 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent
 GOLDEN_DIR = REPO / "tests" / "golden"
 C3_SPP = 4                 # c3-mesh's 128 spp cut to 4 for the smoke
+C2_SPP = 8                 # c2-cornell's 64 spp cut to 8
+C4_SPP = 2                 # c4-wavefront's 256 spp cut to 2
+PERSIST_SPP = 1            # c4's scene and size in mode persist
+C2_BATCH = 1 << 17         # c2's bounce batch (render.BRUTE_RAY_BATCH)
 PACKETS = 4096             # main-path batch: 2**19 rays = 4096 packets
 BOUNCE_BATCH = 1 << 19     # main-path ray batch (RenderConfig.ray_batch)
 CHECK_RAYS = 1 << 18       # primary + bounce rays: one 2**19-ray batch
@@ -252,6 +265,80 @@ def check_traverse(dscene, cam, dev):
                     10, 1)}
 
 
+def c2_rays(dev):
+    """C2_BATCH rays of the c2-cornell scene: half primary rays through
+    random pixels of the 512x512 frame, half bounce-like rays from their
+    hits in random directions; an eighth dead (t_max 0), a tenth with a
+    short window."""
+    import numpy as np
+    import torch
+    from tpurt_torch import camera, config, scene as scene_mod, trace
+    scene, cam = config.build_scene(config.PRESETS["c2-cornell"])
+    dscene = scene_mod.to_device(scene, dev)
+    rs = np.random.RandomState(21)
+    half = C2_BATCH // 2
+    pix = _t(rs.randint(0, 512 * 512, half), dev)
+    jit = _t(rs.uniform(size=(4, half)).astype(np.float32), dev)
+    o1, d1 = camera.generate_rays(cam, 512, 512, pix, jit)
+    h = trace.intersect(dscene, o1, d1)
+    o2 = o1 + torch.where(h.ok, h.t, 1.0)[:, None] * d1
+    d2 = _t(rs.normal(size=(half, 3)).astype(np.float32), dev)
+    d2 = d2 / d2.norm(dim=1, keepdim=True)
+    o = torch.cat([o1, o2]).contiguous()
+    d = torch.cat([d1, d2]).contiguous()
+    t_max = np.full(C2_BATCH, 3.0e38, np.float32)
+    t_max[rs.uniform(size=C2_BATCH) < 0.125] = 0.0
+    short = rs.uniform(size=C2_BATCH) < 0.1
+    t_max[short] = rs.uniform(0.0, 1.5, short.sum()).astype(np.float32)
+    return dscene, o, d, _t(t_max, dev)
+
+
+def check_nearest_tri_small(dev):
+    """c2 bounce-like rays against the Cornell table (T=12), 64 random
+    triangles in the box and the inert one-triangle table: all five
+    outputs (t, n, mat, hit, tri) bit-equal to the plain version. Both
+    versions timed at the c2 shape (T=12, one C2_BATCH-ray batch)."""
+    import numpy as np
+    import torch
+    from tpurt_torch.kernels import intersect
+    dscene, o, d, t_max = c2_rays(dev)
+    rs = np.random.RandomState(22)
+    v0 = rs.uniform((-1, 0, -1), (1, 2, 1), (64, 3)).astype(np.float32)
+    tables = {
+        "cornell": (dscene.tri_v0, dscene.tri_e1, dscene.tri_e2,
+                    dscene.tri_mat),
+        "random64": (_t(v0, dev),
+                     _t(rs.normal(0, 0.4, (64, 3)).astype(np.float32), dev),
+                     _t(rs.normal(0, 0.4, (64, 3)).astype(np.float32), dev),
+                     _t(rs.randint(0, 6, 64).astype(np.int32), dev)),
+        "inert": (torch.zeros((1, 3), device=dev),
+                  torch.zeros((1, 3), device=dev),
+                  torch.zeros((1, 3), device=dev),
+                  torch.zeros(1, dtype=torch.int32, device=dev)),
+    }
+    hit_share = {}
+    for name, tab in tables.items():
+        got = intersect.nearest_tri_small(o, d, *tab, t_max)
+        want = intersect.nearest_tri_small_plain(o, d, *tab, t_max)
+        for k, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"nearest_tri_small ({name}, output "
+                                     f"{k}) disagrees with its plain version")
+        hit_share[name] = float(got[3].float().mean())
+    if hit_share["cornell"] < 0.3 or hit_share["random64"] < 0.05 \
+            or hit_share["inert"] != 0.0:
+        raise AssertionError(f"nearest_tri_small hit shares {hit_share}")
+    tab = tables["cornell"]
+    return {"max_abs_err": 0.0, "check": "bit-equal (t, n, mat, hit, tri)",
+            "tables": {k: int(v[0].shape[0]) for k, v in tables.items()},
+            "hit_share": hit_share,
+            "shape": f"c2 bounce batch N={C2_BATCH}, T=12",
+            **timed(lambda: intersect.nearest_tri_small(o, d, *tab, t_max),
+                    lambda: intersect.nearest_tri_small_plain(o, d, *tab,
+                                                              t_max),
+                    50, 20)}
+
+
 def phase_kernels(dev):
     from tpurt_torch import config, scene as scene_mod
     from tpurt_torch.kernels import _build
@@ -267,6 +354,7 @@ def phase_kernels(dev):
         "slab_step": check_slab_step(dev),
         "leaf_phase": check_leaf_phase(scene, dev),
         "traverse_nearest": check_traverse(dscene, cam, dev),
+        "nearest_tri_small": check_nearest_tri_small(dev),
     }
     for name, res in results.items():
         emit("kernel", name=name, **res)
@@ -290,46 +378,74 @@ GOLDENS = {
 }
 
 
-def phase_goldens(dev):
+def _golden_check(name, img):
+    """(share of bytes off by more than 1, largest difference) against
+    tests/golden/<name>.ppm; raises outside the golden tolerance."""
     import numpy as np
     from tpurt import film
     from tpurt.io import ppm
+    golden = ppm.read(str(GOLDEN_DIR / f"{name}.ppm"))
+    diff = np.abs(film.tonemap(img).astype(int) - golden.astype(int))
+    frac, worst = float((diff > 1).mean()), int(diff.max())
+    if frac >= 0.002 or worst > 8:
+        raise AssertionError(f"{name}: outside the golden tolerance "
+                             f"({frac}, {worst})")
+    return frac, worst
+
+
+def phase_goldens(dev):
+    """g1..g5 as defined (mega or primary), then g2..g5 in modes wavefront
+    and persist, which must also cast the megakernel's rays. Scenes
+    without a BVH must launch nearest_tri_small, the mesh scene
+    traverse_nearest, in every mode."""
     from tpurt_torch import config, render
     from tpurt_torch.kernels import _build
     for name, kw in sorted(GOLDENS.items()):
         cfg = config.RenderConfig(**kw)
-        _build.reset_launches()
-        img, stats = render.render(cfg, device=dev)
-        launches = dict(_build.LAUNCHES)
-        golden = ppm.read(str(GOLDEN_DIR / f"{name}.ppm"))
-        diff = np.abs(film.tonemap(img).astype(int) - golden.astype(int))
-        frac, worst = float((diff > 1).mean()), int(diff.max())
-        emit("golden", name=name, rays=stats["rays"], frac_off_gt1=frac,
-             max_diff=worst, launches=launches)
-        if frac >= 0.002 or worst > 8:
-            raise AssertionError(f"{name}: outside the golden tolerance")
-        if cfg.scene == "blob" and launches["traverse_nearest"] == 0:
-            raise AssertionError(f"{name}: traversal kernel never launched")
+        modes = [cfg.mode] + (["wavefront", "persist"]
+                              if cfg.mode == "mega" else [])
+        for mode in modes:
+            _build.reset_launches()
+            img, stats = render.render(cfg.replace(mode=mode), device=dev)
+            launches = dict(_build.LAUNCHES)
+            frac, worst = _golden_check(name, img)
+            if mode == cfg.mode:
+                mega_rays = stats["rays"]
+            emit("golden", name=name, mode=mode, rays=stats["rays"],
+                 frac_off_gt1=frac, max_diff=worst, launches=launches,
+                 occupancy=stats.get("occupancy"))
+            if stats["rays"] != mega_rays:
+                raise AssertionError(f"{name} ({mode}): {stats['rays']} rays, "
+                                     f"the megakernel cast {mega_rays}")
+            kernel = ("traverse_nearest" if cfg.scene == "blob"
+                      else "nearest_tri_small")
+            if launches[kernel] == 0:
+                raise AssertionError(f"{name} ({mode}): {kernel} never "
+                                     "launched")
 
 
-def phase_c3():
+def phase_preset(label, argv, shape, kernel, spp_preset):
+    """One render through tpurt_torch.cli with the launch counts reset
+    just before it and read just after: a finite film of the expected
+    shape, a plausible mean radiance, and ``kernel`` launched."""
     import numpy as np
     from tpurt_torch import cli
     from tpurt_torch.kernels import _build
     _build.reset_launches()
-    img, stats = cli.run(["render", "--preset", "c3-mesh", "--spp",
-                          str(C3_SPP)])
+    img, stats = cli.run(["render", *argv])
     launches = dict(_build.LAUNCHES)
-    if img.shape != (720, 1280, 3) or not np.isfinite(img).all():
-        raise AssertionError(f"c3: bad film {img.shape}")
+    if img.shape != shape or not np.isfinite(img).all():
+        raise AssertionError(f"{label}: bad film {img.shape}")
     if not 0.05 < float(img.mean()) < 1.5:
-        raise AssertionError(f"c3: implausible mean radiance {img.mean()}")
-    if launches["traverse_nearest"] == 0:
-        raise AssertionError("c3: traversal kernel never launched")
-    emit("c3-mesh", rays=stats["rays"], wall_s=stats["wall_s"],
-         mrays_per_s=stats["mrays_per_s"], spp=C3_SPP, spp_preset=128,
-         width=1280, height=720, launches=launches,
-         mean_radiance=float(img.mean()))
+        raise AssertionError(f"{label}: implausible mean radiance "
+                             f"{img.mean()}")
+    if launches[kernel] == 0:
+        raise AssertionError(f"{label}: {kernel} never launched")
+    emit(label, argv=argv, spp=stats["spp"], spp_preset=spp_preset,
+         width=shape[1], height=shape[0], rays=stats["rays"],
+         wall_s=stats["wall_s"], mrays_per_s=stats["mrays_per_s"],
+         launches=launches, mean_radiance=float(img.mean()),
+         occupancy=stats.get("occupancy"))
     return launches
 
 
@@ -358,31 +474,56 @@ SOURCES = {
                    "tpurt/kernels/leaf.py:116"),
     "traverse_nearest": ("tpurt_torch/kernels/csrc/traverse.cu",
                          "tpurt/kernels/traverse.py:204"),
+    "nearest_tri_small": ("tpurt_torch/kernels/csrc/nearest_tri_small.cu",
+                          "tpurt/kernels/intersect.py:106"),
 }
 
 
 def main() -> int:
     import torch
+    t0 = time.perf_counter()
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(dev)
     phase_goldens(dev)
-    launches = phase_c3()
+    # the main paths, each read on its own
+    paths = {
+        "c3-mesh": phase_preset(
+            "c3-mesh", ["--preset", "c3-mesh", "--spp", str(C3_SPP)],
+            (720, 1280, 3), "traverse_nearest", 128),
+        "c2-cornell": phase_preset(
+            "c2-cornell", ["--preset", "c2-cornell", "--spp", str(C2_SPP)],
+            (512, 512, 3), "nearest_tri_small", 64),
+        "c4-wavefront": phase_preset(
+            "c4-wavefront",
+            ["--preset", "c4-wavefront", "--spp", str(C4_SPP)],
+            (1080, 1920, 3), "traverse_nearest", 256),
+        "c4-persist": phase_preset(
+            "c4-persist", ["--preset", "c4-wavefront", "--mode", "persist",
+                           "--spp", str(PERSIST_SPP)],
+            (1080, 1920, 3), "traverse_nearest", 256),
+    }
     phase_imports()
+    emit("elapsed", seconds=time.perf_counter() - t0)
 
     def row(k):
         src, rep = SOURCES[k]
         res = results[k]
+        by_path = {p: n[k] for p, n in paths.items()}
         return {"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[k], "max_abs_err": res["max_abs_err"],
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": res["max_abs_err"],
                 "ms": res["ms"], "plain_ms": res["plain_ms"]}
 
     print(smi, flush=True)
-    # "kernels": what the main path launches. slab_step and leaf_phase run
-    # on the main path as device functions inside traverse_nearest; their
-    # own entry points are checked and timed above, outside that path.
-    print(json.dumps({"kernels": [row("traverse_nearest")],
+    # "kernels": what the main paths launch (launches summed over the
+    # paths' runs). slab_step and leaf_phase run on the main paths as
+    # device functions inside traverse_nearest; their own entry points
+    # are checked and timed above, outside those paths.
+    print(json.dumps({"kernels": [row("traverse_nearest"),
+                                  row("nearest_tri_small")],
                       "entry_points": [row("slab_step"),
                                        row("leaf_phase")]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -81,11 +81,39 @@ def test_sample_ranges_sum_to_the_whole():
 
 
 def test_unported_modes_and_sharding_raise():
-    cfg = tconfig.RenderConfig(width=16, height=16, mode="wavefront")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.render(cfg, device="cpu")
+    """Sharding is not ported yet and raises; a mode neither package
+    knows raises too."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.run(["render", "--preset", "c5-multichip", "--device", "cpu"])
+    cfg = tconfig.RenderConfig(width=16, height=16, mode="bogus")
+    with pytest.raises(ValueError, match="unknown mode"):
+        trender.render(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["wavefront", "persist"])
+def test_wavefront_and_persist_render(mode):
+    """Both modes render (no longer NotImplementedError) and report their
+    occupancy."""
+    cfg = tconfig.RenderConfig(width=16, height=16, mode=mode, spp=2)
+    img, stats = trender.render(cfg, device="cpu")
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    assert 0.0 < stats["occupancy"]["mean_occupancy"] <= 1.0
+
+
+def test_cli_stats_carry_shard_and_occupancy(capsys):
+    """The stats JSON's "config" names every field tpurt's CLI names,
+    shard included, and a wavefront render adds its occupancy."""
+    rc = tcli.main(["render", "--scene", "cornell", "--width", "24",
+                    "--height", "24", "--spp", "2", "--max-depth", "4",
+                    "--mode", "wavefront", "--device", "cpu"])
+    assert rc == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["config"] == {
+        "width": 24, "height": 24, "spp": 2, "max_depth": 4, "seed": 0,
+        "scene": "cornell", "mode": "wavefront", "rr_start": None,
+        "shard": "none"}
+    assert stats["occupancy"]["bounces"] == 4
+    assert stats["kernel_launches"]["nearest_tri_small"] == 0   # CPU
 
 
 def test_cli_renders_on_cpu_when_asked(tmp_path, capsys):

@@ -13,10 +13,12 @@ Layer map (counterparts keep tpurt's module names):
   linalg   — vec3 helpers over (..., 3) tensors
   rng      — threefry-2x32/20 counter streams in int64 lanes
   geometry — sphere / plane / triangle / slab tests
-  kernels  — slab step, leaf phase, BVH traversal: CUDA + plain twins
+  kernels  — slab step, leaf phase, BVH traversal, brute no-BVH search:
+             CUDA + plain twins
   materials— branchless scatter
-  trace    — intersect, bounce loop, primary shading
-  render   — pixel-block x sample-chunk loop, film sum
+  trace    — intersect, one bounce, the megakernel loop, primary shading
+  wavefront— shrinking ray queue and the persistent pool
+  render   — pixel-block x sample-chunk loop per mode, film sum
   cli      — ``python -m tpurt_torch.cli render``
 """
 

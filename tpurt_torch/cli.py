@@ -36,8 +36,7 @@ def _build_parser(preset_names) -> argparse.ArgumentParser:
                         "obj:<path>")
     r.add_argument("--mode",
                    choices=["primary", "mega", "wavefront", "persist"],
-                   default=None,
-                   help="wavefront and persist are not ported yet")
+                   default=None)
     r.add_argument("--rr-start", type=int, default=None)
     r.add_argument("--mesh-subdiv", type=int, default=None)
     r.add_argument("--smooth", action="store_true", default=None,
@@ -100,7 +99,7 @@ def run(argv=None):
                                 for k, v in _build.LAUNCHES.items()}
     stats["config"] = {k: getattr(cfg, k) for k in
                        ("width", "height", "spp", "max_depth", "seed",
-                        "scene", "mode", "rr_start")}
+                        "scene", "mode", "rr_start", "shard")}
 
     if args.out:
         from tpurt import film as film_mod

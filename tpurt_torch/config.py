@@ -25,7 +25,7 @@ class RenderConfig:
     max_depth: int = 8
     seed: int = 0
     scene: str = "spheres_plane"      # spheres_plane | cornell | blob | glassblob | obj:<path>
-    mode: str = "mega"                 # primary | mega (wavefront | persist: not ported yet)
+    mode: str = "mega"                 # primary | mega | wavefront | persist
     rr_start: Optional[int] = None     # Russian roulette from this bounce
     spp_chunk: int = 0                 # 0 = auto (by ray-batch budget)
     ray_batch: int = 1 << 19           # max rays per device batch

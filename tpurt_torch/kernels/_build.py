@@ -39,10 +39,12 @@ SIGNATURES = {
     "tt_slab_step": "p" * 12 + "i",
     "tt_leaf_phase": "p" * 15 + "i",
     "tt_traverse_nearest": "pii" + "p" * 9 + "i",
+    "tt_nearest_tri_small": "p" * 6 + "i" + "p" * 6 + "i",
 }
 
 # kernel name -> launches since the last reset (counted by the wrappers)
-LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0}
+LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
+            "nearest_tri_small": 0}
 
 _LOADED: dict = {}
 

@@ -2,9 +2,11 @@
 
 ``trace`` advances N rays one bounce per loop step with dead lanes
 masked, and stops at max_depth or when every lane is dead. The nearest
-triangle hit goes through ``kernels.traverse.nearest_tri`` (the CUDA
-kernel on a card); the bounce body (threefry draws, material row,
-scatter, Russian roulette) is plain PyTorch.
+triangle hit goes through a CUDA kernel on a card:
+``kernels.traverse.nearest_tri`` when the scene has a BVH, else
+``kernels.intersect.nearest_tri_small``. The bounce body (``bounce``:
+threefry draws, material row, scatter, Russian roulette) is plain
+PyTorch, shared with the wavefront and persistent tracers.
 
 Left out on purpose: tpurt's staged bounce ladder and ``resort`` are TPU
 batching shapes that images do not depend on; the span-resume arguments
@@ -19,9 +21,11 @@ import torch
 
 from . import geometry, linalg, materials, rng
 from .geometry import INF
+from .kernels import intersect as intersect_k
 from .kernels import traverse
 
 RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95
+PACKET_R = 128   # rays per traversal packet; batches are whole packets
 
 # Decreed constants of config 1's primary-ray shading (frozen by goldens).
 PRIMARY_LIGHT_DIR = (0.57735027, 0.57735027, 0.57735027)
@@ -68,11 +72,11 @@ def intersect(scene, o, d, t_cap=None) -> Hit:
                                         hp, tp, np_, mp)
 
     gid = None
+    o, d, t_best = o.contiguous(), d.contiguous(), t_best.contiguous()
     if scene.pk_nodes is not None:
-        tt, nt, mt, ht, gid = traverse.nearest_tri(
-            scene, o.contiguous(), d.contiguous(), t_best.contiguous())
+        tt, nt, mt, ht, gid = traverse.nearest_tri(scene, o, d, t_best)
     else:
-        tt, nt, mt, ht, tri = geometry.hit_triangles_brute(
+        tt, nt, mt, ht, tri = intersect_k.nearest_tri_small(
             o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_mat,
             t_best)
         if scene.tri_src is not None:
@@ -119,6 +123,43 @@ def sky(scene, d):
         scene.sky_b[None, :] - scene.sky_a[None, :])
 
 
+def bounce(scene, o, d, atten, rad, alive, keys, depth, rr_start):
+    """One bounce of N rays: intersect, sky or emission into rad, scatter,
+    then Russian roulette from depth rr_start on. depth is the bounce
+    index, an int or (N,) tensor of per-ray depths (the persistent
+    tracer's). Returns (o, d, atten, rad, alive, live_hit), live_hit
+    marking live rays that hit a surface."""
+    h = intersect(scene, o, d, t_cap=torch.where(alive, INF, 0.0))
+    live_hit = alive & h.ok
+    live_miss = alive & ~h.ok
+
+    rad = rad + torch.where(live_miss[:, None], atten * sky(scene, d), 0.0)
+    mat_l = h.mat.long()
+    mp = scene.mat_packed[mat_l]                      # one (N,16) gather
+    mtype = scene.mat_packed.view(torch.int32)[mat_l, 0]
+    rad = rad + torch.where(live_hit[:, None], atten * mp[:, 4:7], 0.0)
+
+    draws = rng.bounce_draws(keys, depth)
+    p = o + h.t[:, None] * d
+    new_d, att, s_alive = materials.scatter(
+        d, h.n, h.front, mtype, mp[:, 1:4], mp[:, 7], mp[:, 8], draws)
+    atten = torch.where(live_hit[:, None], atten * att, atten)
+    alive = live_hit & s_alive
+    o = torch.where(live_hit[:, None], p, o)
+    d = torch.where(live_hit[:, None], new_d, d)
+
+    if rr_start is not None and (torch.is_tensor(depth)
+                                 or depth >= rr_start):
+        # survive with p = clamp(max(atten), 0.05, 0.95)
+        rr_on = alive & (depth >= rr_start)
+        p_surv = torch.clamp(atten.amax(dim=-1), RR_CLAMP_LO, RR_CLAMP_HI)
+        survive = draws[4] < p_surv
+        atten = torch.where((rr_on & survive)[:, None],
+                            atten / p_surv[:, None], atten)
+        alive = alive & (~rr_on | survive)
+    return o, d, atten, rad, alive, live_hit
+
+
 def trace(scene, o, d, keys, max_depth: int,
           rr_start: Optional[int] = None, valid=None):
     """Path-trace N rays over bounces [0, max_depth).
@@ -134,40 +175,13 @@ def trace(scene, o, d, keys, max_depth: int,
     alive = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
              else valid.clone())
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
-    mat_i = scene.mat_packed.view(torch.int32)
 
-    for bounce in range(max_depth):
+    for depth in range(max_depth):
         if not bool(alive.any()):
             break
         nrays = nrays + alive.sum()
-        h = intersect(scene, o, d, t_cap=torch.where(alive, INF, 0.0))
-        live_hit = alive & h.ok
-        live_miss = alive & ~h.ok
-
-        rad = rad + torch.where(live_miss[:, None], atten * sky(scene, d),
-                                0.0)
-        mat_l = h.mat.long()
-        mp = scene.mat_packed[mat_l]                  # one (N,16) gather
-        mtype = mat_i[mat_l, 0]
-        rad = rad + torch.where(live_hit[:, None], atten * mp[:, 4:7], 0.0)
-
-        draws = rng.bounce_draws(keys, bounce)
-        p = o + h.t[:, None] * d
-        new_d, att, s_alive = materials.scatter(
-            d, h.n, h.front, mtype, mp[:, 1:4], mp[:, 7], mp[:, 8], draws)
-        atten = torch.where(live_hit[:, None], atten * att, atten)
-        alive = live_hit & s_alive
-        o = torch.where(live_hit[:, None], p, o)
-        d = torch.where(live_hit[:, None], new_d, d)
-
-        if rr_start is not None and bounce >= rr_start:
-            # survive with p = clamp(max(atten), 0.05, 0.95)
-            p_surv = torch.clamp(atten.amax(dim=-1), RR_CLAMP_LO,
-                                 RR_CLAMP_HI)
-            survive = draws[4] < p_surv
-            atten = torch.where((alive & survive)[:, None],
-                                atten / p_surv[:, None], atten)
-            alive = alive & survive
+        o, d, atten, rad, alive, _ = bounce(scene, o, d, atten, rad, alive,
+                                            keys, depth, rr_start)
     return rad, nrays
 
 
