@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke test of tpurt_torch on one NVIDIA card: builds the CUDA kernels
+"""Smoke test of tpurt_torch on NVIDIA cards: builds the CUDA kernels
 from the sources in this checkout, holds each against its plain PyTorch
-version, renders the five golden images in every mode, and renders the
-c3-mesh, c2-cornell and c4-wavefront presets (and c4 in mode persist)
-through the CLI's code.
+version, renders the five golden images in every mode and sharded,
+renders the c3-mesh, c2-cornell, c4-wavefront (also in mode persist) and
+c5-multichip presets through the CLI's code, and checks checkpoint
+resume, the NumPy oracle and the profiler trace. One card is enough.
 
     python3 chip_smoke.py
 
@@ -26,11 +27,26 @@ exits non-zero and prints no result):
   7. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
                  from bounce 3, spp cut from 256 to 2; occupancy
   8. c4-persist — the c4 scene and size in mode persist at 1 spp
-  9. imports   — no JAX module loaded, and of tpurt only its JAX-free host
+  9. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
+                 max_depth 16, roulette from bounce 3, shard tiles), spp
+                 cut from 1024 to 1, over every card: an NCCL group of one
+                 in this process on one card, one process per card on
+                 several; stats must name that many devices
+ 10. c5-spp    — the same, sharded by samples
+ 11. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
+                 spp: the megakernel's rays, the golden tolerance
+ 12. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a simulated crash
+                 after 2 samples, resumed, equals the uninterrupted run
+                 bit for bit with equal rays; unsharded and by tiles
+ 13. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
+                 rays, the golden tolerance
+ 14. imports   — no JAX module loaded, and of tpurt only its JAX-free host
                  modules (bvh, meshgen, native, io, film, metrics)
-Phases 5-8 run through tpurt_torch.cli, each with the launch counts reset
-just before its render and read just after. Then the card's nvidia-smi
-line, the kernel table as one JSON object, and as the last line
+ 15. profile   — last (a profiled render slows later ones): g4 with
+                 --profile-dir; the Chrome trace names the traversal kernel
+Phases 5-12 are the main paths, each with the launch counts reset just
+before its renders and read just after. Then the card's nvidia-smi line,
+the kernel table as one JSON object, and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -48,6 +64,8 @@ C3_SPP = 4                 # c3-mesh's 128 spp cut to 4 for the smoke
 C2_SPP = 8                 # c2-cornell's 64 spp cut to 8
 C4_SPP = 2                 # c4-wavefront's 256 spp cut to 2
 PERSIST_SPP = 1            # c4's scene and size in mode persist
+C5_SPP = 1                 # c5-multichip's 1024 spp cut to 1
+CKPT_SPP = 4               # the checkpoint phase's c3-mesh, every 2
 C2_BATCH = 1 << 17         # c2's bounce batch (render.BRUTE_RAY_BATCH)
 PACKETS = 4096             # main-path batch: 2**19 rays = 4096 packets
 BOUNCE_BATCH = 1 << 19     # main-path ray batch (RenderConfig.ray_batch)
@@ -393,13 +411,21 @@ def _golden_check(name, img):
     return frac, worst
 
 
+def search_kernel(cfg) -> str:
+    """The search kernel a golden's scene runs: the BVH walk for the
+    mesh, the brute no-BVH search for the rest."""
+    return "traverse_nearest" if cfg.scene == "blob" else "nearest_tri_small"
+
+
 def phase_goldens(dev):
     """g1..g5 as defined (mega or primary), then g2..g5 in modes wavefront
     and persist, which must also cast the megakernel's rays. Scenes
     without a BVH must launch nearest_tri_small, the mesh scene
-    traverse_nearest, in every mode."""
+    traverse_nearest, in every mode. Returns {name: rays of the render
+    as defined}."""
     from tpurt_torch import config, render
     from tpurt_torch.kernels import _build
+    rays = {}
     for name, kw in sorted(GOLDENS.items()):
         cfg = config.RenderConfig(**kw)
         modes = [cfg.mode] + (["wavefront", "persist"]
@@ -410,43 +436,259 @@ def phase_goldens(dev):
             launches = dict(_build.LAUNCHES)
             frac, worst = _golden_check(name, img)
             if mode == cfg.mode:
-                mega_rays = stats["rays"]
+                rays[name] = stats["rays"]
             emit("golden", name=name, mode=mode, rays=stats["rays"],
                  frac_off_gt1=frac, max_diff=worst, launches=launches,
                  occupancy=stats.get("occupancy"))
-            if stats["rays"] != mega_rays:
+            if stats["rays"] != rays[name]:
                 raise AssertionError(f"{name} ({mode}): {stats['rays']} rays, "
-                                     f"the megakernel cast {mega_rays}")
-            kernel = ("traverse_nearest" if cfg.scene == "blob"
-                      else "nearest_tri_small")
+                                     f"the megakernel cast {rays[name]}")
+            kernel = search_kernel(cfg)
             if launches[kernel] == 0:
                 raise AssertionError(f"{name} ({mode}): {kernel} never "
                                      "launched")
+    return rays
 
 
-def phase_preset(label, argv, shape, kernel, spp_preset):
-    """One render through tpurt_torch.cli with the launch counts reset
-    just before it and read just after: a finite film of the expected
-    shape, a plausible mean radiance, and ``kernel`` launched."""
+def check_film(label, img, shape, launches, kernel):
+    """A finite film of the expected shape, a plausible mean radiance,
+    and ``kernel`` launched."""
     import numpy as np
-    from tpurt_torch import cli
-    from tpurt_torch.kernels import _build
-    _build.reset_launches()
-    img, stats = cli.run(["render", *argv])
-    launches = dict(_build.LAUNCHES)
-    if img.shape != shape or not np.isfinite(img).all():
+    if tuple(img.shape) != shape or not np.isfinite(img).all():
         raise AssertionError(f"{label}: bad film {img.shape}")
     if not 0.05 < float(img.mean()) < 1.5:
         raise AssertionError(f"{label}: implausible mean radiance "
                              f"{img.mean()}")
     if launches[kernel] == 0:
         raise AssertionError(f"{label}: {kernel} never launched")
+
+
+def phase_preset(label, argv, shape, kernel, spp_preset, world=None):
+    """One render through tpurt_torch.cli with the launch counts reset
+    just before it and read just after, checked by check_film; with
+    ``world``, a sharded render whose stats must name that many
+    devices."""
+    from tpurt_torch import cli
+    from tpurt_torch.kernels import _build
+    _build.reset_launches()
+    img, stats = cli.run(["render", *argv])
+    launches = dict(_build.LAUNCHES)
+    check_film(label, img, shape, launches, kernel)
+    if world is not None and stats["devices"] != world:
+        raise AssertionError(f"{label}: {stats['devices']} devices, "
+                             f"expected {world}")
     emit(label, argv=argv, spp=stats["spp"], spp_preset=spp_preset,
          width=shape[1], height=shape[0], rays=stats["rays"],
          wall_s=stats["wall_s"], mrays_per_s=stats["mrays_per_s"],
          launches=launches, mean_radiance=float(img.mean()),
-         occupancy=stats.get("occupancy"))
+         occupancy=stats.get("occupancy"), devices=stats.get("devices"),
+         shard=stats.get("shard"))
     return launches
+
+
+def _c5_rank(rank, world, port, label, argv, shape, out_dir):
+    """One rank of a multi-card c5 phase: the environment torchrun would
+    give it, then the CLI's render, checked as phase_preset checks it;
+    its numbers go to rank<r>.json."""
+    import os
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    import torch.distributed as dist
+    from tpurt_torch import cli
+    from tpurt_torch.kernels import _build
+    _build.reset_launches()
+    img, stats = cli.run(["render", *argv])
+    launches = dict(_build.LAUNCHES)
+    check_film(f"{label} rank {rank}", img, shape, launches,
+               "traverse_nearest")
+    if stats["devices"] != world:
+        raise AssertionError(f"{label}: {stats['devices']} devices, "
+                             f"expected {world}")
+    with open(pathlib.Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump({"stats": stats, "launches": launches,
+                   "mean": float(img.mean())}, f)
+    dist.destroy_process_group()
+
+
+def phase_c5_ranks(label, argv, shape, world, timeout=600.0):
+    """The c5 phase on ``world`` cards: one process per card (NCCL over
+    localhost), each checking its own render; a rank that fails fails
+    the phase. Returns rank 0's launch counts."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _c5_rank, args=(world, port, label, argv, shape, tmp),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{label}: ranks still running after "
+                                   f"{timeout} s")
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    stats = ranks[0]["stats"]
+    emit(label, argv=argv, spp=stats["spp"], width=shape[1],
+         height=shape[0], rays=stats["rays"], wall_s=stats["wall_s"],
+         mrays_per_s=stats["mrays_per_s"], devices=world,
+         shard=stats["shard"],
+         launches_by_rank=[res["launches"] for res in ranks],
+         mean_radiance=ranks[0]["mean"])
+    return ranks[0]["launches"]
+
+
+def phase_c5(label, shard, world):
+    """c5-multichip at full size (3840x2160, 81,920 triangles, max_depth
+    16, roulette from bounce 3) with spp cut from 1024 to C5_SPP, sharded
+    by ``shard`` over every card: in this process (an NCCL group of one)
+    on one card, one process per card on several. Sharded by spp, each
+    card traces C5_SPP samples, so the count divides the world."""
+    spp = C5_SPP * world if shard == "spp" else C5_SPP
+    argv = ["--preset", "c5-multichip", "--spp", str(spp), "--shard", shard]
+    if world == 1:
+        return phase_preset(label, argv, (2160, 3840, 3),
+                            "traverse_nearest", 1024, world=1)
+    return phase_c5_ranks(label, argv, (2160, 3840, 3), world)
+
+
+def phase_goldens_sharded(dev, golden_rays):
+    """g2..g5 through mesh.render_sharded, sharded by tiles and by spp on
+    this process's group: the megakernel's rays and the golden
+    tolerance, with the scene's search kernel launched."""
+    from tpurt_torch import config, mesh
+    from tpurt_torch.kernels import _build
+    m = mesh.make_mesh(dev)
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    for name, kw in sorted(GOLDENS.items()):
+        cfg = config.RenderConfig(**kw)
+        if cfg.mode != "mega":
+            continue
+        for shard in ("tiles", "spp"):
+            _build.reset_launches()
+            img, stats = mesh.render_sharded(cfg.replace(shard=shard),
+                                             mesh=m)
+            launches = dict(_build.LAUNCHES)
+            frac, worst = _golden_check(name, img)
+            emit("golden-sharded", name=name, shard=shard,
+                 devices=stats["devices"], rays=stats["rays"],
+                 frac_off_gt1=frac, max_diff=worst, launches=launches)
+            if stats["rays"] != golden_rays[name]:
+                raise AssertionError(f"{name} ({shard}): {stats['rays']} "
+                                     f"rays, the megakernel cast "
+                                     f"{golden_rays[name]}")
+            if launches[search_kernel(cfg)] == 0:
+                raise AssertionError(f"{name} ({shard}): "
+                                     f"{search_kernel(cfg)} never launched")
+            for k, v in launches.items():
+                total[k] += v
+    return total
+
+
+def phase_checkpoint(dev):
+    """c3-mesh at CKPT_SPP spp, checkpoints every 2: a crash after 2
+    samples (render_samples, then checkpoint.save), resumed from the
+    file, must equal an uninterrupted render_with_checkpoints bit for
+    bit with equal rays; then the same with shard='tiles'. Launch counts
+    cover the renders of both."""
+    import tempfile
+    import numpy as np
+    from tpurt_torch import checkpoint, config, mesh, render
+    from tpurt_torch import scene as scene_mod
+    from tpurt_torch.kernels import _build
+    cfg = config.PRESETS["c3-mesh"].replace(spp=CKPT_SPP)
+    scene, cam = config.build_scene(cfg)
+    dscene = scene_mod.to_device(scene, dev)
+    m = mesh.make_mesh(dev)
+    _build.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for shard in ("none", "tiles"):
+            c = cfg.replace(shard=shard)
+            crash = str(pathlib.Path(tmp) / f"crash-{shard}.npz")
+            if shard == "none":
+                film, rays = render.render_samples(c, dscene, cam, 0, 2)
+                film = film.cpu().numpy()
+            else:
+                film, rays = mesh.render_samples_sharded(c, dscene, cam, 0,
+                                                         2, mesh=m)
+            checkpoint.save(crash, c, film, 2, rays)
+            t0 = time.perf_counter()
+            f_res, s_res = checkpoint.render_with_checkpoints(
+                c, dscene, cam, crash, every=2, resume=True, mesh=m,
+                device=dev)
+            t_res = time.perf_counter() - t0
+            f_full, s_full = checkpoint.render_with_checkpoints(
+                c, dscene, cam, str(pathlib.Path(tmp) / f"full-{shard}.npz"),
+                every=2, mesh=m, device=dev)
+            if s_res["resumed_from_spp"] != 2:
+                raise AssertionError(f"checkpoint ({shard}): resumed from "
+                                     f"{s_res['resumed_from_spp']}")
+            if not np.array_equal(f_res, f_full):
+                raise AssertionError(f"checkpoint ({shard}): the resumed "
+                                     "film differs from the uninterrupted")
+            if s_res["rays"] != s_full["rays"]:
+                raise AssertionError(f"checkpoint ({shard}): rays "
+                                     f"{s_res['rays']} != {s_full['rays']}")
+            emit("checkpoint", shard=shard, spp=CKPT_SPP, every=2,
+                 rays=s_full["rays"], resumed_from=2, resume_wall_s=t_res,
+                 full_wall_s=s_full["wall_s"],
+                 checkpoints_written=s_full["checkpoints_written"],
+                 check="array_equal")
+    launches = dict(_build.LAUNCHES)
+    if launches["traverse_nearest"] == 0:
+        raise AssertionError("checkpoint: traverse_nearest never launched")
+    return launches
+
+
+def golden_argv(kw) -> list:
+    """A golden's config as CLI flags."""
+    return [a for k, v in kw.items()
+            for a in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def phase_oracle(golden_rays):
+    """g1 and g3 through the CLI's --oracle (the NumPy renderer): the
+    card's rays and the golden tolerance."""
+    from tpurt_torch import cli
+    for name in ("g1-primary", "g3-cornell"):
+        img, stats = cli.run(["render", *golden_argv(GOLDENS[name]),
+                              "--oracle"])
+        frac, worst = _golden_check(name, img)
+        emit("oracle", name=name, backend=stats["backend"],
+             rays=stats["rays"], card_rays=golden_rays[name],
+             wall_s=stats["wall_s"], frac_off_gt1=frac, max_diff=worst)
+        if stats["backend"] != "cpu_ref":
+            raise AssertionError(f"oracle: backend {stats['backend']}")
+        if stats["rays"] != golden_rays[name]:
+            raise AssertionError(f"oracle {name}: {stats['rays']} rays, the "
+                                 f"card cast {golden_rays[name]}")
+
+
+def phase_profile():
+    """Last: a g4-sized render with --profile-dir (profiled renders slow
+    later renders of the process); the Chrome trace must exist and name
+    the traversal kernel."""
+    import tempfile
+    from tpurt_torch import cli
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _, stats = cli.run(["render", *golden_argv(GOLDENS["g4-mesh"]),
+                            "--profile-dir", tmp])
+        wall = time.perf_counter() - t0
+        path = pathlib.Path(stats["profile"])
+        text = path.read_text()
+        found = text.count("traverse_nearest_kernel")
+        emit("profile", trace=path.name, trace_bytes=len(text),
+             traverse_events=found, rays=stats["rays"], wall_s=wall)
+    if found == 0:
+        raise AssertionError("profile: the trace never names "
+                             "traverse_nearest_kernel")
 
 
 # tpurt's JAX-free host modules, which the port shares instead of porting
@@ -486,7 +728,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(dev)
-    phase_goldens(dev)
+    golden_rays = phase_goldens(dev)
+    world = torch.cuda.device_count()
     # the main paths, each read on its own
     paths = {
         "c3-mesh": phase_preset(
@@ -503,8 +746,14 @@ def main() -> int:
             "c4-persist", ["--preset", "c4-wavefront", "--mode", "persist",
                            "--spp", str(PERSIST_SPP)],
             (1080, 1920, 3), "traverse_nearest", 256),
+        "c5-tiles": phase_c5("c5-tiles", "tiles", world),
+        "c5-spp": phase_c5("c5-spp", "spp", world),
+        "goldens-sharded": phase_goldens_sharded(dev, golden_rays),
+        "checkpoint": phase_checkpoint(dev),
     }
+    phase_oracle(golden_rays)
     phase_imports()
+    phase_profile()
     emit("elapsed", seconds=time.perf_counter() - t0)
 
     def row(k):

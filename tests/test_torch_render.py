@@ -21,6 +21,7 @@ from tpurt import render as jrender  # noqa: E402
 from tpurt.io import ppm  # noqa: E402
 from tpurt_torch import cli as tcli  # noqa: E402
 from tpurt_torch import config as tconfig  # noqa: E402
+from tpurt_torch import mesh as tmesh  # noqa: E402
 from tpurt_torch import render as trender  # noqa: E402
 from tpurt_torch import scene as tscene  # noqa: E402
 
@@ -80,11 +81,29 @@ def test_sample_ranges_sum_to_the_whole():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("size", [(48, 32), (45, 31), (17, 9), (3840, 2160)])
+def test_tile_order_equals_tpurt(size):
+    """The port places pixels by their tile key instead of sorting them:
+    the same order, ragged edges and the c5 frame included; inverse()
+    undoes it."""
+    order = trender.tile_order(*size)
+    np.testing.assert_array_equal(order, jrender.tile_order(*size))
+    perm = torch.from_numpy(order).long()
+    assert torch.equal(perm[trender.inverse(perm)],
+                       torch.arange(order.size))
+
+
 def test_unported_modes_and_sharding_raise():
-    """Sharding is not ported yet and raises; a mode neither package
-    knows raises too."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.run(["render", "--preset", "c5-multichip", "--device", "cpu"])
+    """Sample sharding refuses a sample count its world does not divide
+    (9 over 4 ranks; checked before any collective), and a mode neither
+    package knows raises, sharded or not."""
+    mesh = tmesh.Mesh(rank=0, world=4, device=torch.device("cpu"),
+                      group=None)
+    cfg = tconfig.RenderConfig(width=16, height=16, spp=9, shard="spp")
+    with pytest.raises(ValueError, match="divisible by the mesh size"):
+        tmesh.render_sharded(cfg, mesh=mesh)
+    with pytest.raises(ValueError, match="unknown mode"):
+        tmesh.render_sharded(cfg.replace(spp=8, mode="bogus"), mesh=mesh)
     cfg = tconfig.RenderConfig(width=16, height=16, mode="bogus")
     with pytest.raises(ValueError, match="unknown mode"):
         trender.render(cfg, device="cpu")
@@ -140,13 +159,77 @@ def test_cli_without_a_card_refuses_the_default_device():
         tcli.run(["render", "--width", "8", "--height", "8"])
 
 
+G4_ARGS = ["--scene", "blob", "--mesh-subdiv", "2", "--width", "64",
+           "--height", "48", "--spp", "4", "--seed", "11", "--max-depth",
+           "5", "--device", "cpu"]
+
+
+def _cli_stats(capsys, argv):
+    assert tcli.main(["render", *argv]) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_cli_shard_tiles_and_the_c5_preset(capsys):
+    """--shard tiles on the CPU is a one-rank gloo group: g4's rays, the
+    world size and the sharding in the stats; the c5 preset (tiles by
+    default) renders, cut in size."""
+    stats = _cli_stats(capsys, [*G4_ARGS, "--shard", "tiles"])
+    assert stats["rays"] == 29521
+    assert stats["devices"] == 1 and stats["shard"] == "tiles"
+    assert stats["config"]["shard"] == "tiles"
+    stats = _cli_stats(capsys, ["--preset", "c5-multichip", "--width", "32",
+                                "--height", "16", "--spp", "1",
+                                "--mesh-subdiv", "2", "--device", "cpu"])
+    assert stats["shard"] == "tiles" and stats["config"]["max_depth"] == 16
+    assert stats["rays"] > 32 * 16
+
+
+def test_cli_checkpoint_and_resume(tmp_path, capsys):
+    """--checkpoint every 2 of 4 samples leaves the spp-2 state behind;
+    --resume continues from it to g4's rays and the same image."""
+    ck = str(tmp_path / "r.npz")
+    out1, out2 = str(tmp_path / "a.ppm"), str(tmp_path / "b.ppm")
+    first = _cli_stats(capsys, [*G4_ARGS, "--checkpoint", ck,
+                                "--checkpoint-every", "2", "--out", out1])
+    assert first["checkpoints_written"] == 1 and first["rays"] == 29521
+    again = _cli_stats(capsys, [*G4_ARGS, "--checkpoint", ck,
+                                "--checkpoint-every", "2", "--resume",
+                                "--out", out2])
+    assert again["resumed_from_spp"] == 2 and again["rays"] == 29521
+    assert np.array_equal(ppm.read(out1), ppm.read(out2))
+
+
+def test_cli_oracle_matches_the_golden(tmp_path, capsys):
+    """--oracle renders g4 with the NumPy oracle (no device needed): the
+    golden's bytes exactly, as tpurt's oracle wrote them."""
+    out = str(tmp_path / "o.ppm")
+    stats = _cli_stats(capsys, [*G4_ARGS[:-2], "--device", "cuda",
+                                "--oracle", "--out", out])
+    assert stats["backend"] == "cpu_ref" and stats["rays"] == 29521
+    golden = ppm.read(str(GOLDEN_DIR / "g4-mesh.ppm"))
+    assert np.array_equal(ppm.read(out), golden)
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    stats = _cli_stats(capsys, ["--scene", "cornell", "--width", "16",
+                                "--height", "16", "--spp", "1",
+                                "--device", "cpu", "--profile-dir",
+                                str(prof)])
+    trace = json.loads((prof / "trace.rank0.json").read_text())
+    assert stats["profile"] == str(prof / "trace.rank0.json")
+    assert any(e.get("name", "").startswith("aten::")
+               for e in trace["traceEvents"])
+
+
 def test_port_never_imports_jax():
-    """In a process where `import jax` fails, tpurt_torch imports and
-    renders g4-mesh (the BVH path) on the CPU."""
+    """In a process where `import jax` fails, tpurt_torch imports (mesh,
+    checkpoint and the oracle too) and renders g4-mesh (the BVH path) on
+    the CPU."""
     code = """
 import sys
 sys.modules["jax"] = None
-from tpurt_torch import config, render
+from tpurt_torch import checkpoint, config, cpu_ref, mesh, render
 cfg = config.RenderConfig(width=64, height=48, spp=4, seed=11, scene="blob",
                           mesh_subdiv=2, mode="mega", max_depth=5)
 img, stats = render.render(cfg, device="cpu")

@@ -19,6 +19,9 @@ Layer map (counterparts keep tpurt's module names):
   trace    — intersect, one bounce, the megakernel loop, primary shading
   wavefront— shrinking ray queue and the persistent pool
   render   — pixel-block x sample-chunk loop per mode, film sum
+  mesh     — tile and sample sharding over torch.distributed
+  checkpoint — sample-batch checkpoint / exact resume
+  cpu_ref  — the NumPy oracle (``--oracle``)
   cli      — ``python -m tpurt_torch.cli render``
 """
 

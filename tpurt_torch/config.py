@@ -29,7 +29,7 @@ class RenderConfig:
     rr_start: Optional[int] = None     # Russian roulette from this bounce
     spp_chunk: int = 0                 # 0 = auto (by ray-batch budget)
     ray_batch: int = 1 << 19           # max rays per device batch
-    shard: str = "none"                # none (tiles | spp: not ported yet)
+    shard: str = "none"                # none | tiles | spp (mesh.py)
     mesh_subdiv: int = 6               # blob resolution (81920 tris at 6)
     smooth: bool = False               # interpolate OBJ vertex normals
     aperture: float = 0.0              # thin-lens diameter; 0 = pinhole

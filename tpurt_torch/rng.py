@@ -8,12 +8,15 @@ batched. Not a ``torch.Generator``: the image contract keys each draw by
 Torch has no uint32 add or shift on the CPU, so every 32-bit word lives
 in an int64 lane masked with 0xFFFFFFFF after each add or shift; the
 integer results are bit-identical to tpurt's uint32 code on any device.
+The ``np_*`` twins run the same threefry on NumPy int64 lanes for the
+NumPy oracle (``cpu_ref``).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NDRAWS = 6
@@ -109,3 +112,49 @@ def in_unit_sphere_from(u0, u1, u2):
     x, y, z = unit_vector_from(u0, u1)
     s = cbrt(u2)
     return x * s, y * s, z * s
+
+
+# -- NumPy twins (the cpu_ref oracle) ---------------------------------------
+# The same threefry over int64 NumPy lanes: _threefry2x32 uses only
+# shifts, masks, xor and adds, which NumPy evaluates as torch does.
+
+def _np_draw_pairs(streams, stream_id: int, n_pairs: int):
+    words = streams.astype(np.int64)
+    pix, smp, seed = words[0], words[1], words[2]
+    out = []
+    for c in range(n_pairs):
+        y0, y1 = _threefry2x32(seed, (stream_id + c) & _M32, pix, smp)
+        out.append((y0 >> 8).astype(np.float32) * np.float32(_U24))
+        out.append((y1 >> 8).astype(np.float32) * np.float32(_U24))
+    return np.stack(out)
+
+
+def np_make_streams(seed, pixel_ids, sample_ids):
+    """(3, N) uint32 [pixel, sample, seed], as tpurt.rng's twin."""
+    pix = np.asarray(pixel_ids).astype(np.uint32)
+    smp = np.asarray(sample_ids).astype(np.uint32)
+    return np.stack([pix, smp, np.full_like(pix, np.uint32(seed))])
+
+
+def np_camera_draws(seed, pixel_ids, sample_ids):
+    return _np_draw_pairs(np_make_streams(seed, pixel_ids, sample_ids),
+                          CAMERA_STREAM, 2)
+
+
+def np_bounce_draws(seed, pixel_ids, sample_ids, bounce):
+    return _np_draw_pairs(np_make_streams(seed, pixel_ids, sample_ids),
+                          (BOUNCE_BASE + 4 * int(bounce)) & _M32,
+                          NDRAWS // 2)
+
+
+def np_unit_vector_from(u0, u1):
+    z = 2.0 * u0 - 1.0
+    phi = (2.0 * np.pi) * u1
+    r = np.sqrt(np.maximum(1.0 - z * z, 0.0))
+    return np.stack([r * np.cos(phi), r * np.sin(phi), z],
+                    axis=-1).astype(np.float32)
+
+
+def np_in_unit_sphere_from(u0, u1, u2):
+    return np_unit_vector_from(u0, u1) * np.cbrt(u2).astype(
+        np.float32)[:, None]

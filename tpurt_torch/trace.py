@@ -9,8 +9,8 @@ threefry draws, material row, scatter, Russian roulette) is plain
 PyTorch, shared with the wavefront and persistent tracers.
 
 Left out on purpose: tpurt's staged bounce ladder and ``resort`` are TPU
-batching shapes that images do not depend on; the span-resume arguments
-(bounce0/atten0/rad0/want_state) come with the checkpoint port.
+batching shapes that images do not depend on. ``trace`` keeps tpurt's
+span-resume arguments (bounce0/atten0/rad0/want_state).
 """
 
 from __future__ import annotations
@@ -161,27 +161,40 @@ def bounce(scene, o, d, atten, rad, alive, keys, depth, rr_start):
 
 
 def trace(scene, o, d, keys, max_depth: int,
-          rr_start: Optional[int] = None, valid=None):
-    """Path-trace N rays over bounces [0, max_depth).
+          rr_start: Optional[int] = None, valid=None, bounce0: int = 0,
+          atten0=None, rad0=None, want_state: bool = False):
+    """Path-trace N rays over bounces [bounce0, max_depth).
 
     keys (3, N): rng streams. valid (N,) bool, optional: rays born dead
     (never traced, never counted). Returns (radiance (N,3) in input order,
     rays_cast), rays_cast counting every live ray entering a bounce, as a
-    0-dim int64 tensor on the rays' device."""
+    0-dim int64 tensor on the rays' device.
+
+    bounce0 / atten0 / rad0 resume a span: the bounce counter is
+    absolute (the draws and roulette key off it), so tracing [0, k) with
+    want_state, then [k, max_depth) from the handed-off state (its
+    alive mask as ``valid``), is bit-identical to the unsplit trace.
+    With want_state a third element is returned: the ray state
+    (o, d, atten, alive, keys) at loop exit, full width, in input
+    order."""
     n = o.shape[0]
     dev = o.device
-    atten = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    atten = (torch.ones((n, 3), dtype=torch.float32, device=dev)
+             if atten0 is None else atten0)
+    rad = (torch.zeros((n, 3), dtype=torch.float32, device=dev)
+           if rad0 is None else rad0)
     alive = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
              else valid.clone())
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
 
-    for depth in range(max_depth):
+    for depth in range(bounce0, max_depth):
         if not bool(alive.any()):
             break
         nrays = nrays + alive.sum()
         o, d, atten, rad, alive, _ = bounce(scene, o, d, atten, rad, alive,
                                             keys, depth, rr_start)
+    if want_state:
+        return rad, nrays, (o, d, atten, alive, keys)
     return rad, nrays
 
 

@@ -16,8 +16,9 @@ do not depend on the shrink rule, because every draw is keyed by
 slots take the next rays off a global counter in slot order, so its
 iteration count and occupancy equal tpurt's.
 
-Not ported: ``trace_static`` (fixed-size queue for ``mesh`` under
-``shard_map``; it comes with the multi-GPU slice), and tpurt's test
+Not ported: ``trace_static``, tpurt's fixed-size queue for ``mesh``
+(``shard_map`` needs one shape on every chip; a rank of the port's mesh
+has its own host loop and runs ``trace_chunk``), and tpurt's test
 oracles ``multi_step``, ``commit_*`` and its own host-loop
 ``trace_chunk`` (the port is tested against tpurt itself).
 """
