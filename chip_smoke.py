@@ -11,42 +11,49 @@ resume, the NumPy oracle and the profiler trace. One card is enough.
 Phases, each printing one JSON line (any failure raises, so the script
 exits non-zero and prints no result):
   1. device    — a CUDA card is required; no CPU fallback
-  2. build     — nvcc build of tpurt_torch/kernels/csrc (seconds, registers)
-  3. kernels   — slab_step, leaf_phase and traverse_nearest against their
+  2. build     — nvcc build of tpurt_torch/kernels/csrc, one nvcc per
+                 source in parallel (seconds, registers)
+  3. kernels   — the c3 scene build (seconds, native_sah), then
+                 slab_step, leaf_phase and traverse_nearest against their
                  plain versions on the c3 scene, and nearest_tri_small on
                  c2 bounce-like rays (tables of 12, 64 and 1 triangles),
-                 on the card, at main-path shapes
-  4. goldens   — g1..g5 through tpurt_torch.render.render against
+                 on the card, at main-path shapes, each with its bound
+  4. vmemloop  — probe_vmemloop's kernel array-equal to its plain version
+                 at T = 64 and 128 on the probe's inputs and on a table
+                 with negative metas and NaN / infinite box slots, both
+                 timed; then the probe's path (python -m
+                 tpurt_torch.probe_vmemloop), ns_per_packet_step per T
+  5. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
                  1, none by more than 8), and g2..g5 again in modes
                  wavefront and persist with the megakernel's ray count
-  5. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
+  6. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
-  6. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
+  7. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
                  cut from 64 to 8
-  7. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
+  8. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
                  from bounce 3, spp cut from 256 to 2; occupancy
-  8. c4-persist — the c4 scene and size in mode persist at 1 spp
-  9. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
+  9. c4-persist — the c4 scene and size in mode persist at 1 spp
+ 10. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
                  max_depth 16, roulette from bounce 3, shard tiles), spp
                  cut from 1024 to 1, over every card: an NCCL group of one
                  in this process on one card, one process per card on
                  several; stats must name that many devices
- 10. c5-spp    — the same, sharded by samples
- 11. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
+ 11. c5-spp    — the same, sharded by samples
+ 12. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
                  spp: the megakernel's rays, the golden tolerance
- 12. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a simulated crash
+ 13. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a simulated crash
                  after 2 samples, resumed, equals the uninterrupted run
                  bit for bit with equal rays; unsharded and by tiles
- 13. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
+ 14. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
                  rays, the golden tolerance
- 14. imports   — no JAX module loaded, and of tpurt only its JAX-free host
-                 modules (bvh, meshgen, native, io, film, metrics)
- 15. profile   — last (a profiled render slows later ones): g4 with
+ 15. imports   — no module of jax and none of tpurt loaded
+ 16. profile   — last (a profiled render slows later ones): g4 with
                  --profile-dir; the Chrome trace names the traversal kernel
-Phases 5-12 are the main paths, each with the launch counts reset just
-before its renders and read just after. Then the card's nvidia-smi line,
-the kernel table as one JSON object, and as the last line
+The probe (in phase 4) and phases 6-13 are the main paths, each with the
+launch counts reset just before it and read just after. Then the card's
+nvidia-smi line, the kernel table as one JSON object (all five kernels,
+each with its launches by path and its bound), and as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -70,10 +77,42 @@ C2_BATCH = 1 << 17         # c2's bounce batch (render.BRUTE_RAY_BATCH)
 PACKETS = 4096             # main-path batch: 2**19 rays = 4096 packets
 BOUNCE_BATCH = 1 << 19     # main-path ray batch (RenderConfig.ray_batch)
 CHECK_RAYS = 1 << 18       # primary + bounce rays: one 2**19-ray batch
+PROBE_STEPS = (64, 128)    # probe_vmemloop's step counts
+
+# The least time the card could take for a kernel's work: the larger of
+# its bytes (each input read once, each output written once) over the
+# H100 SXM's 3.35 TB/s and its float32 operations over the issue rate,
+# one operation per FP32 lane per cycle (132 SMs x 128 lanes x 1.98
+# GHz; the 67 TFLOP/s data-sheet figure counts an FMA as two, and the
+# kernels build with --fmad=false, so nothing fuses).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+SLAB2_OPS = 50     # one ray against a CIP row: 2 boxes x 3 axes x (2 sub,
+                   # 2 mul, min, max, max, min) + the 2 compares
+TRI_TEST_OPS = 57  # one ray against one triangle (Moller-Trumbore as in
+                   # leaf_mt: 3 cross products, 3 dots, the subtraction,
+                   # the division, 7 compares and adds, the select)
+# No single PyTorch call computes a nearest hit, a slab OR-reduction or a
+# cursor walk, so no kernel has a library yardstick.
+NO_LIBRARY = "none: no single PyTorch call computes this function"
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, ops: int) -> dict:
+    """The bound (ms) of work that moves n_bytes and does ops float32
+    operations, and which of the two sets it."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes": int(n_bytes), "ops": int(ops), "library_ms": None}
 
 
 def time_ms(fn, reps: int) -> dict:
@@ -173,6 +212,7 @@ def check_slab_step(dev):
             raise AssertionError("slab_step disagrees with its plain version")
     return {"max_abs_err": 0.0, "check": "bit-equal",
             "shape": f"P={PACKETS}",
+            **bound(nbytes(*args, *got), PACKETS * 128 * SLAB2_OPS),
             **timed(lambda: slab.slab_step(*args),
                     lambda: slab.slab_step_plain(*args), 50, 10)}
 
@@ -182,7 +222,7 @@ def check_leaf_phase(scene, dev):
     own triangles: t within 1 ulp, mat and gid equal where t is not tied."""
     import numpy as np
     import torch
-    from tpurt.bvh import LEAF_F, PACKET_LEAF_N as LN
+    from tpurt_torch.bvh import LEAF_F, PACKET_LEAF_N as LN
     from tpurt_torch.kernels import leaf
     rs = np.random.RandomState(5)
     p, r = PACKETS, 128
@@ -221,8 +261,11 @@ def check_leaf_phase(scene, dev):
     if improved < 0.3:
         raise AssertionError(f"leaf_phase check hit too little: {improved}")
     err = max(float((g - w).abs().max()) for g, w in zip(got[:4], want[:4]))
+    # only a pending packet tests its row's LN triangles
+    ops = int(pending.sum()) * r * LN * TRI_TEST_OPS
     return {"max_abs_err": err, "max_t_ulps": int(ulps.max()),
             "improved_share": improved, "shape": f"P={PACKETS}",
+            **bound(nbytes(*args, *got), ops),
             **timed(lambda: leaf.leaf_phase(*args),
                     lambda: leaf.leaf_phase_plain(*args), 50, 5)}
 
@@ -252,6 +295,7 @@ def check_traverse(dscene, cam, dev):
     relative, gid equal except on exact t-ties (which are counted). Then
     both versions timed on one 2**19-ray bounce batch."""
     import torch
+    from tpurt_torch.bvh import PACKET_LEAF_N as LN
     from tpurt_torch.kernels import traverse
     o1, d1, o2, d2 = make_rays(dscene, cam, CHECK_RAYS, 9, dev)
     o = torch.cat([o1, o2]).contiguous()
@@ -274,10 +318,20 @@ def check_traverse(dscene, cam, dev):
 
     _, _, ob, db = make_rays(dscene, cam, BOUNCE_BATCH, 11, dev)
     tb = torch.full((BOUNCE_BATCH,), 3.0e38, device=dev)
+    # the bound counts the work of this batch's walks (the kernel walks
+    # each ray as the plain version does) and each table read once
+    work = {}
+    traverse.nearest_tri_plain(dscene, ob, db, tb, counts=work)
+    outs = traverse.nearest_tri(dscene, ob, db, tb)
+    ops = (work["visits"] * SLAB2_OPS
+           + work["leaf_rows"] * LN * TRI_TEST_OPS)
+    tables = (dscene.pk_oct_nodes, dscene.pk_leaves)
     return {"max_abs_err": err, "t_ties": ties,
             "found_share": float(f.float().mean()),
             "check_rays": int(o.shape[0]),
             "shape": f"bounce batch N={BOUNCE_BATCH}",
+            "node_visits": work["visits"], "leaf_rows": work["leaf_rows"],
+            **bound(nbytes(ob, db, tb, *tables, *outs), ops),
             **timed(lambda: traverse.nearest_tri(dscene, ob, db, tb),
                     lambda: traverse.nearest_tri_plain(dscene, ob, db, tb),
                     10, 1)}
@@ -347,10 +401,14 @@ def check_nearest_tri_small(dev):
             or hit_share["inert"] != 0.0:
         raise AssertionError(f"nearest_tri_small hit shares {hit_share}")
     tab = tables["cornell"]
+    # a dead ray (t_max 0) needs no triangle test; the outputs' shapes
+    # do not depend on the table
+    ops = int((t_max > 0).sum()) * tab[0].shape[0] * TRI_TEST_OPS
     return {"max_abs_err": 0.0, "check": "bit-equal (t, n, mat, hit, tri)",
             "tables": {k: int(v[0].shape[0]) for k, v in tables.items()},
             "hit_share": hit_share,
             "shape": f"c2 bounce batch N={C2_BATCH}, T=12",
+            **bound(nbytes(o, d, *tab, t_max, *got), ops),
             **timed(lambda: intersect.nearest_tri_small(o, d, *tab, t_max),
                     lambda: intersect.nearest_tri_small_plain(o, d, *tab,
                                                               t_max),
@@ -358,13 +416,14 @@ def check_nearest_tri_small(dev):
 
 
 def phase_kernels(dev):
-    from tpurt_torch import config, scene as scene_mod
+    from tpurt_torch import config, native, scene as scene_mod
     from tpurt_torch.kernels import _build
     t0 = time.perf_counter()
     cfg = config.PRESETS["c3-mesh"]
     scene, cam = config.build_scene(cfg)
     dscene = scene_mod.to_device(scene, dev)
     emit("c3_scene", seconds=time.perf_counter() - t0,
+         native_sah=native.available(),
          triangles=int((scene.tri_src >= 0).sum()),
          node_rows=int(scene.pk_nodes.shape[0]),
          leaf_rows=int(scene.pk_leaves.shape[0]))
@@ -379,6 +438,67 @@ def phase_kernels(dev):
     # the checks' launches are not the main path's
     _build.reset_launches()
     return results
+
+
+def phase_vmemloop(dev):
+    """probe_vmemloop's kernel against its plain version at T = 64 and
+    128, array-equal: on the probe's own inputs (P = 1024), and on a
+    second table whose metas lie in [-49, 49] (whole numbers) and whose
+    box slots hold NaNs and infinities; both versions timed on the
+    probe's inputs. Then the probe's own path: the entry point a user
+    runs, with the launch counts reset just before and read just after;
+    it prints ns_per_packet_step per T. Returns (the kernel's result at
+    T = 64 with every T under "by_T", the probe path's launches)."""
+    import numpy as np
+    import torch
+    from tpurt_torch import probe_vmemloop
+    from tpurt_torch.kernels import _build, vmemloop
+    packets = 1024
+    nodes, soa, seeds = probe_vmemloop.make_inputs(packets)
+    rs = np.random.default_rng(7)
+    odd = nodes.copy()
+    odd[:, 12:14] = rs.integers(-49, 50, (odd.shape[0], 2))
+    rows = rs.integers(0, odd.shape[0], 2000)
+    odd[rows, rs.integers(0, 12, 2000)] = rs.choice(
+        [np.nan, np.inf, -np.inf], 2000)
+    rays = [_t(a, dev) for a in (*soa, seeds)]
+    tables = {"probe": _t(nodes, dev), "odd": _t(odd, dev)}
+    by_t = {}
+    for t in PROBE_STEPS:
+        sums = {}
+        for name, tab in tables.items():
+            got = vmemloop.node_step_loop(tab, *rays, t)
+            want = vmemloop.node_step_loop_plain(tab, *rays, t)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"vmemloop (T={t}, table {name}) "
+                                     "disagrees with its plain version")
+            sums[name] = float(got.double().sum())
+        args = (tables["probe"], *rays)
+        out = vmemloop.node_step_loop(*args, t)
+        by_t[t] = {"sums": sums,
+                   **bound(nbytes(*args, out), packets * 128 * t * SLAB2_OPS),
+                   **timed(lambda: vmemloop.node_step_loop(*args, t),
+                           lambda: vmemloop.node_step_loop_plain(*args, t),
+                           50, 3)}
+        emit("vmemloop", steps=t, packets=packets, check="array_equal",
+             tables=list(tables), **by_t[t])
+    _build.reset_launches()
+    records = probe_vmemloop.run(PROBE_STEPS, packets, "cuda")
+    launches = dict(_build.LAUNCHES)
+    for rec in records:
+        emit("probe_vmemloop", **{k: rec[k] for k in (
+            "probe", "ms", "us_per_cell_step", "ns_per_packet_step", "sum")})
+        if rec["sum"] != by_t[rec["steps"]]["sums"]["probe"]:
+            raise AssertionError(f"{rec['probe']}: sum {rec['sum']} differs "
+                                 "from the checked kernel's")
+    if launches["vmemloop"] == 0:
+        raise AssertionError("probe_vmemloop: vmemloop never launched")
+    first = by_t[PROBE_STEPS[0]]
+    return {**first, "max_abs_err": 0.0, "shape": f"P={packets}, "
+            f"T={PROBE_STEPS[0]}",
+            "by_T": {t: {k: v[k] for k in ("ms", "plain_ms", "bound_ms")}
+                     for t, v in by_t.items()}}, launches
 
 
 GOLDENS = {
@@ -400,8 +520,8 @@ def _golden_check(name, img):
     """(share of bytes off by more than 1, largest difference) against
     tests/golden/<name>.ppm; raises outside the golden tolerance."""
     import numpy as np
-    from tpurt import film
-    from tpurt.io import ppm
+    from tpurt_torch import film
+    from tpurt_torch.io import ppm
     golden = ppm.read(str(GOLDEN_DIR / f"{name}.ppm"))
     diff = np.abs(film.tonemap(img).astype(int) - golden.astype(int))
     frac, worst = float((diff > 1).mean()), int(diff.max())
@@ -691,22 +811,15 @@ def phase_profile():
                              "traverse_nearest_kernel")
 
 
-# tpurt's JAX-free host modules, which the port shares instead of porting
-SHARED_HOST_MODULES = {"tpurt", "tpurt.bvh", "tpurt.meshgen", "tpurt.native",
-                       "tpurt.io", "tpurt.io.ppm", "tpurt.io.obj",
-                       "tpurt.film", "tpurt.metrics"}
-
-
 def phase_imports():
-    """Nothing of JAX was imported, and of tpurt only the shared host
-    modules: the render above ran on the port alone."""
+    """Nothing of JAX and nothing of tpurt was imported: everything above
+    ran on the port alone, with its own copies of tpurt's host modules."""
     loaded = sorted(m for m in sys.modules
-                    if m == "tpurt" or m.startswith("tpurt."))
-    jax = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-    other = [m for m in loaded if m not in SHARED_HOST_MODULES]
-    emit("imports", jax=jax, tpurt_modules=loaded)
-    if jax or other:
-        raise AssertionError(f"imported {jax + other}")
+                    if m.split(".")[0] in ("jax", "tpurt"))
+    emit("imports", jax=[m for m in loaded if m.split(".")[0] == "jax"],
+         tpurt_modules=[m for m in loaded if m.split(".")[0] == "tpurt"])
+    if loaded:
+        raise AssertionError(f"imported {loaded}")
 
 
 SOURCES = {
@@ -718,6 +831,8 @@ SOURCES = {
                          "tpurt/kernels/traverse.py:204"),
     "nearest_tri_small": ("tpurt_torch/kernels/csrc/nearest_tri_small.cu",
                           "tpurt/kernels/intersect.py:106"),
+    "vmemloop": ("tpurt_torch/kernels/csrc/vmemloop.cu",
+                 "benchmarks/probe_vmemloop.py:64"),
 }
 
 
@@ -728,6 +843,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     results = phase_kernels(dev)
+    results["vmemloop"], probe_launches = phase_vmemloop(dev)
     golden_rays = phase_goldens(dev)
     world = torch.cuda.device_count()
     # the main paths, each read on its own
@@ -750,6 +866,7 @@ def main() -> int:
         "c5-spp": phase_c5("c5-spp", "spp", world),
         "goldens-sharded": phase_goldens_sharded(dev, golden_rays),
         "checkpoint": phase_checkpoint(dev),
+        "probe": probe_launches,
     }
     phase_oracle(golden_rays)
     phase_imports()
@@ -764,17 +881,17 @@ def main() -> int:
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "max_abs_err": res["max_abs_err"],
-                "ms": res["ms"], "plain_ms": res["plain_ms"]}
+                "ms": res["ms"], "plain_ms": res["plain_ms"],
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "library_ms": res["library_ms"], "library": NO_LIBRARY,
+                "shape": res["shape"]}
 
     print(smi, flush=True)
-    # "kernels": what the main paths launch (launches summed over the
-    # paths' runs). slab_step and leaf_phase run on the main paths as
-    # device functions inside traverse_nearest; their own entry points
-    # are checked and timed above, outside those paths.
-    print(json.dumps({"kernels": [row("traverse_nearest"),
-                                  row("nearest_tri_small")],
-                      "entry_points": [row("slab_step"),
-                                       row("leaf_phase")]}), flush=True)
+    # launches summed over the paths' runs. slab_step and leaf_phase run
+    # on the render paths as device functions inside traverse_nearest
+    # (0 launches of their own entry points, which are checked and timed
+    # above); vmemloop runs on the probe's path.
+    print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

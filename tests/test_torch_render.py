@@ -27,6 +27,7 @@ from tpurt_torch import scene as tscene  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GOLDEN_DIR = REPO / "tests" / "golden"
+FIXTURES = REPO / "tests" / "fixtures"
 
 
 def _port_cfg(cfg):
@@ -223,18 +224,25 @@ def test_cli_profile_dir_writes_a_trace(tmp_path, capsys):
 
 
 def test_port_never_imports_jax():
-    """In a process where `import jax` fails, tpurt_torch imports (mesh,
-    checkpoint and the oracle too) and renders g4-mesh (the BVH path) on
-    the CPU."""
-    code = """
+    """In a process where both `import jax` and `import tpurt` fail,
+    tpurt_torch imports (mesh, checkpoint, the oracle, the CLI and the
+    probe too), builds the c2-cornell and an `obj:` fixture scene, and
+    renders g4-mesh (the BVH path) on the CPU; no jax or tpurt module is
+    loaded."""
+    code = f"""
 import sys
 sys.modules["jax"] = None
-from tpurt_torch import checkpoint, config, cpu_ref, mesh, render
+sys.modules["tpurt"] = None
+from tpurt_torch import (checkpoint, cli, config, cpu_ref, film, mesh,
+                         metrics, probe_vmemloop, render)
+from tpurt_torch.io import ppm
+config.build_scene(config.PRESETS["c2-cornell"])
+config.build_scene(config.RenderConfig(scene="obj:{FIXTURES}/micro.obj"))
 cfg = config.RenderConfig(width=64, height=48, spp=4, seed=11, scene="blob",
                           mesh_subdiv=2, mode="mega", max_depth=5)
 img, stats = render.render(cfg, device="cpu")
 loaded = [m for m, v in sys.modules.items()
-          if v is not None and (m == "jax" or m.startswith("jax."))]
+          if v is not None and m.split(".")[0] in ("jax", "tpurt")]
 print(stats["rays"], len(loaded))
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

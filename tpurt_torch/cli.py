@@ -86,9 +86,7 @@ def _rank() -> int:
 def _render(args, cfg, scene, cam, device):
     """The render itself, dispatched as tpurt's CLI does."""
     if args.oracle:
-        from tpurt import metrics
-
-        from . import cpu_ref
+        from . import cpu_ref, metrics
         t0 = time.perf_counter()
         film, res = cpu_ref.render(cfg, scene, cam)
         stats = metrics.build_stats(res["rays"], time.perf_counter() - t0,
@@ -112,9 +110,8 @@ def _render(args, cfg, scene, cam, device):
 def run(argv=None):
     """Parse argv, render, write --out / --json-metrics (on rank 0).
     Returns (film (H,W,3) ndarray, stats dict)."""
-    from tpurt import metrics
-
     from . import config as config_mod
+    from . import metrics
     from .kernels import _build
 
     args = _build_parser(sorted(config_mod.PRESETS)).parse_args(argv)
@@ -168,8 +165,8 @@ def run(argv=None):
 
     if _rank() == 0:
         if args.out:
-            from tpurt import film as film_mod
-            from tpurt.io import ppm
+            from . import film as film_mod
+            from .io import ppm
             rgb8 = film_mod.tonemap(film)
             if args.out.lower().endswith(".png"):
                 from PIL import Image

@@ -1,8 +1,8 @@
 """RenderConfig + the five BASELINE presets (port of tpurt/config.py).
 
 The dataclass and presets are field for field tpurt's, so one preset
-name renders the same frame through either package. Only JAX-free
-modules are imported.
+name renders the same frame through either package. Meshes come from
+the port's copies of tpurt's ``meshgen`` and ``io.obj``.
 """
 
 from __future__ import annotations
@@ -10,11 +10,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from tpurt import meshgen
-from tpurt.io import obj as obj_io
-
 from . import camera as camera_mod
+from . import meshgen
 from . import scene as scene_mod
+from .io import obj as obj_io
 
 
 @dataclasses.dataclass(frozen=True)

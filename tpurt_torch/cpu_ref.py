@@ -13,9 +13,9 @@ expression, and imports no JAX: tpurt's own oracle reaches JAX through
 from __future__ import annotations
 
 import numpy as np
-from tpurt.bvh import LEAF_N
 
 from . import rng
+from .bvh import LEAF_N
 from .config import RenderConfig
 from .scene import DIELECTRIC, EMISSIVE, METAL, Scene
 from .trace import PRIMARY_AMBIENT, PRIMARY_LIGHT_DIR, RR_CLAMP_HI, RR_CLAMP_LO

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
-The sources in ``csrc/`` compile at first use into one shared library
-with a plain C interface, cached in ``_build/`` under a name keyed by a
-hash of the sources and flags, so an edited source rebuilds. Nothing
-here runs at import time: the CPU tests import every module.
+The sources in ``csrc/`` compile at first use, one nvcc per source,
+all started together, and link into one shared library with a plain C
+interface, cached in ``_build/`` under a name keyed by a hash of the
+sources and flags, so an edited source rebuilds. Nothing here runs at
+import time: the CPU tests import every module.
 
 Flags: sm_90a, -O3, and ``--fmad=false``. FMA contraction would move the
 results away from tpurt's expression order, and fast-math would also
@@ -30,8 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry point -> argument kinds: p = device pointer, i = int. Every
 # entry point takes the CUDA stream last and returns a cudaError_t.
@@ -40,11 +40,12 @@ SIGNATURES = {
     "tt_leaf_phase": "p" * 15 + "i",
     "tt_traverse_nearest": "pii" + "p" * 9 + "i",
     "tt_nearest_tri_small": "p" * 6 + "i" + "p" * 6 + "i",
+    "tt_vmemloop": "p" * 9 + "iii",
 }
 
 # kernel name -> launches since the last reset (counted by the wrappers)
 LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
-            "nearest_tri_small": 0}
+            "nearest_tri_small": 0, "vmemloop": 0}
 
 _LOADED: dict = {}
 
@@ -85,16 +86,34 @@ def build() -> dict:
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate(timeout=900)
+        log.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = so.with_name(f"{so.name}.tmp.{os.getpid()}")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                          *(str(obj) for obj, _ in jobs)],
+                         capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, so)
+    for obj, _ in jobs:
+        obj.unlink()
     return {"path": str(so), "seconds": time.perf_counter() - t0,
-            "log": res.stderr}
+            "log": "".join(log)}
 
 
 def load():

@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from tpurt.bvh import LEAF_F, PACKET_LEAF_N as LN
-
+from ..bvh import LEAF_F, PACKET_LEAF_N as LN
 from ..geometry import INF, T_MIN, TRI_EPS
 from . import _build
 

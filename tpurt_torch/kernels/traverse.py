@@ -39,11 +39,13 @@ def _tables(scene):
     return scene.pk_nodes, mi, 1
 
 
-def nearest_tri_plain(scene, o, d, t_max):
+def nearest_tri_plain(scene, o, d, t_max, counts=None):
     """Plain PyTorch per-ray walk. o, d (N,3) f32, t_max (N,) f32 (0 marks
     a dead ray). Returns (t, normal (N,3), mat, found, gid) as
     packet_nearest_tri: where nothing is found t = t_max, the normal is
-    0, mat 0 and gid -1."""
+    0, mat 0 and gid -1. A dict ``counts`` gains the walk's work:
+    "visits" (CIP rows slab-tested, one per ray per step) and
+    "leaf_rows" (leaf rows tested against one ray each)."""
     nodes, mi, n_oct = _tables(scene)
     nodes_i = nodes.view(torch.int32)
     leaves = scene.pk_leaves
@@ -67,6 +69,8 @@ def nearest_tri_plain(scene, o, d, t_max):
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     act = torch.arange(n, device=dev)
     while act.numel():
+        if counts is not None:
+            counts["visits"] = counts.get("visits", 0) + act.numel()
         row = base[act] + node[act]
         box = nodes[row]
         meta = nodes_i[row, 12:15].long()
@@ -82,6 +86,8 @@ def nearest_tri_plain(scene, o, d, t_max):
             if not bool(sel.any()):
                 continue
             ids = act[sel]
+            if counts is not None:
+                counts["leaf_rows"] = counts.get("leaf_rows", 0) + ids.numel()
             better, t, nx, ny, nz, mt, g = leaf_mt(
                 leaves[m[sel] >> 1], ox[ids, None], oy[ids, None],
                 oz[ids, None], dx[ids, None], dy[ids, None], dz[ids, None],

@@ -35,9 +35,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from tpurt import film as film_mod
-from tpurt import metrics
 
+from . import film as film_mod
+from . import metrics
 from . import render as render_mod
 from .config import RenderConfig, build_scene
 from .scene import Scene, to_device

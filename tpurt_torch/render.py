@@ -21,10 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpurt import metrics
-
 from . import camera as camera_mod
-from . import rng, trace, wavefront
+from . import metrics, rng, trace, wavefront
 from .config import RenderConfig, build_scene
 from .scene import Scene, to_device
 

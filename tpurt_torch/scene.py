@@ -1,9 +1,10 @@
 """SoA scene + built-in scenes, JAX-free (port of tpurt/scene.py).
 
 ``SceneBuilder`` and the built-in scenes build the same NumPy ``Scene``
-as tpurt, array for array: the BVH comes from ``tpurt.bvh`` (NumPy and
-ctypes only), with the packet layout's eight octant tables always on —
-the setting tpurt's production traversal uses. ``to_device`` turns every
+as tpurt, array for array: the BVH comes from ``bvh``, the port's copy
+of tpurt's builder (NumPy and ctypes only), with the packet layout's
+eight octant tables always on — the setting tpurt's production
+traversal uses. ``to_device`` turns every
 field into a tensor. Slots that hold int32 bit patterns in float32
 arrays (``mat_packed[:, 0]``, node metas, leaf mat/gid) are copied as
 bytes and read back with ``.view(torch.int32)``, never cast.
@@ -21,8 +22,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpurt import bvh as bvh_mod
-
+from . import bvh as bvh_mod
 from .camera import Camera, make_camera
 
 LAMBERTIAN, METAL, DIELECTRIC, EMISSIVE = 0, 1, 2, 3
