@@ -15,9 +15,13 @@ exits non-zero and prints no result):
                  source in parallel (seconds, registers)
   3. kernels   — the c3 scene build (seconds, native_sah), then
                  slab_step, leaf_phase and traverse_nearest against their
-                 plain versions on the c3 scene, and nearest_tri_small on
-                 c2 bounce-like rays (tables of 12, 64 and 1 triangles),
-                 on the card, at main-path shapes, each with its bound
+                 plain versions on the c3 scene (traverse: all five
+                 outputs on mixed, ragged, base-table, duplicated-triangle
+                 and render-traffic batches; then timed at batch sizes
+                 2**16 to 2**20), and nearest_tri_small on c2
+                 bounce-like rays (tables of 12, 64 and 1 triangles), on
+                 the card, at main-path shapes, each with its bound;
+                 every timed call starts with the L2 flushed
   4. vmemloop  — probe_vmemloop's kernel array-equal to its plain version
                  at T = 64 and 128 on the probe's inputs and on a table
                  with negative metas and NaN / infinite box slots, both
@@ -49,7 +53,9 @@ exits non-zero and prints no result):
                  rays, the golden tolerance
  15. imports   — no module of jax and none of tpurt loaded
  16. profile   — last (a profiled render slows later ones): g4 with
-                 --profile-dir; the Chrome trace names the traversal kernel
+                 --profile-dir; the Chrome trace names the traversal
+                 kernel; c3-mesh and c4-wavefront at 1 spp under
+                 torch.profiler: traverse's device time per launch
 The probe (in phase 4) and phases 6-13 are the main paths, each with the
 launch counts reset just before it and read just after. Then the card's
 nvidia-smi line, the kernel table as one JSON object (all five kernels,
@@ -77,7 +83,11 @@ C2_BATCH = 1 << 17         # c2's bounce batch (render.BRUTE_RAY_BATCH)
 PACKETS = 4096             # main-path batch: 2**19 rays = 4096 packets
 BOUNCE_BATCH = 1 << 19     # main-path ray batch (RenderConfig.ray_batch)
 CHECK_RAYS = 1 << 18       # primary + bounce rays: one 2**19-ray batch
+RAGGED = (BOUNCE_BATCH - 37, 17)   # ray counts that end inside a warp
 PROBE_STEPS = (64, 128)    # probe_vmemloop's step counts
+SWEEP = (1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)  # traverse batch sizes
+L2_FLUSH_BYTES = 1 << 27   # read before each timed call: over twice the
+                           # H100's 50 MB L2, so inputs come from HBM
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -115,29 +125,58 @@ def bound(n_bytes: int, ops: int) -> dict:
             "bytes": int(n_bytes), "ops": int(ops), "library_ms": None}
 
 
+_FLUSH = []
+
+
+def l2_flush():
+    """Reads a float64 buffer larger than the card's L2 (one sum per row
+    of 1,024), so that the next call finds none of its inputs there and
+    no dirty line to write back. No timed function runs a float64
+    kernel, so not_flush tells the flush apart by its name."""
+    import torch
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros((L2_FLUSH_BYTES // 8 // 1024, 1024),
+                                  dtype=torch.float64, device="cuda"))
+    _FLUSH[0].sum(dim=1)
+
+
+def not_flush(key: str) -> bool:
+    return "double" not in key
+
+
+def device_us(prof, keep=lambda key: True) -> float:
+    """Device self time (us) of a CUDA-only profile, over the keys that
+    keep accepts."""
+    return sum(getattr(e, "self_device_time_total", 0) or 0
+               for e in prof.key_averages() if keep(e.key))
+
+
 def time_ms(fn, reps: int) -> dict:
-    """Per-call times of fn() over reps calls after one warm-up: "device",
-    the CUDA kernels' own time as torch.profiler records it (None if the
-    profiler records none), and "wall", CUDA events around the calls, host
-    launch overhead included."""
+    """Per-call times of fn() over reps calls after one warm-up, with the
+    L2 flushed (l2_flush) before each call: "device", the CUDA kernels'
+    own time as torch.profiler records it, the flush left out (None if
+    the profiler records none), and "wall", CUDA events around each
+    call, host launch overhead included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
+    l2_flush()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, stop in marks:
+        l2_flush()
+        start.record()
         fn()
-    stop.record()
+        stop.record()
     torch.cuda.synchronize()
-    wall = start.elapsed_time(stop) / reps
+    wall = sum(a.elapsed_time(b) for a, b in marks) / reps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            l2_flush()
             fn()
         torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total", 0) or 0
-                 for e in prof.key_averages())
+    dev_us = device_us(prof, not_flush)
     return {"device": dev_us / 1e3 / reps if dev_us > 0 else None,
             "wall": wall}
 
@@ -289,11 +328,112 @@ def make_rays(dscene, cam, n, seed, dev):
     return o1, d1, o2, d2
 
 
-def check_traverse(dscene, cam, dev):
-    """2**18 primary + 2**18 bounce-like rays of the full c3 scene (one
-    main-path batch, an eighth of it dead): found equal, t within 1e-6
-    relative, gid equal except on exact t-ties (which are counted). Then
-    both versions timed on one 2**19-ray bounce batch."""
+def render_batch(dscene, cam, cfg, dev):
+    """The c3 render's own traffic for bounce 1: the first BOUNCE_BATCH
+    pixel-samples in tile order, with keys and primary rays built as
+    render.accumulate builds them, traced through bounce 0
+    (trace.trace, max_depth 1). Returns (o, d, t_max) with t_max = INF
+    where the ray is alive, else 0: what bounce 1's search is given."""
+    import torch
+    from tpurt_torch import camera, render, rng, trace
+    from tpurt_torch.geometry import INF
+    order = render.tile_order(cfg.width, cfg.height)
+    pix = torch.as_tensor(order[:BOUNCE_BATCH], device=dev).long()
+    keys = rng.make_streams(cfg.seed, pix, torch.zeros_like(pix))
+    o, d = camera.generate_rays(cam, cfg.width, cfg.height, pix,
+                                rng.camera_draws(keys))
+    _, _, (o, d, _, alive, _) = trace.trace(dscene, o, d, keys, 1,
+                                            cfg.rr_start, want_state=True)
+    return (o.contiguous(), d.contiguous(),
+            torch.where(alive, INF, 0.0).contiguous())
+
+
+def dup_scene(dev, n_tri=300, n_rays=1 << 16, seed=31):
+    """n_tri small random triangles, each listed twice, in a packet BVH
+    built by bvh.build_packet (octant tables on), and n_rays rays aimed
+    at random points of random triangles (an eighth dead): every hit is
+    an exact t-tie between the two copies. Returns (scene, o, d, t_max,
+    n_tri); gid g and g + n_tri (mod 2 n_tri) are one triangle."""
+    import types
+    import numpy as np
+    import torch
+    from tpurt_torch import bvh
+    rs = np.random.RandomState(seed)
+    v0 = rs.uniform(-1.0, 1.0, (n_tri, 3))
+    e1 = rs.normal(0.0, 0.15, (n_tri, 3))
+    e2 = rs.normal(0.0, 0.15, (n_tri, 3))
+    twice = lambda a: np.concatenate([a, a])                  # noqa: E731
+    pk = bvh.build_packet(twice(v0), twice(v0 + e1), twice(v0 + e2),
+                          twice(rs.randint(0, 4, n_tri)), octants=True)
+    scene = types.SimpleNamespace(
+        pk_nodes=_t(pk.nodes, dev), pk_leaves=_t(pk.leaves, dev),
+        pk_oct_nodes=_t(pk.oct_nodes.reshape(-1, 16), dev))
+    k = rs.randint(0, n_tri, n_rays)
+    a = rs.uniform(0.05, 0.9, n_rays)
+    b = rs.uniform(0.0, 1.0, n_rays) * (1.0 - a)
+    target = v0[k] + a[:, None] * e1[k] + b[:, None] * e2[k]
+    org = target + rs.normal(0.0, 1.0, (n_rays, 3))
+    d = target - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.full(n_rays, 3.0e38, np.float32)
+    t_max[rs.uniform(size=n_rays) < 0.125] = 0.0
+    return (scene, _t(org.astype(np.float32), dev),
+            _t(d.astype(np.float32), dev), _t(t_max, dev), n_tri)
+
+
+def leaf_slots(scene):
+    """(leaf row * 32 + slot) of each gid of the scene's leaf rows."""
+    import torch
+    from tpurt_torch.bvh import PACKET_LEAF_N as LN
+    gids = scene.pk_leaves.view(torch.int32)[:, 10 * LN:11 * LN].reshape(-1)
+    pos = torch.arange(gids.numel(), device=gids.device)
+    real = gids >= 0
+    slot = torch.full((int(gids.max()) + 1,), -1, dtype=torch.int64,
+                      device=gids.device)
+    slot[gids[real].long()] = pos[real]
+    return slot
+
+
+def compare_nearest(name, scene, got, want):
+    """All five outputs of the kernel against the plain version's: found
+    equal, t bit-equal, gid equal, and normal and mat bit-equal wherever
+    gid is equal. A gid may differ only on an exact t-tie (t is equal
+    there) between two different leaf rows; returns that count."""
+    import torch
+    from tpurt_torch.bvh import PACKET_LEAF_N as LN
+    t, nrm, mat, found, gid = got
+    wt, wnrm, wmat, wfound, wgid = want
+    if not torch.equal(found, wfound):
+        raise AssertionError(f"traverse ({name}): found differs")
+    if not torch.equal(t.view(torch.int32), wt.view(torch.int32)):
+        raise AssertionError(f"traverse ({name}): t not bit-equal")
+    same = gid == wgid
+    if not (torch.equal(nrm[same].view(torch.int32),
+                        wnrm[same].view(torch.int32))
+            and torch.equal(mat[same], wmat[same])):
+        raise AssertionError(f"traverse ({name}): normal or mat differs")
+    ties = int((~same).sum())
+    if ties:
+        slot = leaf_slots(scene)
+        rows_k = slot[gid[~same].long()] // LN
+        rows_w = slot[wgid[~same].long()] // LN
+        if bool((rows_k == rows_w).any()):
+            raise AssertionError(f"traverse ({name}): gid differs inside "
+                                 "one leaf row")
+    return ties
+
+
+def check_traverse(dscene, cam, cfg, dev):
+    """The kernel against its plain version (compare_nearest, all five
+    outputs) on the full c3 scene: 2**18 primary + 2**18 bounce-like
+    rays (an eighth dead), ragged cuts of them (2**19 - 37 and 17 rays),
+    the same rays over the base table alone, a scene of duplicated
+    triangles (dup_scene: the lower slot of the leaf must win), the
+    random bounce batch and the c3 render's own bounce-1 traffic
+    (render_batch). Both versions timed on the last two; the bounce
+    batch's numbers fill the kernel row, the render batch's sit beside
+    them. Then the kernel alone on random bounce batches of each SWEEP
+    size (how its time grows with the batch)."""
     import torch
     from tpurt_torch.bvh import PACKET_LEAF_N as LN
     from tpurt_torch.kernels import traverse
@@ -302,39 +442,73 @@ def check_traverse(dscene, cam, dev):
     d = torch.cat([d1, d2]).contiguous()
     t_max = torch.full((o.shape[0],), 3.0e38, device=dev)
     t_max[::8] = 0.0                                  # dead lanes
-    got = traverse.nearest_tri(dscene, o, d, t_max)
-    want = traverse.nearest_tri_plain(dscene, o, d, t_max)
-    if not torch.equal(got[3], want[3]):
-        raise AssertionError("traverse: found differs")
-    f = got[3]
-    rel = ((got[0][f] - want[0][f]).abs() / want[0][f].abs()).max()
-    if float(rel) > 1e-6:
-        raise AssertionError(f"traverse: t off by {float(rel)} relative")
-    gdiff = f & (got[4] != want[4])
-    ties = int((gdiff & (got[0] == want[0])).sum())
-    if int(gdiff.sum()) != ties:
-        raise AssertionError("traverse: gid differs away from t-ties")
-    err = float((got[0][f] - want[0][f]).abs().max())
-
     _, _, ob, db = make_rays(dscene, cam, BOUNCE_BATCH, 11, dev)
     tb = torch.full((BOUNCE_BATCH,), 3.0e38, device=dev)
-    # the bound counts the work of this batch's walks (the kernel walks
-    # each ray as the plain version does) and each table read once
-    work = {}
-    traverse.nearest_tri_plain(dscene, ob, db, tb, counts=work)
-    outs = traverse.nearest_tri(dscene, ob, db, tb)
-    ops = (work["visits"] * SLAB2_OPS
-           + work["leaf_rows"] * LN * TRI_TEST_OPS)
-    tables = (dscene.pk_oct_nodes, dscene.pk_leaves)
-    return {"max_abs_err": err, "t_ties": ties,
-            "found_share": float(f.float().mean()),
-            "check_rays": int(o.shape[0]),
-            "shape": f"bounce batch N={BOUNCE_BATCH}",
-            "node_visits": work["visits"], "leaf_rows": work["leaf_rows"],
-            **bound(nbytes(ob, db, tb, *tables, *outs), ops),
-            **timed(lambda: traverse.nearest_tri(dscene, ob, db, tb),
-                    lambda: traverse.nearest_tri_plain(dscene, ob, db, tb),
-                    10, 1)}
+    o_r, d_r, t_r = render_batch(dscene, cam, cfg, dev)
+    dup, o_u, d_u, t_u, n_tri = dup_scene(dev)
+    cases = {"mixed": (dscene, o, d, t_max),
+             "base_table": (dscene._replace(pk_oct_nodes=None), o, d, t_max),
+             "duplicates": (dup, o_u, d_u, t_u),
+             "bounce": (dscene, ob, db, tb),
+             "render": (dscene, o_r, d_r, t_r)}
+    for n in RAGGED:
+        cases[f"ragged_{n}"] = (dscene, o[:n], d[:n], t_max[:n])
+    ties, found_share, outs, err = {}, {}, {}, 0.0
+    for name, (sc, oo, dd, tt) in cases.items():
+        got = traverse.nearest_tri(sc, oo, dd, tt)
+        want = traverse.nearest_tri_plain(sc, oo, dd, tt)
+        ties[name] = compare_nearest(name, sc, got, want)
+        same = (got[4] == want[4])[:, None]
+        err = max(err, float((got[0] - want[0]).abs().max()),
+                  float(torch.where(same, got[1] - want[1], 0.0).abs().max()))
+        found_share[name] = float(got[3].float().mean())
+        outs[name] = got
+    # duplicates: every hit is a tie inside a leaf row, won by the copy
+    # in the lower slot
+    _, _, _, f_u, g_u = outs["duplicates"]
+    slot = leaf_slots(dup)
+    g = g_u[f_u].long()
+    twin = (g + n_tri) % (2 * n_tri)
+    same_row = slot[g] // LN == slot[twin] // LN
+    if found_share["duplicates"] < 0.5 or not bool(same_row.all()) \
+            or not bool((slot[g] < slot[twin]).all()):
+        raise AssertionError("traverse (duplicates): the lower slot of the "
+                             "leaf did not win every tie")
+
+    def measure(sc, oo, dd, tt, got):
+        # the bound counts the work of this batch's walks (the kernel
+        # walks each ray as the plain version does) and each table read
+        # once
+        work = {}
+        traverse.nearest_tri_plain(sc, oo, dd, tt, counts=work)
+        ops = (work["visits"] * SLAB2_OPS
+               + work["leaf_rows"] * LN * TRI_TEST_OPS)
+        tables = (sc.pk_oct_nodes, sc.pk_leaves)
+        return {"node_visits": work["visits"], "leaf_rows": work["leaf_rows"],
+                **bound(nbytes(oo, dd, tt, *tables, *got), ops),
+                **timed(lambda: traverse.nearest_tri(sc, oo, dd, tt),
+                        lambda: traverse.nearest_tri_plain(sc, oo, dd, tt),
+                        10, 1)}
+
+    bounce_res = measure(*cases["bounce"], outs["bounce"])
+    render_res = measure(*cases["render"], outs["render"])
+    _, _, o_s, d_s = make_rays(dscene, cam, max(SWEEP), 13, dev)
+    t_s = torch.full((max(SWEEP),), 3.0e38, device=dev)
+    sweep_ms = {}
+    for n in SWEEP:
+        args = (dscene, o_s[:n], d_s[:n], t_s[:n])
+        res = time_ms(lambda: traverse.nearest_tri(*args), 10)
+        sweep_ms[n] = res["device"] if res["device"] is not None \
+            else res["wall"]
+    return {"max_abs_err": err, "check": "bit-equal (t, normal, mat, "
+            "found, gid) up to cross-row t-ties", "t_ties": ties,
+            "found_share": found_share,
+            "check_rays": {k: int(v[1].shape[0]) for k, v in cases.items()},
+            "shape": f"bounce batch N={BOUNCE_BATCH}", **bounce_res,
+            "render_batch": render_res, "sweep_ms": sweep_ms,
+            "row_extra": {"render_ms": render_res["ms"],
+                          "render_bound_ms": render_res["bound_ms"],
+                          "render_live_rays": int((t_r > 0).sum())}}
 
 
 def c2_rays(dev):
@@ -430,7 +604,7 @@ def phase_kernels(dev):
     results = {
         "slab_step": check_slab_step(dev),
         "leaf_phase": check_leaf_phase(scene, dev),
-        "traverse_nearest": check_traverse(dscene, cam, dev),
+        "traverse_nearest": check_traverse(dscene, cam, cfg, dev),
         "nearest_tri_small": check_nearest_tri_small(dev),
     }
     for name, res in results.items():
@@ -793,9 +967,13 @@ def phase_oracle(golden_rays):
 def phase_profile():
     """Last: a g4-sized render with --profile-dir (profiled renders slow
     later renders of the process); the Chrome trace must exist and name
-    the traversal kernel."""
+    the traversal kernel. Then c3-mesh and c4-wavefront at 1 spp through
+    the CLI under torch.profiler (CUDA activity): the search kernel's
+    device time per launch and its share of the device time."""
     import tempfile
+    from torch.profiler import ProfilerActivity, profile
     from tpurt_torch import cli
+    from tpurt_torch.kernels import _build
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         _, stats = cli.run(["render", *golden_argv(GOLDENS["g4-mesh"]),
@@ -809,6 +987,20 @@ def phase_profile():
     if found == 0:
         raise AssertionError("profile: the trace never names "
                              "traverse_nearest_kernel")
+    for preset in ("c3-mesh", "c4-wavefront"):
+        _build.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, stats = cli.run(["render", "--preset", preset, "--spp", "1"])
+        launches = _build.LAUNCHES["traverse_nearest"]
+        total = device_us(prof) / 1e3
+        trav = device_us(prof, lambda k: "traverse_nearest_kernel" in k) / 1e3
+        emit("render_profile", preset=preset, spp=1, rays=stats["rays"],
+             traverse_launches=launches, traverse_ms=trav,
+             traverse_ms_per_launch=trav / max(launches, 1),
+             device_ms=total, traverse_share=trav / total)
+        if launches == 0 or trav <= 0.0:
+            raise AssertionError(f"render_profile ({preset}): no traverse "
+                                 "device time")
 
 
 def phase_imports():
@@ -884,7 +1076,7 @@ def main() -> int:
                 "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                 "library_ms": res["library_ms"], "library": NO_LIBRARY,
-                "shape": res["shape"]}
+                "shape": res["shape"], **res.get("row_extra", {})}
 
     print(smi, flush=True)
     # launches summed over the paths' runs. slab_step and leaf_phase run

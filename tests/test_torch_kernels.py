@@ -285,3 +285,99 @@ def test_traversal_without_octant_tables_uses_base_table(blob3):
                                 _t(o), _t(d), _t(t_max))
     _assert_same_hits("base", scene, base, *(oct_[i].numpy()
                                             for i in (0, 3, 4)), o, d)
+
+
+def _tie_triangles():
+    """24 triangles: one triangle at slots 5 and 20 (mat 2), a triangle at
+    slot 7 in a nearer plane that the rays pass beside, and small far-off
+    fillers (mat 1)."""
+    tris = [((10.0 + k, 10.0, 0.0), (10.5 + k, 10.0, 0.0),
+             (10.0 + k, 10.5, 0.0), 1) for k in range(24)]
+    twin = ((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0), 2)
+    tris[5] = tris[20] = twin
+    tris[7] = ((2.0, 2.0, 1.0), (3.0, 2.0, 1.0), (2.0, 3.0, 1.0), 1)
+    return tris
+
+
+def _tie_rays(n=R, seed=13):
+    """Rays from above the z = 1 plane to points inside the twin: each
+    meets slot 7's plane first (t about 1), outside that triangle."""
+    rs = np.random.RandomState(seed)
+    a = rs.uniform(0.05, 0.6, n)
+    b = rs.uniform(0.05, 0.3, n)
+    target = np.stack([a, b, np.zeros(n)], axis=1)
+    org = target + np.array([0.1, -0.05, 2.0])
+    d = target - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return org.astype(np.float32), d.astype(np.float32)
+
+
+def test_leaf_tie_goes_to_the_lower_slot():
+    """The rule a warp-wide (t, slot) minimum must keep: an exact t-tie
+    inside a leaf row goes to the lower slot, and a nearer triangle whose
+    barycentric test fails does not count. leaf.leaf_mt on the row, the
+    plain walk on the scene and tpurt's production packet walk all
+    return slot 5's triangle."""
+    from tpurt import scene as jscene_mod
+
+    tris = _tie_triangles()
+    tb = tscene.SceneBuilder()
+    jb = jscene_mod.SceneBuilder()
+    for b in (tb, jb):
+        b.lambertian((0.5, 0.5, 0.5))
+        for v0, v1, v2, m in tris:
+            b.triangle(v0, v1, v2, m)
+    scene = tb.build(use_bvh=True)
+    assert scene.pk_leaves.shape[0] == 1          # one leaf row, slot = id
+    row = scene.pk_leaves[0].reshape(LEAF_F, LN)
+    np.testing.assert_array_equal(row[:9, 5], row[:9, 20])
+    assert row.view(np.int32)[10, 5] == 5 and row.view(np.int32)[10, 20] == 20
+    o, d = _tie_rays()
+    n = o.shape[0]
+
+    better, t, _, _, nz, mat, gid = leaf.leaf_mt(
+        _t(scene.pk_leaves), *(_t(o[None, :, k]) for k in range(3)),
+        *(_t(d[None, :, k]) for k in range(3)), torch.full((1, n), INF))
+    assert better.all()
+    assert (gid == 5).all() and (mat == 2).all() and (nz == 1.0).all()
+    assert (t > 1.5).all()                         # the twin, not slot 7
+
+    t_w, n_w, m_w, f_w, g_w = traverse.nearest_tri_plain(
+        tscene.to_device(scene, "cpu"), _t(o), _t(d), torch.full((n,), INF))
+    assert f_w.all() and (g_w == 5).all() and (m_w == 2).all()
+    assert torch.equal(t_w, t[0])
+
+    jscene = jb.build(use_bvh=True).device()
+    t_p, _, m_p, f_p, g_p = (np.asarray(a) for a in jtrav.packet_nearest_tri(
+        jscene, jnp.asarray(o), jnp.asarray(d),
+        jnp.full((n,), 3.0e38, jnp.float32)))
+    assert f_p.all() and (g_p == 5).all() and (m_p == 2).all()
+    assert _ulps(t_p, t_w.numpy()).max() <= T_ULPS_VS_XLA_CPU
+
+
+def test_smoke_traverse_check_on_the_plain_walk():
+    """chip_smoke.py's check of the search kernel, run here on the plain
+    walk: in its duplicated-triangle scene every hit is a tie inside one
+    leaf row, won by the lower slot; compare_nearest passes equal
+    outputs and refuses a gid that differs inside one leaf row."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    scene, o, d, t_max, n_tri = chip_smoke.dup_scene("cpu", n_rays=4096)
+    got = traverse.nearest_tri(scene, o, d, t_max)
+    assert chip_smoke.compare_nearest("dup", scene, got, got) == 0
+    found, gid = got[3], got[4]
+    assert found.float().mean() > 0.5
+    slot = chip_smoke.leaf_slots(scene)
+    g = gid[found].long()
+    twin = (g + n_tri) % (2 * n_tri)
+    assert (slot[g] // LN == slot[twin] // LN).all()
+    assert (slot[g] < slot[twin]).all()
+    forged = list(got)
+    forged[4] = gid.clone()
+    i = int(torch.nonzero(found)[0])
+    forged[4][i] = int(twin[0])
+    with pytest.raises(AssertionError, match="inside one leaf row"):
+        chip_smoke.compare_nearest("forged", scene, got, forged)

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SIGNATURES = {
     "tt_slab_step": "p" * 12 + "i",
     "tt_leaf_phase": "p" * 15 + "i",
-    "tt_traverse_nearest": "pii" + "p" * 9 + "i",
+    "tt_traverse_nearest": "pii" + "p" * 10 + "i",
     "tt_nearest_tri_small": "p" * 6 + "i" + "p" * 6 + "i",
     "tt_vmemloop": "p" * 9 + "iii",
 }

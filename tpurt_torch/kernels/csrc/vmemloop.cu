@@ -32,7 +32,7 @@
 // SMs.
 // The TPU kernel's unrolled scalar cursors, its (1,128) slab ops on
 // 8-sublane tiles and its lane-any reduces are not carried over.
-#include <cuda_runtime.h>
+#include "bvh_common.cuh"
 
 namespace {
 
@@ -42,18 +42,6 @@ constexpr int RAYS_PER_LANE = PACKET_R / 32;
 constexpr int PACKETS_PER_BLOCK = 8;
 constexpr float T_NEAR = 1e-3f;
 constexpr float T_FAR = 3e38f;
-
-// NaN-propagating min / max in one instruction each (sm_80 and later).
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
 
 // a mod m in [0, m) for m > 0, as jnp's % and torch.remainder.
 __device__ __forceinline__ int floor_mod(int a, int m) {
@@ -109,8 +97,8 @@ vmemloop_kernel(const float* __restrict__ nodes, const float* __restrict__ ox,
         for (int c = 0; c < 3; ++c) {
           const float t0 = (row[off + c] - o[c][j]) * iv[c][j];
           const float t1 = (row[off + c + 3] - o[c][j]) * iv[c][j];
-          tn = max_nan(tn, min_nan(t0, t1));
-          tf = min_nan(tf, max_nan(t0, t1));
+          tn = tt::max_nan(tn, tt::min_nan(t0, t1));
+          tf = tt::min_nan(tf, tt::max_nan(t0, t1));
         }
         any |= tn <= tf;
       }

@@ -13,7 +13,10 @@ the earlier hit. The walking order differs from tpurt's packet-majority
 octant order, which can change a winner only on an exact float32 t-tie.
 
 ``nearest_tri_plain`` is the plain PyTorch version: every live ray takes
-one visit per loop step. The CUDA kernel is ``csrc/traverse.cu``.
+one visit per loop step. The CUDA kernel is ``csrc/traverse.cu``: the
+same walk per ray, with each leaf row tested by a whole warp (one
+triangle per lane) and persistent warps that take ray ids from a
+counter; its outputs are bit-equal to the plain version's.
 """
 
 from __future__ import annotations
@@ -131,7 +134,10 @@ def nearest_tri(scene, o, d, t_max):
     mat = torch.empty(n, dtype=torch.int32, device=dev)
     found = torch.empty(n, dtype=torch.bool, device=dev)
     gid = torch.empty(n, dtype=torch.int32, device=dev)
+    # the kernel's warps take ray ids from this counter (the entry point
+    # zeroes it)
+    next_ray = torch.empty(1, dtype=torch.int32, device=dev)
     _build.launch("tt_traverse_nearest", dev, nodes, mi, n_oct, leaves,
-                  o, d, t_max, t, nrm, mat, found, gid, n)
+                  o, d, t_max, t, nrm, mat, found, gid, next_ray, n)
     _build.LAUNCHES["traverse_nearest"] += 1
     return t, nrm, mat, found, gid
