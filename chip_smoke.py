@@ -19,14 +19,21 @@ exits non-zero and prints no result):
                  outputs on mixed, ragged, base-table, duplicated-triangle
                  and render-traffic batches; then timed at batch sizes
                  2**16 to 2**20), and nearest_tri_small on c2
-                 bounce-like rays (tables of 12, 64 and 1 triangles), on
-                 the card, at main-path shapes, each with its bound;
-                 every timed call starts with the L2 flushed
+                 bounce-like rays (tables of 12, 20, 64, 100, 1 and of 12
+                 huge triangles; ragged and unaligned cuts) and on every
+                 bounce of a c2-cornell render at 1 spp (c2_traffic: live
+                 share per bounce, bounce 0 and the last bounce timed),
+                 on the card, at main-path shapes, each with its bound
+                 (operations by class); every timed call starts with the
+                 L2 flushed
   4. vmemloop  — probe_vmemloop's kernel array-equal to its plain version
-                 at T = 64 and 128 on the probe's inputs and on a table
-                 with negative metas and NaN / infinite box slots, both
-                 timed; then the probe's path (python -m
-                 tpurt_torch.probe_vmemloop), ns_per_packet_step per T
+                 at T = 0, 64 and 128 and P = 1024, 1000 and 1 on the
+                 probe's table, one with negative metas and NaN / infinite
+                 box slots, and one with metas up to +-2**30; the cluster
+                 size and cudaOccupancyMaxActiveClusters; both versions
+                 timed on the probe's inputs at each T; then the probe's
+                 path (python -m tpurt_torch.probe_vmemloop),
+                 ns_per_packet_step per T
   5. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
                  1, none by more than 8), and g2..g5 again in modes
@@ -59,8 +66,8 @@ exits non-zero and prints no result):
 The probe (in phase 4) and phases 6-13 are the main paths, each with the
 launch counts reset just before it and read just after. Then the card's
 nvidia-smi line, the kernel table as one JSON object (all five kernels,
-each with its launches by path and its bound), and as the last line
-{"ok": true, "device": {...}}.
+each with its launches by path, its bound and its operations by class),
+and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -85,23 +92,48 @@ BOUNCE_BATCH = 1 << 19     # main-path ray batch (RenderConfig.ray_batch)
 CHECK_RAYS = 1 << 18       # primary + bounce rays: one 2**19-ray batch
 RAGGED = (BOUNCE_BATCH - 37, 17)   # ray counts that end inside a warp
 PROBE_STEPS = (64, 128)    # probe_vmemloop's step counts
+VMEM_STEPS = (0,) + PROBE_STEPS   # T = 0: the table copy alone
+VMEM_PACKETS = (1024, 1000, 1)   # the probe's P, a grid that is not a
+                                 # multiple of the cluster size, one packet
 SWEEP = (1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)  # traverse batch sizes
 L2_FLUSH_BYTES = 1 << 27   # read before each timed call: over twice the
                            # H100's 50 MB L2, so inputs come from HBM
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
-# H100 SXM's 3.35 TB/s and its float32 operations over the issue rate,
-# one operation per FP32 lane per cycle (132 SMs x 128 lanes x 1.98
-# GHz; the 67 TFLOP/s data-sheet figure counts an FMA as two, and the
-# kernels build with --fmad=false, so nothing fuses).
+# H100 SXM's 3.35 TB/s and its operations' issue time, on 132 SMs at
+# 1.98 GHz (the kernels build with --fmad=false, so no add and mul fuse
+# into an FMA). An SM issues one warp instruction a cycle on each of its
+# four sub-partitions (128 lane-operations a cycle), into pipes that run
+# side by side, each at its own rate from NVIDIA's arithmetic
+# instruction throughput table for compute capability 9.0. The issue
+# time is that of the busiest: all instructions at ISSUE_PER_CYCLE, or
+# one pipe's at its PIPE_RATE.
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 132 * 128 * 1.98e9
-SLAB2_OPS = 50     # one ray against a CIP row: 2 boxes x 3 axes x (2 sub,
-                   # 2 mul, min, max, max, min) + the 2 compares
-TRI_TEST_OPS = 57  # one ray against one triangle (Moller-Trumbore as in
-                   # leaf_mt: 3 cross products, 3 dots, the subtraction,
-                   # the division, 7 compares and adds, the select)
+SM_CYCLES_PER_S = 132 * 1.98e9
+ISSUE_PER_CYCLE = 128
+PIPE_RATE = {"add_mul": 128,      # float32 add, sub, mul (FMA pipe)
+             "cmp_minmax": 64,    # float32 compare, min, max, select; int32
+                                  # add, logic, compare (ALU pipe)
+             "mufu": 16}          # MUFU reciprocal, square root
+# IEEE 1.0f / x at its cheapest, counted once in cuobjdump -sass of the
+# built library (sm_90a): tt::FastRcp in nearest_tri_small's scan issues
+# MUFU.RCP, FFMA, FFMA (the negation folds into the second FFMA's
+# operand) and its exponent-range check, an integer add and a LOP3 whose
+# predicate output is the compare. nvcc's own 1.0f / det (leaf_phase,
+# traverse) issues an FADD and an ISETP more, and a branch.
+DIV_SEQ = {"mufu": 1, "add_mul": 2, "cmp_minmax": 2}
+# One ray against a CIP row: 2 boxes x 3 axes x (2 sub, 2 mul | min,
+# max, max, min), and the 2 compares tn <= tf: 50 operations.
+SLAB2_OPS = {"add_mul": 24, "cmp_minmax": 26}
+# One ray against one triangle (Moller-Trumbore as tt::mt computes it):
+# 3 cross products, 3 dots, the subtraction, the add u + v and the three
+# products by 1/det (45); |det| > eps and 5 window compares, the select
+# of det, the select of t, the compare with the best and its two selects
+# (11); the division (1): 57 operations.
+TRI_TEST_OPS = {"add_mul": 45, "cmp_minmax": 11, "div": 1}
+# Before the split, every operation was priced at 128 per SM per cycle.
+UNWEIGHTED_OPS_PER_S = 128 * SM_CYCLES_PER_S
 # No single PyTorch call computes a nearest hit, a slab OR-reduction or a
 # cursor walk, so no kernel has a library yardstick.
 NO_LIBRARY = "none: no single PyTorch call computes this function"
@@ -115,14 +147,42 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, ops: int) -> dict:
-    """The bound (ms) of work that moves n_bytes and does ops float32
-    operations, and which of the two sets it."""
+def work(*terms) -> dict:
+    """Operations by class of (count, per-item classes) terms, e.g.
+    work((visits, SLAB2_OPS), (tests, TRI_TEST_OPS))."""
+    total: dict = {}
+    for count, per in terms:
+        for cls, n in per.items():
+            total[cls] = total.get(cls, 0) + int(count) * n
+    return total
+
+
+def sm_cycles(ops: dict) -> float:
+    """SM-cycles of issue that operations by class take (a division is
+    DIV_SEQ's instructions): the larger of all of them at
+    ISSUE_PER_CYCLE and each pipe's at its own rate."""
+    by_pipe = dict.fromkeys(PIPE_RATE, 0)
+    for cls, n in ops.items():
+        for c, k in (DIV_SEQ.items() if cls == "div" else ((cls, 1),)):
+            by_pipe[c] += n * k
+    return max(sum(by_pipe.values()) / ISSUE_PER_CYCLE,
+               *(n / PIPE_RATE[c] for c, n in by_pipe.items()))
+
+
+def bound(n_bytes: int, ops: dict) -> dict:
+    """The bound (ms) of work that moves n_bytes and does the operations
+    ops (by class), and which of the two sets it. unweighted_bound_ms
+    prices every operation at 128 per SM per cycle, as the bound did
+    before the split by class."""
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / F32_OPS_PER_S * 1e3
+    o_ms = sm_cycles(ops) / SM_CYCLES_PER_S * 1e3
+    n_ops = sum(ops.values())
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "bytes": int(n_bytes), "ops": int(ops), "library_ms": None}
+            "bytes": int(n_bytes), "ops": n_ops, "ops_by_class": ops,
+            "unweighted_bound_ms": max(b_ms,
+                                       n_ops / UNWEIGHTED_OPS_PER_S * 1e3),
+            "library_ms": None}
 
 
 _FLUSH = []
@@ -223,6 +283,7 @@ def phase_build():
             if "registers" in ln or "Compiling entry" in ln]
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs)
+    return info["path"]
 
 
 def _t(a, dev):
@@ -251,7 +312,7 @@ def check_slab_step(dev):
             raise AssertionError("slab_step disagrees with its plain version")
     return {"max_abs_err": 0.0, "check": "bit-equal",
             "shape": f"P={PACKETS}",
-            **bound(nbytes(*args, *got), PACKETS * 128 * SLAB2_OPS),
+            **bound(nbytes(*args, *got), work((PACKETS * 128, SLAB2_OPS))),
             **timed(lambda: slab.slab_step(*args),
                     lambda: slab.slab_step_plain(*args), 50, 10)}
 
@@ -301,7 +362,7 @@ def check_leaf_phase(scene, dev):
         raise AssertionError(f"leaf_phase check hit too little: {improved}")
     err = max(float((g - w).abs().max()) for g, w in zip(got[:4], want[:4]))
     # only a pending packet tests its row's LN triangles
-    ops = int(pending.sum()) * r * LN * TRI_TEST_OPS
+    ops = work((int(pending.sum()) * r * LN, TRI_TEST_OPS))
     return {"max_abs_err": err, "max_t_ulps": int(ulps.max()),
             "improved_share": improved, "shape": f"P={PACKETS}",
             **bound(nbytes(*args, *got), ops),
@@ -479,12 +540,13 @@ def check_traverse(dscene, cam, cfg, dev):
         # the bound counts the work of this batch's walks (the kernel
         # walks each ray as the plain version does) and each table read
         # once
-        work = {}
-        traverse.nearest_tri_plain(sc, oo, dd, tt, counts=work)
-        ops = (work["visits"] * SLAB2_OPS
-               + work["leaf_rows"] * LN * TRI_TEST_OPS)
+        walks = {}
+        traverse.nearest_tri_plain(sc, oo, dd, tt, counts=walks)
+        ops = work((walks["visits"], SLAB2_OPS),
+                   (walks["leaf_rows"] * LN, TRI_TEST_OPS))
         tables = (sc.pk_oct_nodes, sc.pk_leaves)
-        return {"node_visits": work["visits"], "leaf_rows": work["leaf_rows"],
+        return {"node_visits": walks["visits"],
+                "leaf_rows": walks["leaf_rows"],
                 **bound(nbytes(oo, dd, tt, *tables, *got), ops),
                 **timed(lambda: traverse.nearest_tri(sc, oo, dd, tt),
                         lambda: traverse.nearest_tri_plain(sc, oo, dd, tt),
@@ -539,54 +601,167 @@ def c2_rays(dev):
     return dscene, o, d, _t(t_max, dev)
 
 
+def c2_traffic(dev, cfg=None):
+    """The arguments of every nearest_tri_small call of one c2-cornell
+    render at 1 spp (or of cfg's render), in call order, as (batch,
+    bounce, args): the function trace.intersect calls is wrapped for the
+    render and restored after it. A bounce keeps or loses live rays, never
+    gains them, so a call with more live rays than the one before starts
+    the next batch."""
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch.kernels import intersect
+    cfg = cfg or config.PRESETS["c2-cornell"].replace(spp=1)
+    calls = []
+    kernel = intersect.nearest_tri_small
+
+    def record(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return kernel(*args)
+
+    intersect.nearest_tri_small = record
+    try:
+        render.render(cfg, device=dev)
+    finally:
+        intersect.nearest_tri_small = kernel
+    out, batch, bounce, before = [], 0, 0, None
+    for args in calls:
+        live = int((args[6] > 1e-3).sum())
+        if before is not None:
+            batch, bounce = ((batch + 1, 0) if live > before
+                             else (batch, bounce + 1))
+        before = live
+        out.append((batch, bounce, args))
+    return out
+
+
+def slow_rcp_pairs(o, d, e1, e2, t_max) -> int:
+    """(live ray, triangle) pairs whose 1 / det the kernel's fast
+    reciprocal does not take: the divisor (det, or 1 where |det| <=
+    TRI_EPS, as geometry.moller_trumbore picks it) has an exponent field
+    outside [1, 252] (|det| >= 2**126, or inf). A ray with one is scanned
+    again with the IEEE division."""
+    import torch
+    from tpurt_torch import geometry, linalg
+    det = linalg.dot(e1[None], linalg.cross(d[:, None], e2[None]))
+    div = torch.where(det.abs() > geometry.TRI_EPS, det, 1.0)
+    field = (div.view(torch.int32) >> 23) & 0xFF
+    slow = ((field < 1) | (field > 252)) & (t_max > geometry.T_MIN)[:, None]
+    return int(slow.sum())
+
+
+def _same_outputs(name, got, want):
+    import torch
+    for k, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"nearest_tri_small ({name}, output {k}) "
+                                 "disagrees with its plain version")
+
+
 def check_nearest_tri_small(dev):
-    """c2 bounce-like rays against the Cornell table (T=12), 64 random
-    triangles in the box and the inert one-triangle table: all five
+    """c2 bounce-like rays against the Cornell table (T=12), random
+    tables of 20, 64 and 100 triangles in the box (100 takes the general
+    kernel), 12 with edges of ~1e19 (dets past the kernel's fast
+    reciprocal) and the inert one-triangle table; the Cornell table also on
+    a ragged cut (N - 37 rays) and an unaligned one (rays 1..N-1); then
+    every call of one c2-cornell render at 1 spp (c2_traffic): all five
     outputs (t, n, mat, hit, tri) bit-equal to the plain version. Both
-    versions timed at the c2 shape (T=12, one C2_BATCH-ray batch)."""
+    versions timed on the bounce batch (T=12, one C2_BATCH-ray batch:
+    the row's numbers), the kernel also on the render's bounce 0 and on
+    its first batch's last bounce (the last with live rays), and on the
+    bounce batch with every lane dead and with the 64-triangle table."""
     import numpy as np
     import torch
     from tpurt_torch.kernels import intersect
     dscene, o, d, t_max = c2_rays(dev)
     rs = np.random.RandomState(22)
-    v0 = rs.uniform((-1, 0, -1), (1, 2, 1), (64, 3)).astype(np.float32)
-    tables = {
-        "cornell": (dscene.tri_v0, dscene.tri_e1, dscene.tri_e2,
-                    dscene.tri_mat),
-        "random64": (_t(v0, dev),
-                     _t(rs.normal(0, 0.4, (64, 3)).astype(np.float32), dev),
-                     _t(rs.normal(0, 0.4, (64, 3)).astype(np.float32), dev),
-                     _t(rs.randint(0, 6, 64).astype(np.int32), dev)),
-        "inert": (torch.zeros((1, 3), device=dev),
-                  torch.zeros((1, 3), device=dev),
-                  torch.zeros((1, 3), device=dev),
-                  torch.zeros(1, dtype=torch.int32, device=dev)),
-    }
+    cornell = (dscene.tri_v0, dscene.tri_e1, dscene.tri_e2, dscene.tri_mat)
+    tables = {"cornell": cornell}
+    for k in (20, 64, 100):
+        v0 = rs.uniform((-1, 0, -1), (1, 2, 1), (k, 3)).astype(np.float32)
+        tables[f"random{k}"] = (
+            _t(v0, dev),
+            _t(rs.normal(0, 0.4, (k, 3)).astype(np.float32), dev),
+            _t(rs.normal(0, 0.4, (k, 3)).astype(np.float32), dev),
+            _t(rs.randint(0, 6, k).astype(np.int32), dev))
+    # edges of ~1e19: many dets of 2**126 or more, which the kernel's
+    # branch-free reciprocal leaves to the IEEE division
+    v0 = rs.uniform((-1, 0, -1), (1, 2, 1), (12, 3)).astype(np.float32)
+    tables["huge12"] = (
+        _t(v0, dev),
+        _t(rs.normal(0, 6e18, (12, 3)).astype(np.float32), dev),
+        _t(rs.normal(0, 6e18, (12, 3)).astype(np.float32), dev),
+        _t(rs.randint(0, 6, 12).astype(np.int32), dev))
+    tables["inert"] = (torch.zeros((1, 3), device=dev),
+                       torch.zeros((1, 3), device=dev),
+                       torch.zeros((1, 3), device=dev),
+                       torch.zeros(1, dtype=torch.int32, device=dev))
     hit_share = {}
     for name, tab in tables.items():
         got = intersect.nearest_tri_small(o, d, *tab, t_max)
-        want = intersect.nearest_tri_small_plain(o, d, *tab, t_max)
-        for k, (g, w) in enumerate(zip(got, want)):
-            if not torch.equal(g, w):
-                raise AssertionError(f"nearest_tri_small ({name}, output "
-                                     f"{k}) disagrees with its plain version")
+        _same_outputs(name, got,
+                      intersect.nearest_tri_small_plain(o, d, *tab, t_max))
         hit_share[name] = float(got[3].float().mean())
     if hit_share["cornell"] < 0.3 or hit_share["random64"] < 0.05 \
             or hit_share["inert"] != 0.0:
         raise AssertionError(f"nearest_tri_small hit shares {hit_share}")
-    tab = tables["cornell"]
-    # a dead ray (t_max 0) needs no triangle test; the outputs' shapes
-    # do not depend on the table
-    ops = int((t_max > 0).sum()) * tab[0].shape[0] * TRI_TEST_OPS
+    # huge12 must drive the re-scan with the IEEE division
+    slow_pairs = slow_rcp_pairs(o, d, tables["huge12"][1],
+                                tables["huge12"][2], t_max)
+    if slow_pairs < 0.01 * int((t_max > 1e-3).sum()) * 12:
+        raise AssertionError(f"nearest_tri_small huge12: only {slow_pairs} "
+                             "pairs take the IEEE division's slow path")
+    n = C2_BATCH
+    for name, cut in (("ragged", slice(0, n - 37)),
+                      ("unaligned", slice(1, n))):
+        args = (o[cut], d[cut], *cornell, t_max[cut])
+        _same_outputs(name, intersect.nearest_tri_small(*args),
+                      intersect.nearest_tri_small_plain(*args))
+    traffic = c2_traffic(dev)
+    bounces = []
+    for batch, bounce, args in traffic:
+        _same_outputs(f"c2 render, batch {batch}, bounce {bounce}",
+                      intersect.nearest_tri_small(*args),
+                      intersect.nearest_tri_small_plain(*args))
+        bounces.append({"batch": batch, "bounce": bounce,
+                        "live_share": float((args[6] > 1e-3).float().mean())})
+    emit("c2_traffic", calls=len(traffic), bounces=bounces)
+    first = [args for batch, _, args in traffic if batch == 0]
+    render_ms = {}
+    for label, args in (("bounce0", first[0]),
+                        (f"bounce{len(first) - 1}", first[-1])):
+        res = time_ms(lambda: intersect.nearest_tri_small(*args), 50)
+        live = int((args[6] > 1e-3).sum())
+        outs = intersect.nearest_tri_small(*args)
+        render_ms[label] = {
+            "ms": res["device"] if res["device"] is not None else res["wall"],
+            "live_share": live / args[0].shape[0],
+            "bound_ms": bound(nbytes(*args, *outs), work(
+                (live * args[2].shape[0], TRI_TEST_OPS)))["bound_ms"]}
+    # where the time goes: every lane dead (loads, stores, launch: no
+    # test), and 64 triangles on the same rays (52 more tests a live ray)
+    split_ms = {}
+    for label, args in (("all_dead", (o, d, *cornell,
+                                      torch.zeros_like(t_max))),
+                        ("random64", (o, d, *tables["random64"], t_max))):
+        res = time_ms(lambda: intersect.nearest_tri_small(*args), 50)
+        split_ms[label] = (res["device"] if res["device"] is not None
+                           else res["wall"])
+    tab = cornell
+    got = intersect.nearest_tri_small(o, d, *tab, t_max)
+    # a dead ray (t_max <= T_MIN) needs no triangle test; the outputs'
+    # shapes do not depend on the table
+    ops = work((int((t_max > 1e-3).sum()) * tab[0].shape[0], TRI_TEST_OPS))
     return {"max_abs_err": 0.0, "check": "bit-equal (t, n, mat, hit, tri)",
             "tables": {k: int(v[0].shape[0]) for k, v in tables.items()},
-            "hit_share": hit_share,
+            "hit_share": hit_share, "huge12_slow_pairs": slow_pairs,
             "shape": f"c2 bounce batch N={C2_BATCH}, T=12",
             **bound(nbytes(o, d, *tab, t_max, *got), ops),
             **timed(lambda: intersect.nearest_tri_small(o, d, *tab, t_max),
                     lambda: intersect.nearest_tri_small_plain(o, d, *tab,
                                                               t_max),
-                    50, 20)}
+                    50, 20),
+            "row_extra": {"c2_render_ms": render_ms, "split_ms": split_ms}}
 
 
 def phase_kernels(dev):
@@ -615,19 +790,24 @@ def phase_kernels(dev):
 
 
 def phase_vmemloop(dev):
-    """probe_vmemloop's kernel against its plain version at T = 64 and
-    128, array-equal: on the probe's own inputs (P = 1024), and on a
-    second table whose metas lie in [-49, 49] (whole numbers) and whose
-    box slots hold NaNs and infinities; both versions timed on the
-    probe's inputs. Then the probe's own path: the entry point a user
-    runs, with the launch counts reset just before and read just after;
-    it prints ns_per_packet_step per T. Returns (the kernel's result at
-    T = 64 with every T under "by_T", the probe path's launches)."""
+    """probe_vmemloop's kernel against its plain version, array-equal, at
+    T = 0, 64 and 128 and P = 1,024 (the probe's), 1,000 (a grid that is
+    not a multiple of the cluster size) and 1, on three tables: the
+    probe's; one whose metas lie in [-49, 49] (whole numbers) and whose
+    box slots hold NaNs and infinities; one whose metas are whole numbers
+    up to +-2**30 (the modulo's large operands). The cluster size the
+    wrapper picks and cudaOccupancyMaxActiveClusters for each candidate
+    are printed. Both versions timed on the probe's inputs at each T (T =
+    0 is the table copy alone). Then the probe's own path: the entry
+    point a user runs, with the launch counts reset just before and read
+    just after; it prints ns_per_packet_step per T. Returns (the kernel's
+    result at T = 64 with every T under "by_T", the probe path's
+    launches)."""
     import numpy as np
     import torch
     from tpurt_torch import probe_vmemloop
     from tpurt_torch.kernels import _build, vmemloop
-    packets = 1024
+    packets = VMEM_PACKETS[0]
     nodes, soa, seeds = probe_vmemloop.make_inputs(packets)
     rs = np.random.default_rng(7)
     odd = nodes.copy()
@@ -635,35 +815,48 @@ def phase_vmemloop(dev):
     rows = rs.integers(0, odd.shape[0], 2000)
     odd[rows, rs.integers(0, 12, 2000)] = rs.choice(
         [np.nan, np.inf, -np.inf], 2000)
+    big = nodes.copy()
+    big[:, 12:14] = rs.integers(-(1 << 30), (1 << 30) + 1,
+                                (big.shape[0], 2)).astype(np.float32)
     rays = [_t(a, dev) for a in (*soa, seeds)]
-    tables = {"probe": _t(nodes, dev), "odd": _t(odd, dev)}
+    tables = {"probe": _t(nodes, dev), "odd": _t(odd, dev),
+              "big_metas": _t(big, dev)}
+    m = nodes.shape[0]
+    emit("vmemloop_clusters", rows=m,
+         max_active_clusters=vmemloop.max_active_clusters(dev, m),
+         cluster_size={p: vmemloop.cluster_size(dev, m, p)
+                       for p in VMEM_PACKETS})
+    sums = {}
+    for t in VMEM_STEPS:
+        for p in VMEM_PACKETS:
+            sub = [a[:p] for a in rays]
+            for name, tab in tables.items():
+                got = vmemloop.node_step_loop(tab, *sub, t)
+                want = vmemloop.node_step_loop_plain(tab, *sub, t)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"vmemloop (T={t}, P={p}, table "
+                                         f"{name}) disagrees with its "
+                                         "plain version")
+                sums[f"T={t} P={p} {name}"] = float(got.double().sum())
+    emit("vmemloop_check", check="array_equal", sums=sums)
     by_t = {}
-    for t in PROBE_STEPS:
-        sums = {}
-        for name, tab in tables.items():
-            got = vmemloop.node_step_loop(tab, *rays, t)
-            want = vmemloop.node_step_loop_plain(tab, *rays, t)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"vmemloop (T={t}, table {name}) "
-                                     "disagrees with its plain version")
-            sums[name] = float(got.double().sum())
+    for t in VMEM_STEPS:
         args = (tables["probe"], *rays)
         out = vmemloop.node_step_loop(*args, t)
-        by_t[t] = {"sums": sums,
-                   **bound(nbytes(*args, out), packets * 128 * t * SLAB2_OPS),
+        by_t[t] = {**bound(nbytes(*args, out),
+                           work((packets * 128 * t, SLAB2_OPS))),
                    **timed(lambda: vmemloop.node_step_loop(*args, t),
                            lambda: vmemloop.node_step_loop_plain(*args, t),
                            50, 3)}
-        emit("vmemloop", steps=t, packets=packets, check="array_equal",
-             tables=list(tables), **by_t[t])
+        emit("vmemloop", steps=t, packets=packets, **by_t[t])
     _build.reset_launches()
     records = probe_vmemloop.run(PROBE_STEPS, packets, "cuda")
     launches = dict(_build.LAUNCHES)
     for rec in records:
         emit("probe_vmemloop", **{k: rec[k] for k in (
             "probe", "ms", "us_per_cell_step", "ns_per_packet_step", "sum")})
-        if rec["sum"] != by_t[rec["steps"]]["sums"]["probe"]:
+        if rec["sum"] != sums[f"T={rec['steps']} P={packets} probe"]:
             raise AssertionError(f"{rec['probe']}: sum {rec['sum']} differs "
                                  "from the checked kernel's")
     if launches["vmemloop"] == 0:
@@ -671,7 +864,8 @@ def phase_vmemloop(dev):
     first = by_t[PROBE_STEPS[0]]
     return {**first, "max_abs_err": 0.0, "shape": f"P={packets}, "
             f"T={PROBE_STEPS[0]}",
-            "by_T": {t: {k: v[k] for k in ("ms", "plain_ms", "bound_ms")}
+            "by_T": {t: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "unweighted_bound_ms")}
                      for t, v in by_t.items()}}, launches
 
 
@@ -1075,6 +1269,8 @@ def main() -> int:
                 "max_abs_err": res["max_abs_err"],
                 "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "ops_by_class": res["ops_by_class"],
+                "unweighted_bound_ms": res["unweighted_bound_ms"],
                 "library_ms": res["library_ms"], "library": NO_LIBRARY,
                 "shape": res["shape"], **res.get("row_extra", {})}
 

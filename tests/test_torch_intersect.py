@@ -191,3 +191,31 @@ def test_more_than_64_triangles_without_a_bvh():
     ref = cpu_ref._intersect(sc, o, d)
     np.testing.assert_array_equal(h.ok.numpy(), ref[4])
     np.testing.assert_array_equal(h.mat.numpy(), ref[3])
+
+
+@pytest.mark.parametrize("window", [0.0, -1.0, "t_min", float("nan"),
+                                    1e-40])
+def test_a_closed_window_gives_triangle_0s_miss_outputs(cornell, window):
+    """The contract the kernel's dead-lane shortcut rests on: a ray whose
+    window admits no hit, !(t_max > T_MIN) (0, a negative, T_MIN itself,
+    NaN, a denormal), gets triangle 0's miss outputs from the plain
+    version, bit for bit, though the same rays hit with an open window."""
+    from tpurt_torch import linalg
+    from tpurt_torch.geometry import T_MIN
+    scene, _ = cornell
+    o, d, _ = _box_rays(512, seed=17, dead=0.0)
+    v0, e1, e2, mat = map(_t, _table(scene))
+    args = (_t(o), _t(d), v0, e1, e2, mat)
+    open_hit = intersect.nearest_tri_small_plain(
+        *args, torch.full((512,), INF))[3]
+    assert open_hit.float().mean() > 0.3
+    value = np.float32(T_MIN) if window == "t_min" else np.float32(window)
+    assert not value > np.float32(T_MIN)
+    t, n, m, hit, tri = intersect.nearest_tri_small_plain(
+        *args, torch.full((512,), float(value)))
+    assert not hit.any()
+    assert (t == np.float32(INF)).all() and (tri == 0).all()
+    assert (m == mat[0]).all()
+    n0 = linalg.normalize(linalg.cross(e1[:1], e2[:1]))
+    assert torch.equal(n.view(torch.int32),
+                       n0.expand(512, 3).contiguous().view(torch.int32))

@@ -40,7 +40,8 @@ SIGNATURES = {
     "tt_leaf_phase": "p" * 15 + "i",
     "tt_traverse_nearest": "pii" + "p" * 10 + "i",
     "tt_nearest_tri_small": "p" * 6 + "i" + "p" * 6 + "i",
-    "tt_vmemloop": "p" * 9 + "iii",
+    "tt_vmemloop": "p" * 9 + "i" * 7,
+    "tt_vmemloop_clusters": "iip",
 }
 
 # kernel name -> launches since the last reset (counted by the wrappers)

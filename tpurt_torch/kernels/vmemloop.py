@@ -9,6 +9,12 @@ row count). The output row of a packet holds, in every element, the
 number of steps in which its left box hit. It measures what one BVH node
 step costs with the table on the chip; ``tpurt_torch.probe_vmemloop``
 times it.
+
+The kernel runs in thread-block clusters (``cluster_size`` picks 8, 4 or
+2 blocks so that every cluster is resident at once): the blocks of a
+cluster share one copy of the table, multicast to each, and the floor
+modulo uses constants from ``floor_mod_consts`` instead of a division.
+A refused cluster launch raises.
 """
 
 from __future__ import annotations
@@ -20,7 +26,13 @@ from . import _build
 R = 128                  # rays per packet
 ROW = 16                 # f32 slots per node row
 T_NEAR, T_FAR = 1e-3, 3e38
-SMEM_MAX = 232448        # dynamic shared memory one block may use (H100)
+SMEM_MAX = 232448        # shared memory one block may use (H100)
+# the table and the kernel's 8-byte mbarrier (with its alignment) in it
+MAX_ROWS = (SMEM_MAX - 16) // (ROW * 4)
+PACKETS_PER_BLOCK = 8    # csrc/vmemloop.cu's block
+CLUSTER_SIZES = (8, 4, 2)   # blocks per cluster, largest first
+
+_CLUSTERS: dict = {}     # (device index, M) -> {C: max active clusters}
 
 
 def node_step_loop_plain(nodes, ox, oy, oz, ix, iy, iz, seeds, steps: int):
@@ -54,6 +66,52 @@ def node_step_loop_plain(nodes, ox, oy, oz, ix, iy, iz, seeds, steps: int):
     return acc[:, None].expand(-1, ox.shape[1]).contiguous()
 
 
+def floor_mod_consts(m: int):
+    """(magic, l, bias) of the kernel's floor modulo by m (1 <= m <
+    2**31) without a division: u = a + 2**31 is divided by m with
+    Granlund and Montgomery's round-up multiply, q = (t + ((u - t) >>
+    min(l, 1))) >> max(l - 1, 0) with t = the high word of u * magic
+    and l = ceil(log2 m), exact for every u < 2**32; then the remainder
+    u - q*m, plus bias = -2**31 mod m, less m if it reaches m, is a mod
+    m for every int32 a."""
+    if not 1 <= m < 1 << 31:
+        raise ValueError(f"floor_mod_consts: modulus {m} outside [1, 2**31)")
+    l = (m - 1).bit_length()
+    magic = (1 << 32) * ((1 << l) - m) // m + 1
+    return magic, l, -(1 << 31) % m
+
+
+def max_active_clusters(dev, m: int) -> dict:
+    """{C: clusters of C blocks that can be resident at once} for an
+    m-row table on CUDA device dev (cudaOccupancyMaxActiveClusters),
+    asked once per (device, m)."""
+    key = (dev.index, m)
+    if key not in _CLUSTERS:
+        found = {}
+        for c in CLUSTER_SIZES:
+            n = torch.zeros(1, dtype=torch.int32)     # host int the C side sets
+            _build.launch("tt_vmemloop_clusters", dev, m, c, n)
+            found[c] = int(n[0])
+        _CLUSTERS[key] = found
+    return _CLUSTERS[key]
+
+
+def cluster_size(dev, m: int, p: int) -> int:
+    """Blocks per cluster for p packets over an m-row table: the largest
+    C of CLUSTER_SIZES whose clusters are all resident at once (the grid
+    padded to a multiple of C), else the C with the most resident
+    blocks. Raises if no cluster fits the card."""
+    blocks = -(-p // PACKETS_PER_BLOCK)
+    occ = max_active_clusters(dev, m)
+    fits = [c for c in CLUSTER_SIZES if occ[c] * c >= -(-blocks // c) * c]
+    c = max(fits) if fits else max(CLUSTER_SIZES,
+                                   key=lambda c: (occ[c] * c, c))
+    if occ[c] < 1:
+        raise RuntimeError(f"vmemloop: no cluster of {c} blocks with a "
+                           f"{m}-row table fits the card ({occ})")
+    return c
+
+
 def node_step_loop(nodes, ox, oy, oz, ix, iy, iz, seeds, steps: int):
     """The node-step loop on nodes' device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (or an error)."""
@@ -65,16 +123,21 @@ def node_step_loop(nodes, ox, oy, oz, ix, iy, iz, seeds, steps: int):
     _build.check("nodes", nodes, (m, ROW), torch.float32, dev)
     if nodes.data_ptr() % 16:
         raise ValueError("vmemloop: nodes must be 16-byte aligned")
-    if not 0 < m * ROW * 4 <= SMEM_MAX:
+    if not 0 < m <= MAX_ROWS:
         raise ValueError(f"vmemloop: a {m}-row table does not fit the "
-                         f"{SMEM_MAX} B of shared memory a block may use")
+                         f"{SMEM_MAX} B of shared memory a block may use "
+                         f"(at most {MAX_ROWS} rows)")
     rays = (ox, oy, oz, ix, iy, iz)
     for name, t in zip(("ox", "oy", "oz", "ix", "iy", "iz"), rays):
         _build.check(name, t, (p, R), torch.float32, dev)
     _build.check("seeds", seeds, (p, 1), torch.int32, dev)
     if steps < 0:
         raise ValueError(f"vmemloop: steps {steps} < 0")
+    magic, l, bias = floor_mod_consts(m)
     out = torch.empty((p, R), dtype=torch.float32, device=dev)
-    _build.launch("tt_vmemloop", dev, nodes, *rays, seeds, out, m, p, steps)
+    # magic is a uint32; the C side takes its bits as an int
+    _build.launch("tt_vmemloop", dev, nodes, *rays, seeds, out, m, p, steps,
+                  magic - (1 << 32) if magic >= 1 << 31 else magic, l, bias,
+                  cluster_size(dev, m, p))
     _build.LAUNCHES["vmemloop"] += 1
     return out
