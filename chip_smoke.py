@@ -2,9 +2,10 @@
 """Smoke test of tpurt_torch on NVIDIA cards: builds the CUDA kernels
 from the sources in this checkout, holds each against its plain PyTorch
 version, renders the five golden images in every mode and sharded,
-renders the c3-mesh, c2-cornell, c4-wavefront (also in mode persist) and
-c5-multichip presets through the CLI's code, and checks checkpoint
-resume, the NumPy oracle and the profiler trace. One card is enough.
+renders the c1-primary, c3-mesh, c2-cornell, c4-wavefront (also in mode
+persist) and c5-multichip presets through the CLI's code, and checks
+checkpoint resume, the NumPy oracle and the profiler trace. One card is
+enough.
 
     python3 chip_smoke.py
 
@@ -34,40 +35,55 @@ exits non-zero and prints no result):
                  timed on the probe's inputs at each T; then the probe's
                  path (python -m tpurt_torch.probe_vmemloop),
                  ns_per_packet_step per T
-  5. goldens   — g1..g5 through tpurt_torch.render.render against
+  5. fused     — every call of camera_rays, prims_nearest and
+                 bounce_shade (and hit_shade, bounce_shade.cu's merge
+                 alone) in 1-spp renders of c3, c2, c4, c4 persist, g5, the
+                 smooth icosphere fixture, a lens camera and c1, each
+                 array-equal to its plain version on the same inputs (NaN
+                 equal to NaN); then the three timed on the c3 render's own
+                 inputs, each with its bound
+  6. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
                  1, none by more than 8), and g2..g5 again in modes
                  wavefront and persist with the megakernel's ray count
-  6. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
+  7. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
-  7. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
+  8. c1-primary — 640x480 at 1 spp (its own size and spp), then through
+                 --oracle: the same rays, the golden tolerance against the
+                 oracle's image
+  9. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
                  cut from 64 to 8
-  8. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
+ 10. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
                  from bounce 3, spp cut from 256 to 2; occupancy
-  9. c4-persist — the c4 scene and size in mode persist at 1 spp
- 10. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
+ 11. c4-persist — the c4 scene and size in mode persist at 1 spp
+ 12. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
                  max_depth 16, roulette from bounce 3, shard tiles), spp
                  cut from 1024 to 1, over every card: an NCCL group of one
                  in this process on one card, one process per card on
                  several; stats must name that many devices
- 11. c5-spp    — the same, sharded by samples
- 12. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
+ 13. c5-spp    — the same, sharded by samples
+ 14. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
                  spp: the megakernel's rays, the golden tolerance
- 13. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a simulated crash
+ 15. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a simulated crash
                  after 2 samples, resumed, equals the uninterrupted run
                  bit for bit with equal rays; unsharded and by tiles
- 14. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
+ 16. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
                  rays, the golden tolerance
- 15. imports   — no module of jax and none of tpurt loaded
- 16. profile   — last (a profiled render slows later ones): g4 with
-                 --profile-dir; the Chrome trace names the traversal
-                 kernel; c3-mesh and c4-wavefront at 1 spp under
-                 torch.profiler: traverse's device time per launch
-The probe (in phase 4) and phases 6-13 are the main paths, each with the
-launch counts reset just before it and read just after. Then the card's
-nvidia-smi line, the kernel table as one JSON object (all five kernels,
-each with its launches by path, its bound and its operations by class),
-and as the last line {"ok": true, "device": {...}}.
+ 17. imports   — no module of jax and none of tpurt loaded
+ 18. profile   — last (a profiled render slows later ones): c3, c2, c4,
+                 c4 persist and c5 at 1 spp unprofiled (wall), g4 with
+                 --profile-dir (the Chrome trace names the traversal
+                 kernel), then the five under torch.profiler: CUDA
+                 launches, device time, idle share and host reads per spp,
+                 the search kernel's device time per launch; c3 must stay
+                 under C3_MAX_LAUNCHES_PER_SPP launches
+The probe (in phase 4) and phases 7-15 are the main paths, each with the
+launch counts reset just before it and read just after; every render
+path must launch its search kernel and the three fused kernels, and the
+renders of phases 7 and 9-13 must cast PHASE_RAYS exactly. Then the
+card's nvidia-smi line, the kernel table as one JSON object (all eight
+kernels, each with its launches by path, its bound and its operations
+by class), and as the last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -98,6 +114,15 @@ VMEM_PACKETS = (1024, 1000, 1)   # the probe's P, a grid that is not a
 SWEEP = (1 << 16, 1 << 17, 1 << 18, 1 << 19, 1 << 20)  # traverse batch sizes
 L2_FLUSH_BYTES = 1 << 27   # read before each timed call: over twice the
                            # H100's 50 MB L2, so inputs come from HBM
+# rays_cast of each render phase at the smoke's spp on one card: every
+# kernel's output is array-equal to its plain version, so these stay
+# exactly as the eager bounce cast them
+PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
+              "c4-wavefront": 9_571_880, "c4-persist": 4_785_727,
+              "c5-tiles": 19_143_284, "c5-spp": 19_143_284}
+# c3's CUDA launches per spp at most (per batch: the camera kernel, three
+# kernels a bounce; per spp: the film sum)
+C3_MAX_LAUNCHES_PER_SPP = 300
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -114,8 +139,10 @@ SM_CYCLES_PER_S = 132 * 1.98e9
 ISSUE_PER_CYCLE = 128
 PIPE_RATE = {"add_mul": 128,      # float32 add, sub, mul (FMA pipe)
              "cmp_minmax": 64,    # float32 compare, min, max, select; int32
-                                  # add, logic, compare (ALU pipe)
-             "mufu": 16}          # MUFU reciprocal, square root
+                                  # add, logic, shift, compare (ALU pipe)
+             "mufu": 16,          # MUFU reciprocal, square root; type
+                                  # conversions
+             "fp64": 64}          # float64 add, mul, FMA
 # IEEE 1.0f / x at its cheapest, counted once in cuobjdump -sass of the
 # built library (sm_90a): tt::FastRcp in nearest_tri_small's scan issues
 # MUFU.RCP, FFMA, FFMA (the negation folds into the second FFMA's
@@ -132,21 +159,6 @@ SLAB2_OPS = {"add_mul": 24, "cmp_minmax": 26}
 # of det, the select of t, the compare with the best and its two selects
 # (11); the division (1): 57 operations.
 TRI_TEST_OPS = {"add_mul": 45, "cmp_minmax": 11, "div": 1}
-# Before the split, every operation was priced at 128 per SM per cycle.
-UNWEIGHTED_OPS_PER_S = 128 * SM_CYCLES_PER_S
-# No single PyTorch call computes a nearest hit, a slab OR-reduction or a
-# cursor walk, so no kernel has a library yardstick.
-NO_LIBRARY = "none: no single PyTorch call computes this function"
-
-
-def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def work(*terms) -> dict:
     """Operations by class of (count, per-item classes) terms, e.g.
     work((visits, SLAB2_OPS), (tests, TRI_TEST_OPS))."""
@@ -155,6 +167,56 @@ def work(*terms) -> dict:
         for cls, n in per.items():
             total[cls] = total.get(cls, 0) + int(count) * n
     return total
+
+
+# The fused kernels' operations, counted from shade_common.cuh and
+# threefry.cuh; the library functions' are estimates of their fast
+# paths (no SASS parser is committed), and every fused kernel's bound is
+# set by its bytes with room to spare. SQRT_SEQ: MUFU.RSQ, its
+# refinement and range check. SINCOS: one cosf or sinf (Cody-Waite
+# reduction and a polynomial). POW64: pow(double, 1/3) (log and exp in
+# float64).
+SQRT_SEQ = {"mufu": 1, "add_mul": 4, "cmp_minmax": 2}
+SINCOS = {"add_mul": 14, "cmp_minmax": 6}
+POW64 = {"fp64": 60, "cmp_minmax": 12}
+# One threefry-2x32/20 call: 20 rounds of (add, rotate, xor), 5 key
+# injections of 3 adds, 2 adds; then 2 uniforms (shift, convert, mul).
+THREEFRY_PAIR = {"cmp_minmax": 79, "mufu": 2, "add_mul": 2}
+
+
+# camera_ray of one ray: 2 draw pairs, the int64 pixel split, film and
+# lens products, normalize (a sqrt and 3 divisions), cos and sin.
+CAMERA_RAY_OPS = work((2, THREEFRY_PAIR), (2, SQRT_SEQ), (2, SINCOS),
+                          (3, {"div": 1}),
+                          (1, {"add_mul": 40, "cmp_minmax": 30,
+                               "mufu": 4}))
+# prims_ray: one sphere row (19 add/mul, 11 compares and selects, a
+# sqrt), one plane row (11 add/mul, 7 compares and selects, a division);
+# the sphere normal once a ray (9 add/mul, 3 divisions).
+SPHERE_ROW_OPS = work((1, SQRT_SEQ),
+                          (1, {"add_mul": 19, "cmp_minmax": 11}))
+PLANE_ROW_OPS = {"add_mul": 11, "cmp_minmax": 7, "div": 1}
+PRIM_RAY_OPS = {"add_mul": 9, "div": 3, "cmp_minmax": 6}
+# merge_hit of every ray, and bounce_ray's work for a live ray: 3 draw
+# pairs, scatter (~110 add/mul, 4 square roots, cos, sin, the cube
+# root's pow, 5 divisions), sky and emission, roulette (3 divisions).
+MERGE_OPS = {"add_mul": 5, "cmp_minmax": 10}
+BOUNCE_LIVE_OPS = work((3, THREEFRY_PAIR), (4, SQRT_SEQ), (2, SINCOS),
+                           (1, POW64), (8, {"div": 1}),
+                           (1, {"add_mul": 120, "cmp_minmax": 40}))
+# No single PyTorch call computes a nearest hit, a slab OR-reduction or a
+# cursor walk, so no kernel has a library yardstick.
+NO_LIBRARY = "none: no single PyTorch call computes this function"
+NO_FUSED_LIBRARY = ("none: no single PyTorch call computes threefry draws, "
+                    "a ray-primitive hit or a material scatter")
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def sm_cycles(ops: dict) -> float:
@@ -171,18 +233,13 @@ def sm_cycles(ops: dict) -> float:
 
 def bound(n_bytes: int, ops: dict) -> dict:
     """The bound (ms) of work that moves n_bytes and does the operations
-    ops (by class), and which of the two sets it. unweighted_bound_ms
-    prices every operation at 128 per SM per cycle, as the bound did
-    before the split by class."""
+    ops (by class), and which of the two sets it."""
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     o_ms = sm_cycles(ops) / SM_CYCLES_PER_S * 1e3
-    n_ops = sum(ops.values())
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "bytes": int(n_bytes), "ops": n_ops, "ops_by_class": ops,
-            "unweighted_bound_ms": max(b_ms,
-                                       n_ops / UNWEIGHTED_OPS_PER_S * 1e3),
-            "library_ms": None}
+            "bytes": int(n_bytes), "ops": sum(ops.values()),
+            "ops_by_class": ops, "library_ms": None}
 
 
 _FLUSH = []
@@ -864,9 +921,230 @@ def phase_vmemloop(dev):
     first = by_t[PROBE_STEPS[0]]
     return {**first, "max_abs_err": 0.0, "shape": f"P={packets}, "
             f"T={PROBE_STEPS[0]}",
-            "by_T": {t: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "unweighted_bound_ms")}
+            "by_T": {t: {k: v[k] for k in ("ms", "plain_ms", "bound_ms")}
                      for t, v in by_t.items()}}, launches
+
+
+FUSED = ("camera_rays", "prims_nearest", "bounce_shade")
+FIXTURE_OBJ = REPO / "tests" / "fixtures" / "icosphere_vn.obj"
+
+
+def same_values(got, want):
+    """(array-equal with NaN equal to NaN, elements whose bits differ,
+    largest |difference| where they are not equal; inf where one is NaN)."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape or dtype {tuple(got.shape)} {got.dtype}"
+                             f" against {tuple(want.shape)} {want.dtype}")
+    if got.numel() == 0:
+        return True, 0, 0.0
+    if got.is_floating_point():
+        eq = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        bits = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        diff = torch.nan_to_num((got - want).abs(), nan=float("inf"))
+    else:
+        eq = got == want
+        bits = int((~eq).sum())
+        diff = (got.long() - want.long()).abs().float()
+    return (bool(eq.all()), bits,
+            float(torch.where(eq, 0.0, diff).max()))
+
+
+def _clone(a):
+    import torch
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, tuple):
+        vals = [_clone(x) for x in a]
+        return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+    return a
+
+
+class FusedCheck:
+    """While open, each call of camera_rays, prims_nearest, hit_shade and
+    bounce_shade (kernels/camera.py, prims.py, bounce.py) launches the
+    kernel, runs its plain version on the same inputs, and raises unless
+    every output (and the survivor count a bounce adds) is array-equal,
+    NaN equal to NaN; the caller goes on with the kernel's outputs.
+    ``keep`` maps a wrapper name to the index of a call whose arguments
+    are kept (cloned) in ``kept``."""
+
+    def __init__(self, label, keep=None):
+        self.label, self.keep = label, keep or {}
+        self.stats, self.kept, self._saved = {}, {}, []
+
+    def _record(self, name, got, want):
+        st = self.stats.setdefault(name, {"calls": 0, "elements": 0,
+                                          "bit_diffs": 0, "max_abs_err": 0.0})
+        st["calls"] += 1
+        for k, (g, w) in enumerate(zip(got, want)):
+            ok, bits, err = same_values(g, w)
+            if not ok:
+                raise AssertionError(
+                    f"fused ({self.label}): {name} call {st['calls']} output "
+                    f"{k} differs from its plain version (max |diff| {err})")
+            st["elements"] += g.numel()
+            st["bit_diffs"] += bits
+
+    def _wrap(self, mod, name, plain):
+        import torch
+        kernel = getattr(mod, name)
+
+        def call(*args, **kw):
+            n_calls = self.stats.get(name, {}).get("calls", 0)
+            if self.keep.get(name) == n_calls:
+                self.kept[name] = (_clone(args), _clone(kw))
+            args = list(args)
+            survivors = None
+            if name == "bounce_shade":
+                if len(args) > 11:
+                    survivors = args.pop(11)
+                survivors = kw.pop("survivors", survivors)
+            if survivors is None:
+                got = kernel(*args, **kw)
+                return self._checked(name, got, plain(*args, **kw))
+            before = survivors.clone()
+            got = kernel(*args, survivors=survivors, **kw)
+            scratch = torch.zeros_like(survivors)
+            want = plain(*args, survivors=scratch, **kw)
+            self._checked(name, (*got, survivors - before), (*want, scratch))
+            return got
+
+        self._saved.append((mod, name, kernel))
+        setattr(mod, name, call)
+
+    def _checked(self, name, got, want):
+        self._record(name, got, want)
+        return got
+
+    def __enter__(self):
+        from tpurt_torch.kernels import bounce, camera, prims
+        self._wrap(camera, "camera_rays", camera.camera_rays_plain)
+        self._wrap(prims, "prims_nearest", prims.prims_nearest_plain)
+        self._wrap(bounce, "hit_shade", bounce.hit_shade_plain)
+        self._wrap(bounce, "bounce_shade", bounce.bounce_shade_plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+        return False
+
+
+def fused_cases() -> dict:
+    """1-spp renders whose every fused call is checked: c3 (BVH), c2
+    (brute search), c4 (wavefront, roulette from 3), persist (per-ray
+    depths), g5 (dielectric, roulette from 2), the smooth icosphere
+    fixture (vertex normals), a lens camera, and c1 (mode primary:
+    hit_shade)."""
+    from tpurt_torch import config
+    presets = config.PRESETS
+    return {
+        "c3": presets["c3-mesh"].replace(spp=1),
+        "c2": presets["c2-cornell"].replace(spp=1),
+        "c4": presets["c4-wavefront"].replace(spp=1),
+        "persist": presets["c4-wavefront"].replace(spp=1, mode="persist"),
+        "g5": config.RenderConfig(**GOLDENS["g5-rr"]),
+        "icosphere": config.RenderConfig(
+            scene=f"obj:{FIXTURE_OBJ}", smooth=True, width=320, height=240,
+            spp=2, max_depth=8, seed=5),
+        "lens": config.RenderConfig(
+            scene="spheres_plane", aperture=0.3, focus_dist=5.0, width=320,
+            height=180, spp=2, max_depth=8, rr_start=3, seed=6),
+        "c1": presets["c1-primary"].replace(spp=1),
+    }
+
+
+def phase_fused(dev):
+    """Every call of the three fused kernels (and hit_shade) in the
+    fused_cases renders checked against its plain version (FusedCheck).
+    Then, on the c3 render's own inputs (its first camera batch, and
+    bounce 1 of its first batch), each kernel and its plain version are
+    timed after an L2 flush, with the bound: bytes (inputs read once,
+    outputs written once) against the operations a ray needs (a dead ray
+    is tested against nothing and draws nothing). Returns the kernels'
+    rows."""
+    from tpurt_torch import config, render
+    from tpurt_torch.kernels import _build, bounce, camera, prims
+    keep = {"camera_rays": 0, "prims_nearest": 1, "bounce_shade": 1}
+    cases, kept, scenes = {}, {}, {}
+    for label, cfg in fused_cases().items():
+        key = (cfg.scene, cfg.width, cfg.height, cfg.smooth, cfg.aperture)
+        if key not in scenes:
+            scenes[key] = config.build_scene(cfg)
+        with FusedCheck(label, keep if label == "c3" else None) as chk:
+            _, stats = render.render(cfg, *scenes[key], device=dev)
+        need = ("camera_rays", "prims_nearest",
+                "hit_shade" if cfg.mode == "primary" else "bounce_shade")
+        for k in need:
+            if chk.stats.get(k, {}).get("calls", 0) == 0:
+                raise AssertionError(f"fused ({label}): {k} never called")
+        cases[label] = chk.stats
+        emit("fused", case=label, mode=cfg.mode, rays=stats["rays"],
+             check="array_equal, NaN equal to NaN", **{
+                 k: {"calls": v["calls"], "elements": v["elements"],
+                     "bit_diffs": v["bit_diffs"]}
+                 for k, v in chk.stats.items()})
+        if label == "c3":
+            kept = chk.kept
+    _build.reset_launches()
+
+    def totals(*names):
+        return {lab: sum(st.get(k, {}).get("calls", 0) for k in names)
+                for lab, st in cases.items()}
+
+    rows = {}
+    (cam, w, h, seed, pix, smp), _ = kept["camera_rays"]
+    n = pix.shape[0]
+    outs = camera.camera_rays(cam, w, h, seed, pix, smp)
+    rows["camera_rays"] = {
+        "shape": f"c3 batch 0, N={n}", "checked_calls": totals("camera_rays"),
+        **bound(nbytes(pix, smp, *outs), work((n, CAMERA_RAY_OPS))),
+        **timed(lambda: camera.camera_rays(cam, w, h, seed, pix, smp),
+                lambda: camera.camera_rays_plain(cam, w, h, seed, pix, smp),
+                50, 10)}
+
+    (scene, o, d), kw = kept["prims_nearest"]
+    alive = kw["alive"]
+    live = int(alive.sum())
+    outs = prims.prims_nearest(scene, o, d, alive=alive)
+    tables = (scene.sph_c, scene.sph_r, scene.sph_mat, scene.pln_n,
+              scene.pln_k, scene.pln_mat)
+    rows["prims_nearest"] = {
+        "shape": f"c3 batch 0 bounce 1, N={o.shape[0]}, live {live}",
+        "checked_calls": totals("prims_nearest"),
+        **bound(nbytes(o, d, alive, *tables, *outs),
+                work((live * scene.sph_c.shape[0], SPHERE_ROW_OPS),
+                     (live * scene.pln_n.shape[0], PLANE_ROW_OPS),
+                     (live, PRIM_RAY_OPS))),
+        **timed(lambda: prims.prims_nearest(scene, o, d, alive=alive),
+                lambda: prims.prims_nearest_plain(scene, o, d, alive=alive),
+                50, 10)}
+
+    args, _ = kept["bounce_shade"]
+    args = tuple(args[:11])                     # no survivor count
+    (scene, o, d, atten, rad, alive, keys, depth, rr_start, prim,
+     tri) = args
+    live = int(alive.sum())
+    outs = bounce.bounce_shade(*args)
+    rows["bounce_shade"] = {
+        "shape": f"c3 batch 0 bounce {depth}, N={o.shape[0]}, live {live}",
+        "checked_calls": totals("bounce_shade", "hit_shade"),
+        **bound(nbytes(o, d, atten, rad, alive, keys, *prim, *tri,
+                       scene.mat_packed, scene.sky_a, scene.sky_b, *outs),
+                work((o.shape[0], MERGE_OPS), (live, BOUNCE_LIVE_OPS))),
+        **timed(lambda: bounce.bounce_shade(*args),
+                lambda: bounce.bounce_shade_plain(*args), 50, 10)}
+    for name, row in rows.items():
+        names = (name, "hit_shade") if name == "bounce_shade" else (name,)
+        row.update(max_abs_err=0.0, check="array_equal, NaN equal to NaN",
+                   row_extra={"checked_calls": row.pop("checked_calls"),
+                              "bit_diffs": sum(
+                                  st.get(k, {}).get("bit_diffs", 0)
+                                  for st in cases.values() for k in names)})
+        emit("kernel", name=name, **row)
+    return rows
 
 
 GOLDENS = {
@@ -931,24 +1209,36 @@ def phase_goldens(dev):
             if stats["rays"] != rays[name]:
                 raise AssertionError(f"{name} ({mode}): {stats['rays']} rays, "
                                      f"the megakernel cast {rays[name]}")
-            kernel = search_kernel(cfg)
-            if launches[kernel] == 0:
-                raise AssertionError(f"{name} ({mode}): {kernel} never "
-                                     "launched")
+            for kernel in (search_kernel(cfg), "camera_rays",
+                           "prims_nearest", "bounce_shade"):
+                if launches[kernel] == 0:
+                    raise AssertionError(f"{name} ({mode}): {kernel} never "
+                                         "launched")
     return rays
 
 
 def check_film(label, img, shape, launches, kernel):
     """A finite film of the expected shape, a plausible mean radiance,
-    and ``kernel`` launched."""
+    and ``kernel`` and the three fused kernels launched."""
     import numpy as np
     if tuple(img.shape) != shape or not np.isfinite(img).all():
         raise AssertionError(f"{label}: bad film {img.shape}")
     if not 0.05 < float(img.mean()) < 1.5:
         raise AssertionError(f"{label}: implausible mean radiance "
                              f"{img.mean()}")
-    if launches[kernel] == 0:
-        raise AssertionError(f"{label}: {kernel} never launched")
+    for k in (kernel, *FUSED):
+        if launches[k] == 0:
+            raise AssertionError(f"{label}: {k} never launched")
+
+
+def check_rays(label, rays, world=None):
+    """The render phase cast PHASE_RAYS[label] rays (c5-spp only on one
+    card: on n cards it traces n times the samples)."""
+    if label == "c5-spp" and (world or 1) > 1:
+        return
+    if rays != PHASE_RAYS[label]:
+        raise AssertionError(f"{label}: {rays} rays, expected "
+                             f"{PHASE_RAYS[label]}")
 
 
 def phase_preset(label, argv, shape, kernel, spp_preset, world=None):
@@ -962,6 +1252,7 @@ def phase_preset(label, argv, shape, kernel, spp_preset, world=None):
     img, stats = cli.run(["render", *argv])
     launches = dict(_build.LAUNCHES)
     check_film(label, img, shape, launches, kernel)
+    check_rays(label, stats["rays"], world)
     if world is not None and stats["devices"] != world:
         raise AssertionError(f"{label}: {stats['devices']} devices, "
                              f"expected {world}")
@@ -1023,6 +1314,7 @@ def phase_c5_ranks(label, argv, shape, world, timeout=600.0):
         ranks = [json.loads((pathlib.Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(world)]
     stats = ranks[0]["stats"]
+    check_rays(label, stats["rays"], world)
     emit(label, argv=argv, spp=stats["spp"], width=shape[1],
          height=shape[0], rays=stats["rays"], wall_s=stats["wall_s"],
          mrays_per_s=stats["mrays_per_s"], devices=world,
@@ -1158,16 +1450,58 @@ def phase_oracle(golden_rays):
                                  f"card cast {golden_rays[name]}")
 
 
+def top_device_items(prof, n=6) -> list:
+    """The n keys of a CUDA-only profile with the most device time:
+    [name (cut to 60 characters), device ms, calls]."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or 0
+    items = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    return [[e.key[:60], dev_us(e) / 1e3, e.count] for e in items[:n]]
+
+
+def kernel_launches(prof) -> dict:
+    """CUDA kernels launched in a CUDA-only profile, and its copies from
+    the device to the host (the host's reads)."""
+    kernels = dtoh = 0
+    for e in prof.key_averages():
+        if e.key.startswith("Memcpy DtoH"):
+            dtoh += e.count
+        elif (getattr(e, "self_device_time_total", 0) or 0) > 0 and \
+                not e.key.startswith(("Memcpy", "Memset")):
+            kernels += e.count
+    return {"kernels": kernels, "dtoh_copies": dtoh}
+
+
+# The renders the profile phase measures at 1 spp: CLI arguments and the
+# search kernel each runs.
+PROFILE_RUNS = {
+    "c3-mesh": (["--preset", "c3-mesh"], "traverse_nearest"),
+    "c2-cornell": (["--preset", "c2-cornell"], "nearest_tri_small"),
+    "c4-wavefront": (["--preset", "c4-wavefront"], "traverse_nearest"),
+    "c4-persist": (["--preset", "c4-wavefront", "--mode", "persist"],
+                   "traverse_nearest"),
+    "c5-tiles": (["--preset", "c5-multichip"], "traverse_nearest"),
+}
+
+
 def phase_profile():
-    """Last: a g4-sized render with --profile-dir (profiled renders slow
-    later renders of the process); the Chrome trace must exist and name
-    the traversal kernel. Then c3-mesh and c4-wavefront at 1 spp through
-    the CLI under torch.profiler (CUDA activity): the search kernel's
-    device time per launch and its share of the device time."""
+    """Last: each PROFILE_RUNS render at 1 spp through the CLI without a
+    profiler (the wall of an unprofiled render); a g4-sized render with
+    --profile-dir (profiled renders slow later renders of the process),
+    whose Chrome trace must exist and name the traversal kernel; then
+    each PROFILE_RUNS render at 1 spp under torch.profiler (CUDA
+    activity): CUDA kernel launches and device time per spp, the idle
+    share against the unprofiled wall, copies to the host (the host's
+    reads), the search kernel's device time per launch and share, and
+    the items with the most device time (top_device_items)."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     from tpurt_torch import cli
     from tpurt_torch.kernels import _build
+    walls = {}
+    for label, (argv, _) in PROFILE_RUNS.items():
+        _, stats = cli.run(["render", *argv, "--spp", "1"])
+        walls[label] = stats["wall_s"]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         _, stats = cli.run(["render", *golden_argv(GOLDENS["g4-mesh"]),
@@ -1181,20 +1515,65 @@ def phase_profile():
     if found == 0:
         raise AssertionError("profile: the trace never names "
                              "traverse_nearest_kernel")
-    for preset in ("c3-mesh", "c4-wavefront"):
+    for label, (argv, search) in PROFILE_RUNS.items():
         _build.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, stats = cli.run(["render", "--preset", preset, "--spp", "1"])
-        launches = _build.LAUNCHES["traverse_nearest"]
+            _, stats = cli.run(["render", *argv, "--spp", "1"])
+        launches = dict(_build.LAUNCHES)
         total = device_us(prof) / 1e3
-        trav = device_us(prof, lambda k: "traverse_nearest_kernel" in k) / 1e3
-        emit("render_profile", preset=preset, spp=1, rays=stats["rays"],
-             traverse_launches=launches, traverse_ms=trav,
-             traverse_ms_per_launch=trav / max(launches, 1),
-             device_ms=total, traverse_share=trav / total)
-        if launches == 0 or trav <= 0.0:
-            raise AssertionError(f"render_profile ({preset}): no traverse "
+        search_ms = device_us(prof, lambda k: f"{search}_kernel" in k) / 1e3
+        counts = kernel_launches(prof)
+        emit("render_profile", preset=label, spp=1, rays=stats["rays"],
+             cuda_launches_per_spp=counts["kernels"],
+             dtoh_copies_per_spp=counts["dtoh_copies"],
+             device_ms_per_spp=total,
+             unprofiled_wall_ms_per_spp=walls[label] * 1e3,
+             idle_share=1.0 - total / (walls[label] * 1e3),
+             launches=launches, search_kernel=search,
+             search_ms=search_ms,
+             search_ms_per_launch=search_ms / max(launches[search], 1),
+             search_share=search_ms / total, top=top_device_items(prof))
+        if launches[search] == 0 or search_ms <= 0.0:
+            raise AssertionError(f"render_profile ({label}): no {search} "
                                  "device time")
+        if label == "c3-mesh" and \
+                counts["kernels"] >= C3_MAX_LAUNCHES_PER_SPP:
+            raise AssertionError(f"render_profile (c3-mesh): "
+                                 f"{counts['kernels']} CUDA launches per spp")
+
+
+def phase_c1_primary():
+    """c1-primary at its own size (640x480, 1 spp) through the CLI on the
+    card, then through --oracle (the NumPy renderer): the same rays, and
+    the card's image within the golden tolerance of the oracle's. The
+    card's run is a main path; its launch counts are returned."""
+    import numpy as np
+    from tpurt_torch import cli, film
+    from tpurt_torch.kernels import _build
+    argv = ["render", "--preset", "c1-primary"]
+    _build.reset_launches()
+    img, stats = cli.run(argv)
+    launches = dict(_build.LAUNCHES)
+    o_img, o_stats = cli.run([*argv, "--oracle"])
+    if img.shape != (480, 640, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"c1-primary: bad film {img.shape}")
+    diff = np.abs(film.tonemap(img).astype(int)
+                  - film.tonemap(o_img).astype(int))
+    frac, worst = float((diff > 1).mean()), int(diff.max())
+    emit("c1-primary", spp=stats["spp"], rays=stats["rays"],
+         oracle_rays=o_stats["rays"], wall_s=stats["wall_s"],
+         mrays_per_s=stats["mrays_per_s"], oracle_wall_s=o_stats["wall_s"],
+         frac_off_gt1=frac, max_diff=worst, launches=launches)
+    if stats["rays"] != o_stats["rays"]:
+        raise AssertionError(f"c1-primary: {stats['rays']} rays, the oracle "
+                             f"cast {o_stats['rays']}")
+    if frac >= 0.002 or worst > 8:
+        raise AssertionError(f"c1-primary: outside the golden tolerance of "
+                             f"the oracle's image ({frac}, {worst})")
+    for k in ("nearest_tri_small", *FUSED):
+        if launches[k] == 0:
+            raise AssertionError(f"c1-primary: {k} never launched")
+    return launches
 
 
 def phase_imports():
@@ -1219,6 +1598,12 @@ SOURCES = {
                           "tpurt/kernels/intersect.py:106"),
     "vmemloop": ("tpurt_torch/kernels/csrc/vmemloop.cu",
                  "benchmarks/probe_vmemloop.py:64"),
+    "camera_rays": ("tpurt_torch/kernels/csrc/camera_rays.cu",
+                    "tpurt/camera.py:89"),
+    "prims_nearest": ("tpurt_torch/kernels/csrc/prims_nearest.cu",
+                      "tpurt/trace.py:52"),
+    "bounce_shade": ("tpurt_torch/kernels/csrc/bounce_shade.cu",
+                     "tpurt/trace.py:271"),
 }
 
 
@@ -1230,6 +1615,7 @@ def main() -> int:
     phase_build()
     results = phase_kernels(dev)
     results["vmemloop"], probe_launches = phase_vmemloop(dev)
+    results.update(phase_fused(dev))
     golden_rays = phase_goldens(dev)
     world = torch.cuda.device_count()
     # the main paths, each read on its own
@@ -1237,6 +1623,7 @@ def main() -> int:
         "c3-mesh": phase_preset(
             "c3-mesh", ["--preset", "c3-mesh", "--spp", str(C3_SPP)],
             (720, 1280, 3), "traverse_nearest", 128),
+        "c1-primary": phase_c1_primary(),
         "c2-cornell": phase_preset(
             "c2-cornell", ["--preset", "c2-cornell", "--spp", str(C2_SPP)],
             (512, 512, 3), "nearest_tri_small", 64),
@@ -1270,15 +1657,16 @@ def main() -> int:
                 "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                 "ops_by_class": res["ops_by_class"],
-                "unweighted_bound_ms": res["unweighted_bound_ms"],
-                "library_ms": res["library_ms"], "library": NO_LIBRARY,
+                "library_ms": res["library_ms"],
+                "library": NO_LIBRARY if k not in FUSED else NO_FUSED_LIBRARY,
                 "shape": res["shape"], **res.get("row_extra", {})}
 
     print(smi, flush=True)
     # launches summed over the paths' runs. slab_step and leaf_phase run
     # on the render paths as device functions inside traverse_nearest
     # (0 launches of their own entry points, which are checked and timed
-    # above); vmemloop runs on the probe's path.
+    # above); vmemloop runs on the probe's path; camera_rays,
+    # prims_nearest and bounce_shade on every render path.
     print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -34,7 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C entry point -> argument kinds: p = device pointer, i = int. Every
-# entry point takes the CUDA stream last and returns a cudaError_t.
+# entry point takes the CUDA stream last and returns a cudaError_t. A
+# pointer an entry point documents as optional may be given as None (a
+# null pointer). tt_hit_shade is bounce_shade.cu's kernel stopped after
+# the hit merge; its launches count as bounce_shade's.
 SIGNATURES = {
     "tt_slab_step": "p" * 12 + "i",
     "tt_leaf_phase": "p" * 15 + "i",
@@ -42,11 +45,16 @@ SIGNATURES = {
     "tt_nearest_tri_small": "p" * 6 + "i" + "p" * 6 + "i",
     "tt_vmemloop": "p" * 9 + "i" * 7,
     "tt_vmemloop_clusters": "iip",
+    "tt_camera_rays": "p" * 5 + "i" * 22,
+    "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
+    "tt_hit_shade": "p" * 17 + "i",
+    "tt_bounce_shade": "p" * 7 + "iii" + "p" * 20 + "i",
 }
 
 # kernel name -> launches since the last reset (counted by the wrappers)
 LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
-            "nearest_tri_small": 0, "vmemloop": 0}
+            "nearest_tri_small": 0, "vmemloop": 0, "camera_rays": 0,
+            "prims_nearest": 0, "bounce_shade": 0}
 
 _LOADED: dict = {}
 
@@ -160,10 +168,11 @@ def check(name: str, t, shape, dtype, device) -> None:
 
 def launch(entry: str, device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream with
-    tensors passed as device pointers and ints as ints; raise if the
-    launch reports an error."""
+    tensors passed as device pointers, None as a null pointer and ints as
+    ints; raise if the launch reports an error."""
     fn = getattr(load(), entry)
-    cargs = [a.data_ptr() if torch.is_tensor(a) else int(a) for a in args]
+    cargs = [a.data_ptr() if torch.is_tensor(a) else 0 if a is None
+             else int(a) for a in args]
     with torch.cuda.device(device):
         rc = fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

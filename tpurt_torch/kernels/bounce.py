@@ -1,0 +1,211 @@
+"""The bounce body after the searches: ``bounce_shade`` and ``hit_shade``
+(port of the rest of tpurt/trace.py's compiled bounce, intersect's merge
+and vertex-normal shading and the ``lax.while_loop`` body, to
+``csrc/bounce_shade.cu``).
+
+Both take the primitives' hit ``prim`` = (t, n, mat) from
+``prims.prims_nearest`` and the triangle search's ``tri`` = (t, n, mat,
+hit, idx): idx is the winner's gid from the BVH search, or its slot from
+the brute search, which ``scene.tri_src`` maps to a gid (none without
+it). ``hit_shade`` returns trace.intersect's Hit fields (t, n, front,
+mat, ok). ``bounce_shade`` is trace.bounce after its searches: sky, then
+emission, into rad, the draws, scatter, Russian roulette; it returns
+(o, d, atten, rad, alive, live_hit), and a (1,) int32 ``survivors``
+tensor, if given, gains the rays alive after the bounce.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import linalg, materials, rng
+from ..geometry import INF
+from . import _build
+from .prims import closer
+
+
+def _gid_plain(scene, ht, idx):
+    if scene.pk_nodes is not None:
+        return idx
+    if scene.tri_src is not None:
+        return torch.where(ht, scene.tri_src[idx.long()], -1)
+    return None
+
+
+def hit_shade_plain(scene, o, d, prim, tri):
+    """Plain PyTorch version of the merge: (t, n, front, mat, ok)."""
+    t_best, n_best, m_best = prim
+    tt, nt, mt, ht, idx = tri
+    gid = _gid_plain(scene, ht, idx)
+    won, t_best, n_best, m_best = closer(t_best, n_best, m_best, ht, tt, nt,
+                                         mt)
+    hit = t_best < INF
+    front = linalg.dot(d, n_best) < 0.0
+    n_face = torch.where(front[:, None], n_best, -n_best)
+
+    if scene.tri_shn is not None and gid is not None:
+        # vertex-normal shading: interpolate the winner's vertex normals
+        # at the hit's barycentrics; the geometric normal keeps deciding
+        # front / back
+        use = won & (gid >= 0)
+        row = scene.tri_shn[torch.clamp_min(gid, 0).long()]
+        p = o + t_best[:, None] * d
+        tvec = p - row[:, 9:12]
+        e1, e2 = row[:, 12:15], row[:, 15:18]
+        nrm = linalg.cross(e1, e2)
+        den = linalg.dot(nrm, nrm)
+        # a denormal den counts as zero, as on the TPU (which flushes
+        # denormals) and in tpurt's NumPy oracle
+        den = torch.where(den >= torch.finfo(torch.float32).tiny, den, 1.0)
+        u = linalg.dot(linalg.cross(tvec, e2), nrm) / den
+        v = linalg.dot(linalg.cross(e1, tvec), nrm) / den
+        u = torch.clamp(u, 0.0, 1.0)
+        v = torch.minimum(torch.clamp_min(v, 0.0), 1.0 - u)
+        ns = ((1.0 - u - v)[:, None] * row[:, 0:3]
+              + u[:, None] * row[:, 3:6]
+              + v[:, None] * row[:, 6:9])
+        ns = linalg.normalize(ns)
+        ns = torch.where(front[:, None], ns, -ns)
+        n_face = torch.where(use[:, None], ns, n_face)
+    return t_best, n_face, front, m_best, hit
+
+
+def sky(scene, d):
+    """Gradient background; zero endpoints give black (Cornell)."""
+    t = 0.5 * (d[:, 1] + 1.0)
+    return scene.sky_a[None, :] + t[:, None] * (
+        scene.sky_b[None, :] - scene.sky_a[None, :])
+
+
+RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95
+
+
+def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
+                       rr_start, prim, tri, survivors=None):
+    """Plain PyTorch version: the bounce body of trace.bounce."""
+    t, n, front, mat, ok = hit_shade_plain(scene, o, d, prim, tri)
+    live_hit = alive & ok
+    live_miss = alive & ~ok
+
+    rad = rad + torch.where(live_miss[:, None], atten * sky(scene, d), 0.0)
+    mat_l = mat.long()
+    mp = scene.mat_packed[mat_l]                      # one (N,16) gather
+    mtype = scene.mat_packed.view(torch.int32)[mat_l, 0]
+    rad = rad + torch.where(live_hit[:, None], atten * mp[:, 4:7], 0.0)
+
+    draws = rng.bounce_draws(keys, depth)
+    p = o + t[:, None] * d
+    new_d, att, s_alive = materials.scatter(
+        d, n, front, mtype, mp[:, 1:4], mp[:, 7], mp[:, 8], draws)
+    atten = torch.where(live_hit[:, None], atten * att, atten)
+    alive = live_hit & s_alive
+    o = torch.where(live_hit[:, None], p, o)
+    d = torch.where(live_hit[:, None], new_d, d)
+
+    if rr_start is not None and (torch.is_tensor(depth)
+                                 or depth >= rr_start):
+        # survive with p = clamp(max(atten), 0.05, 0.95)
+        rr_on = alive & (depth >= rr_start)
+        p_surv = torch.clamp(atten.amax(dim=-1), RR_CLAMP_LO, RR_CLAMP_HI)
+        survive = draws[4] < p_surv
+        atten = torch.where((rr_on & survive)[:, None],
+                            atten / p_surv[:, None], atten)
+        alive = alive & (~rr_on | survive)
+    if survivors is not None:
+        survivors.add_(alive.sum(dtype=torch.int32))
+    return o, d, atten, rad, alive, live_hit
+
+
+def _tri_args(scene, tri, n, dev):
+    """The triangle hit's tensors, checked, and the tri_src / tri_shn the
+    kernel takes (None where it takes a null pointer)."""
+    tt, nt, mt, ht, idx = tri
+    for name, a, shape, dtype in (("tri t", tt, (n,), torch.float32),
+                                  ("tri n", nt, (n, 3), torch.float32),
+                                  ("tri mat", mt, (n,), torch.int32),
+                                  ("tri hit", ht, (n,), torch.bool),
+                                  ("tri idx", idx, (n,), torch.int32)):
+        _build.check(name, a, shape, dtype, dev)
+    bvh = scene.pk_nodes is not None
+    tri_src = None if bvh else scene.tri_src
+    has_gid = bvh or tri_src is not None
+    tri_shn = scene.tri_shn if has_gid else None
+    if tri_src is not None:
+        _build.check("tri_src", tri_src, (tri_src.shape[0],), torch.int32,
+                     dev)
+    if tri_shn is not None:
+        _build.check("tri_shn", tri_shn, (tri_shn.shape[0], 32),
+                     torch.float32, dev)
+    return (tt, nt, mt, ht, idx, tri_src, tri_shn)
+
+
+def _prim_args(prim, n, dev):
+    t, nrm, m = prim
+    _build.check("prim t", t, (n,), torch.float32, dev)
+    _build.check("prim n", nrm, (n, 3), torch.float32, dev)
+    _build.check("prim mat", m, (n,), torch.int32, dev)
+    return prim
+
+
+def hit_shade(scene, o, d, prim, tri):
+    """trace.intersect's merge on o's device: the plain version for CPU
+    tensors, the CUDA kernel (bounce_shade.cu's tt_hit_shade, counted as
+    a bounce_shade launch) for CUDA tensors (or an error)."""
+    if o.device.type == "cpu":
+        return hit_shade_plain(scene, o, d, prim, tri)
+    dev = _build.cuda_device("hit_shade", o)
+    n = o.shape[0]
+    _build.check("o", o, (n, 3), torch.float32, dev)
+    _build.check("d", d, (n, 3), torch.float32, dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    nrm = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    front = torch.empty(n, dtype=torch.bool, device=dev)
+    mat = torch.empty(n, dtype=torch.int32, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    _build.launch("tt_hit_shade", dev, o, d, *_prim_args(prim, n, dev),
+                  *_tri_args(scene, tri, n, dev), t, nrm, front, mat, ok, n)
+    _build.LAUNCHES["bounce_shade"] += 1
+    return t, nrm, front, mat, ok
+
+
+def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
+                 prim, tri, survivors=None):
+    """trace.bounce after its searches on o's device: the plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors (or an error).
+    depth: the bounce index, an int or an (N,) integer tensor of per-ray
+    depths; rr_start: None or the first bounce with roulette."""
+    if o.device.type == "cpu":
+        return bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
+                                  depth, rr_start, prim, tri, survivors)
+    dev = _build.cuda_device("bounce_shade", o)
+    n = o.shape[0]
+    atten, rad, keys = atten.contiguous(), rad.contiguous(), keys.contiguous()
+    for name, a in (("o", o), ("d", d), ("atten", atten), ("rad", rad)):
+        _build.check(name, a, (n, 3), torch.float32, dev)
+    _build.check("alive", alive, (n,), torch.bool, dev)
+    _build.check("keys", keys, (3, n), torch.int64, dev)
+    m = scene.mat_packed.shape[0]
+    _build.check("mat_packed", scene.mat_packed, (m, 16), torch.float32, dev)
+    _build.check("sky_a", scene.sky_a, (3,), torch.float32, dev)
+    _build.check("sky_b", scene.sky_b, (3,), torch.float32, dev)
+    if torch.is_tensor(depth):
+        depth_v, depth = depth.to(torch.int64).contiguous(), 0
+        _build.check("depth", depth_v, (n,), torch.int64, dev)
+    else:
+        depth_v = None
+    if survivors is not None:
+        _build.check("survivors", survivors, (1,), torch.int32, dev)
+    outs = (torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty((n, 3), dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev))
+    _build.launch("tt_bounce_shade", dev, o, d, atten, rad, alive, keys,
+                  depth_v, int(depth), int(rr_start is not None),
+                  0 if rr_start is None else int(rr_start),
+                  *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
+                  scene.mat_packed, scene.sky_a, scene.sky_b, *outs,
+                  survivors, n)
+    _build.LAUNCHES["bounce_shade"] += 1
+    return outs

@@ -1,0 +1,180 @@
+// bounce_shade: the bounce body after the searches, one thread per ray.
+//
+// Replaces the rest of tpurt/trace.py's bounce (intersect's merge and
+// vertex-normal shading, then the body of the lax.while_loop: sky and
+// emission, the material row, the bounce draws, materials.scatter and
+// Russian roulette), which XLA compiles into a few fused kernels on the
+// TPU (plain version: kernels/bounce.py::bounce_shade_plain, eager
+// PyTorch). In: the ray state o, d, atten, rad (N,3) f32, alive (N,) bool,
+// keys (3,N) int64; the bounce index, one int or a per-ray (N,) int64
+// (the persistent pool's); roulette on or off and its first depth; the
+// primitives' hit (prims_nearest: t, n, mat) and the triangle search's (t,
+// n, mat, hit, and the winner's gid, or its slot with tri_src to map it);
+// the scene's tri_shn rows (or null), mat_packed (M,16) and sky. Out: the
+// new o, d, atten, rad, alive and live_hit; survivors, if not null, gains
+// the number of rays alive after the bounce.
+//
+// tt_hit_shade is the same kernel stopped after the merge: trace.intersect
+// on a card (the Hit's t, n, front, mat, ok), for mode primary.
+//
+// Bound on the H100: device-memory bytes (~230 B a ray; three threefry
+// calls, a cos, sin, double pow and a few divisions and square roots are
+// ~1,000 operations, issue-bound only if the card ran at its FMA rate
+// alone). Design: one thread per ray, no shared memory; the survivors are
+// counted per block by __syncthreads_count and added with one atomicAdd.
+// The per-ray math is merge_hit and bounce_ray in shade_common.cuh.
+#include <cuda_runtime.h>
+
+#include "shade_common.cuh"
+
+namespace {
+
+struct Hits {
+  const float* t_p;      // (N,) primitives' t (the search's window)
+  const float* n_p;      // (N,3)
+  const int* m_p;        // (N,)
+  const float* t_t;      // (N,) the triangle search's t
+  const float* n_t;      // (N,3)
+  const int* m_t;        // (N,)
+  const bool* h_t;       // (N,) found
+  const int* idx;        // (N,) gid, or the slot tri_src maps to a gid
+  const int* tri_src;    // null: idx is the gid
+  const float* tri_shn;  // (T0,32) or null: no vertex normals
+};
+
+// The merged hit of ray i (trace.intersect's Hit).
+__device__ __forceinline__ void hit_of(const Hits& h, int i, tt::V3 o,
+                                       tt::V3 d, float& t, tt::V3& n,
+                                       int& mat, bool& front, bool& ok) {
+  t = h.t_p[i];
+  n = tt::load3(h.n_p + 3 * (size_t)i);
+  mat = h.m_p[i];
+  const bool ht = h.h_t[i];
+  const int gid = h.tri_src == nullptr ? h.idx[i]
+                  : ht                 ? h.tri_src[h.idx[i]]
+                                       : -1;
+  tt::merge_hit(o, d, t, n, mat, h.t_t[i], tt::load3(h.n_t + 3 * (size_t)i),
+                h.m_t[i], ht, gid, h.tri_shn, front, ok);
+}
+
+__global__ void hit_shade_kernel(const float* __restrict__ o,
+                                 const float* __restrict__ d, Hits h,
+                                 float* __restrict__ t_out,
+                                 float* __restrict__ n_out,
+                                 bool* __restrict__ front_out,
+                                 int* __restrict__ mat_out,
+                                 bool* __restrict__ ok_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t;
+  tt::V3 nrm;
+  int mat;
+  bool front, ok;
+  hit_of(h, i, tt::load3(o + 3 * (size_t)i), tt::load3(d + 3 * (size_t)i), t,
+         nrm, mat, front, ok);
+  t_out[i] = t;
+  tt::store3(n_out + 3 * (size_t)i, nrm);
+  front_out[i] = front;
+  mat_out[i] = mat;
+  ok_out[i] = ok;
+}
+
+__global__ void bounce_shade_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ atten, const float* __restrict__ rad,
+    const bool* __restrict__ alive, const long long* __restrict__ keys,
+    const long long* __restrict__ depth_v, long long depth, bool rr,
+    long long rr_start, Hits h, const float* __restrict__ mat_packed,
+    const float* __restrict__ sky_a, const float* __restrict__ sky_b,
+    float* __restrict__ o_out, float* __restrict__ d_out,
+    float* __restrict__ atten_out, float* __restrict__ rad_out,
+    bool* __restrict__ alive_out, bool* __restrict__ live_hit_out,
+    int* __restrict__ survivors, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool alive_new = false;
+  if (i < n) {
+    const size_t k = 3 * (size_t)i;
+    tt::V3 ro = tt::load3(o + k), rd = tt::load3(d + k);
+    tt::V3 ra = tt::load3(atten + k), rr_ = tt::load3(rad + k);
+    float t;
+    tt::V3 nrm;
+    int mat;
+    bool front, ok, live_hit;
+    hit_of(h, i, ro, rd, t, nrm, mat, front, ok);
+    alive_new = tt::bounce_ray(
+        ro, rd, ra, rr_, alive[i], t, nrm, front, mat, ok, mat_packed,
+        tt::load3(sky_a), tt::load3(sky_b), (uint32_t)keys[i],
+        (uint32_t)keys[(size_t)n + i], (uint32_t)keys[2 * (size_t)n + i],
+        depth_v != nullptr ? depth_v[i] : depth, rr, rr_start, live_hit);
+    tt::store3(o_out + k, ro);
+    tt::store3(d_out + k, rd);
+    tt::store3(atten_out + k, ra);
+    tt::store3(rad_out + k, rr_);
+    alive_out[i] = alive_new;
+    live_hit_out[i] = live_hit;
+  }
+  if (survivors != nullptr) {
+    const int c = __syncthreads_count(alive_new);
+    if (threadIdx.x == 0 && c > 0) atomicAdd(survivors, c);
+  }
+}
+
+Hits make_hits(const void* t_p, const void* n_p, const void* m_p,
+               const void* t_t, const void* n_t, const void* m_t,
+               const void* h_t, const void* idx, const void* tri_src,
+               const void* tri_shn) {
+  return Hits{(const float*)t_p, (const float*)n_p, (const int*)m_p,
+              (const float*)t_t, (const float*)n_t, (const int*)m_t,
+              (const bool*)h_t,  (const int*)idx,   (const int*)tri_src,
+              (const float*)tri_shn};
+}
+
+constexpr int THREADS = 256;
+
+}  // namespace
+
+// tri_src and tri_shn may be null.
+extern "C" int tt_hit_shade(const void* o, const void* d, const void* t_p,
+                            const void* n_p, const void* m_p,
+                            const void* t_t, const void* n_t,
+                            const void* m_t, const void* h_t,
+                            const void* idx, const void* tri_src,
+                            const void* tri_shn, void* t_out, void* n_out,
+                            void* front_out, void* mat_out, void* ok_out,
+                            int n, void* stream) {
+  if (n > 0) {
+    hit_shade_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                       (cudaStream_t)stream>>>(
+        (const float*)o, (const float*)d,
+        make_hits(t_p, n_p, m_p, t_t, n_t, m_t, h_t, idx, tri_src, tri_shn),
+        (float*)t_out, (float*)n_out, (bool*)front_out, (int*)mat_out,
+        (bool*)ok_out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// depth_v (per-ray int64 depths), tri_src, tri_shn and survivors may be
+// null; with depth_v null every ray is at bounce `depth`. rr: 0 for no
+// roulette, else roulette from depth rr_start on.
+extern "C" int tt_bounce_shade(
+    const void* o, const void* d, const void* atten, const void* rad,
+    const void* alive, const void* keys, const void* depth_v, int depth,
+    int rr, int rr_start, const void* t_p, const void* n_p, const void* m_p,
+    const void* t_t, const void* n_t, const void* m_t, const void* h_t,
+    const void* idx, const void* tri_src, const void* tri_shn,
+    const void* mat_packed, const void* sky_a, const void* sky_b, void* o_out,
+    void* d_out, void* atten_out, void* rad_out, void* alive_out,
+    void* live_hit_out, void* survivors, int n, void* stream) {
+  if (n > 0) {
+    bounce_shade_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
+                          (cudaStream_t)stream>>>(
+        (const float*)o, (const float*)d, (const float*)atten,
+        (const float*)rad, (const bool*)alive, (const long long*)keys,
+        (const long long*)depth_v, depth, rr != 0, rr_start,
+        make_hits(t_p, n_p, m_p, t_t, n_t, m_t, h_t, idx, tri_src, tri_shn),
+        (const float*)mat_packed, (const float*)sky_a, (const float*)sky_b,
+        (float*)o_out, (float*)d_out, (float*)atten_out, (float*)rad_out,
+        (bool*)alive_out, (bool*)live_hit_out, (int*)survivors, n);
+  }
+  return (int)cudaGetLastError();
+}

@@ -21,9 +21,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import camera as camera_mod
-from . import metrics, rng, trace, wavefront
+from . import metrics, trace, wavefront
 from .config import RenderConfig, build_scene
+from .kernels import camera as camera_k
 from .scene import Scene, to_device
 
 BRUTE_RAY_BATCH = 1 << 17  # batch cap for no-BVH bounce paths
@@ -112,10 +112,8 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
             pixf = pix[p0:p0 + block].repeat(c)          # sample-major
             validf = ok[p0:p0 + block].repeat(c)
             smp = sample_ids.repeat_interleave(block)
-            keys = rng.make_streams(cfg.seed, pixf, smp)
-            jit = rng.camera_draws(keys)
-            o, d = camera_mod.generate_rays(cam, cfg.width, cfg.height,
-                                            pixf, jit)
+            o, d, keys = camera_k.camera_rays(cam, cfg.width, cfg.height,
+                                              cfg.seed, pixf, smp)
             if cfg.mode == "primary":
                 rad, _ = trace.shade_primary(scene, o, d)
                 rad = torch.where(validf[:, None], rad, 0.0)

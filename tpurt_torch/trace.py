@@ -1,12 +1,18 @@
 """Megakernel tracer core (port of tpurt/trace.py).
 
 ``trace`` advances N rays one bounce per loop step with dead lanes
-masked, and stops at max_depth or when every lane is dead. The nearest
-triangle hit goes through a CUDA kernel on a card:
-``kernels.traverse.nearest_tri`` when the scene has a BVH, else
-``kernels.intersect.nearest_tri_small``. The bounce body (``bounce``:
-threefry draws, material row, scatter, Russian roulette) is plain
-PyTorch, shared with the wavefront and persistent tracers.
+masked, and stops at max_depth or when every lane is dead. A bounce
+(``bounce``) runs three steps, each a hand-written CUDA kernel on a card
+and its plain PyTorch version on the CPU: the sphere and plane hit
+(``kernels.prims.prims_nearest``), the nearest triangle
+(``kernels.traverse.nearest_tri`` when the scene has a BVH, else
+``kernels.intersect.nearest_tri_small``), and the bounce body
+(``kernels.bounce.bounce_shade``: merge, vertex normals, sky and
+emission, threefry draws, scatter, Russian roulette). The bounce is
+shared with the wavefront and persistent tracers. As tpurt's
+``lax.while_loop`` tests ``any(alive)`` on the device, ``trace`` reads
+the host once per bounce: the 4-byte survivor count that the bounce
+body adds up; rays_cast is summed on the device.
 
 Left out on purpose: tpurt's staged bounce ladder and ``resort`` are TPU
 batching shapes that images do not depend on. ``trace`` keeps tpurt's
@@ -19,12 +25,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import geometry, linalg, materials, rng
-from .geometry import INF
+from . import linalg
+from .kernels import bounce as bounce_k
 from .kernels import intersect as intersect_k
-from .kernels import traverse
+from .kernels import prims, traverse
+from .kernels.bounce import RR_CLAMP_HI, RR_CLAMP_LO, sky  # noqa: F401
 
-RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95
 PACKET_R = 128   # rays per traversal packet; batches are whole packets
 
 # Decreed constants of config 1's primary-ray shading (frozen by goldens).
@@ -40,124 +46,41 @@ class Hit(NamedTuple):
     ok: torch.Tensor      # (N,) bool
 
 
-def _closer(t_best, n_best, m_best, hit, t, n, m):
-    closer = hit & (t < t_best)
-    return (closer, torch.where(closer, t, t_best),
-            torch.where(closer[:, None], n, n_best),
-            torch.where(closer, m, m_best))
+def search(scene, o, d, t_best):
+    """The nearest triangle inside the window t_best (N,): the BVH search
+    when the scene has one, else the brute test. Returns (t, n, mat, hit,
+    idx), idx the winner's gid (BVH) or its slot (brute)."""
+    if scene.pk_nodes is not None:
+        return traverse.nearest_tri(scene, o, d, t_best)
+    return intersect_k.nearest_tri_small(
+        o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_mat,
+        t_best)
 
 
 def intersect(scene, o, d, t_cap=None) -> Hit:
-    """Nearest hit across spheres, planes, then triangles (the BVH search
-    when the scene has one, else the brute test), then the optional
-    vertex-normal shading. t_cap (N,): per-ray window; 0 marks a dead
-    lane, which fails every test and leaves the BVH after its root."""
-    n_rays = o.shape[0]
-    dev = o.device
-    if t_cap is None:
-        t_best = torch.full((n_rays,), INF, dtype=torch.float32, device=dev)
-    else:
-        t_best = t_cap.to(torch.float32)
-    n_best = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
-    n_best[:, 1] = 1.0
-    m_best = torch.zeros(n_rays, dtype=torch.int32, device=dev)
-
-    ts, ns, ms, hs = geometry.hit_spheres(
-        o, d, scene.sph_c, scene.sph_r, scene.sph_mat, t_best)
-    _, t_best, n_best, m_best = _closer(t_best, n_best, m_best,
-                                        hs, ts, ns, ms)
-    tp, np_, mp, hp = geometry.hit_planes(
-        o, d, scene.pln_n, scene.pln_k, scene.pln_mat, t_best)
-    _, t_best, n_best, m_best = _closer(t_best, n_best, m_best,
-                                        hp, tp, np_, mp)
-
-    gid = None
-    o, d, t_best = o.contiguous(), d.contiguous(), t_best.contiguous()
-    if scene.pk_nodes is not None:
-        tt, nt, mt, ht, gid = traverse.nearest_tri(scene, o, d, t_best)
-    else:
-        tt, nt, mt, ht, tri = intersect_k.nearest_tri_small(
-            o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_mat,
-            t_best)
-        if scene.tri_src is not None:
-            gid = torch.where(ht, scene.tri_src[tri.long()], -1)
-    closer, t_best, n_best, m_best = _closer(t_best, n_best, m_best,
-                                             ht, tt, nt, mt)
-
-    hit = t_best < INF
-    front = linalg.dot(d, n_best) < 0.0
-    n_face = torch.where(front[:, None], n_best, -n_best)
-
-    if scene.tri_shn is not None and gid is not None:
-        # vertex-normal shading: interpolate the winner's vertex normals
-        # at the hit's barycentrics; the geometric normal keeps deciding
-        # front / back
-        use = closer & (gid >= 0)
-        row = scene.tri_shn[torch.clamp_min(gid, 0).long()]
-        p = o + t_best[:, None] * d
-        tvec = p - row[:, 9:12]
-        e1, e2 = row[:, 12:15], row[:, 15:18]
-        nrm = linalg.cross(e1, e2)
-        den = linalg.dot(nrm, nrm)
-        # a denormal den counts as zero, as on the TPU (which flushes
-        # denormals) and in tpurt's NumPy oracle
-        den = torch.where(den >= torch.finfo(torch.float32).tiny, den, 1.0)
-        u = linalg.dot(linalg.cross(tvec, e2), nrm) / den
-        v = linalg.dot(linalg.cross(e1, tvec), nrm) / den
-        u = torch.clamp(u, 0.0, 1.0)
-        v = torch.minimum(torch.clamp_min(v, 0.0), 1.0 - u)
-        ns = ((1.0 - u - v)[:, None] * row[:, 0:3]
-              + u[:, None] * row[:, 3:6]
-              + v[:, None] * row[:, 6:9])
-        ns = linalg.normalize(ns)
-        ns = torch.where(front[:, None], ns, -ns)
-        n_face = torch.where(use[:, None], ns, n_face)
-
-    return Hit(t=t_best, n=n_face, front=front, mat=m_best, ok=hit)
+    """Nearest hit across spheres, planes, then triangles, then the
+    optional vertex-normal shading. t_cap (N,): per-ray window; 0 marks a
+    dead lane, which fails every test and leaves the BVH after its root."""
+    o, d = o.contiguous(), d.contiguous()
+    prim = prims.prims_nearest(scene, o, d, t_cap=t_cap)
+    tri = search(scene, o, d, prim[0])
+    return Hit(*bounce_k.hit_shade(scene, o, d, prim, tri))
 
 
-def sky(scene, d):
-    """Gradient background; zero endpoints give black (Cornell)."""
-    t = 0.5 * (d[:, 1] + 1.0)
-    return scene.sky_a[None, :] + t[:, None] * (
-        scene.sky_b[None, :] - scene.sky_a[None, :])
-
-
-def bounce(scene, o, d, atten, rad, alive, keys, depth, rr_start):
-    """One bounce of N rays: intersect, sky or emission into rad, scatter,
-    then Russian roulette from depth rr_start on. depth is the bounce
-    index, an int or (N,) tensor of per-ray depths (the persistent
-    tracer's). Returns (o, d, atten, rad, alive, live_hit), live_hit
-    marking live rays that hit a surface."""
-    h = intersect(scene, o, d, t_cap=torch.where(alive, INF, 0.0))
-    live_hit = alive & h.ok
-    live_miss = alive & ~h.ok
-
-    rad = rad + torch.where(live_miss[:, None], atten * sky(scene, d), 0.0)
-    mat_l = h.mat.long()
-    mp = scene.mat_packed[mat_l]                      # one (N,16) gather
-    mtype = scene.mat_packed.view(torch.int32)[mat_l, 0]
-    rad = rad + torch.where(live_hit[:, None], atten * mp[:, 4:7], 0.0)
-
-    draws = rng.bounce_draws(keys, depth)
-    p = o + h.t[:, None] * d
-    new_d, att, s_alive = materials.scatter(
-        d, h.n, h.front, mtype, mp[:, 1:4], mp[:, 7], mp[:, 8], draws)
-    atten = torch.where(live_hit[:, None], atten * att, atten)
-    alive = live_hit & s_alive
-    o = torch.where(live_hit[:, None], p, o)
-    d = torch.where(live_hit[:, None], new_d, d)
-
-    if rr_start is not None and (torch.is_tensor(depth)
-                                 or depth >= rr_start):
-        # survive with p = clamp(max(atten), 0.05, 0.95)
-        rr_on = alive & (depth >= rr_start)
-        p_surv = torch.clamp(atten.amax(dim=-1), RR_CLAMP_LO, RR_CLAMP_HI)
-        survive = draws[4] < p_surv
-        atten = torch.where((rr_on & survive)[:, None],
-                            atten / p_surv[:, None], atten)
-        alive = alive & (~rr_on | survive)
-    return o, d, atten, rad, alive, live_hit
+def bounce(scene, o, d, atten, rad, alive, keys, depth, rr_start,
+           survivors=None):
+    """One bounce of N rays: intersect (dead lanes get the window 0), sky
+    or emission into rad, scatter, then Russian roulette from depth
+    rr_start on. depth is the bounce index, an int or (N,) tensor of
+    per-ray depths (the persistent tracer's). Returns (o, d, atten, rad,
+    alive, live_hit), live_hit marking live rays that hit a surface; a
+    (1,) int32 ``survivors`` tensor, if given, gains the rays alive
+    after the bounce."""
+    o, d = o.contiguous(), d.contiguous()
+    prim = prims.prims_nearest(scene, o, d, alive=alive)
+    tri = search(scene, o, d, prim[0])
+    return bounce_k.bounce_shade(scene, o, d, atten, rad, alive, keys,
+                                 depth, rr_start, prim, tri, survivors)
 
 
 def trace(scene, o, d, keys, max_depth: int,
@@ -169,6 +92,10 @@ def trace(scene, o, d, keys, max_depth: int,
     (never traced, never counted). Returns (radiance (N,3) in input order,
     rays_cast), rays_cast counting every live ray entering a bounce, as a
     0-dim int64 tensor on the rays' device.
+
+    Each bounce adds its survivors into one int32 slot; the loop reads
+    that slot (4 bytes) before the next bounce and stops at 0, so the host
+    reads the device once per bounce.
 
     bounce0 / atten0 / rad0 resume a span: the bounce counter is
     absolute (the draws and roulette key off it), so tracing [0, k) with
@@ -185,14 +112,20 @@ def trace(scene, o, d, keys, max_depth: int,
            if rad0 is None else rad0)
     alive = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
              else valid.clone())
-    nrays = torch.zeros((), dtype=torch.int64, device=dev)
-
+    # live[0]: the rays entering the first bounce; live[k + 1]: the
+    # survivors of bounce k, which enter bounce k + 1
+    live = torch.zeros(max(max_depth - bounce0, 0) + 1, dtype=torch.int32,
+                       device=dev)
+    live[0] = alive.sum(dtype=torch.int32)
+    done = 0
     for depth in range(bounce0, max_depth):
-        if not bool(alive.any()):
+        if int(live[done]) == 0:
             break
-        nrays = nrays + alive.sum()
-        o, d, atten, rad, alive, _ = bounce(scene, o, d, atten, rad, alive,
-                                            keys, depth, rr_start)
+        o, d, atten, rad, alive, _ = bounce(
+            scene, o, d, atten, rad, alive, keys, depth, rr_start,
+            survivors=live[done + 1:done + 2])
+        done += 1
+    nrays = live[:done].sum(dtype=torch.int64)
     if want_state:
         return rad, nrays, (o, d, atten, alive, keys)
     return rad, nrays

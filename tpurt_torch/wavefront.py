@@ -30,8 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import camera as camera_mod
-from . import rng, trace
+from . import trace
+from .kernels import camera as camera_k
 
 PACKET_R = trace.PACKET_R   # rays never leave their packet
 MIN_PACKETS = 8             # the queue shrinks no further
@@ -147,9 +147,8 @@ def _load_rays(cam, width, height, seed, pixel_table, sample_lo, r):
     sample_lo + r // npix_chunk at pixel pixel_table[r % npix_chunk]."""
     npix_chunk = pixel_table.shape[0]
     pix = pixel_table[r % npix_chunk]
-    streams = rng.make_streams(seed, pix, sample_lo + r // npix_chunk)
-    o, d = camera_mod.generate_rays(cam, width, height, pix,
-                                    rng.camera_draws(streams))
+    o, d, streams = camera_k.camera_rays(cam, width, height, seed, pix,
+                                         sample_lo + r // npix_chunk)
     return o, d, pix, streams
 
 
