@@ -42,48 +42,66 @@ exits non-zero and prints no result):
                  array-equal to its plain version on the same inputs (NaN
                  equal to NaN); then the three timed on the c3 render's own
                  inputs, each with its bound
-  6. goldens   — g1..g5 through tpurt_torch.render.render against
+  6. frame     — every film_fold, packet_compact and persist_refill call
+                 (and persist_commit, the refill kernel's commit-only
+                 launch) in renders of c3 and c4 at 1 spp, c4 in mode
+                 persist at PERSIST_SPP, g3 and g5 in mode wavefront and
+                 g2 in mode persist with a 2,048-slot pool, against its
+                 plain version on the same inputs (array-equal; the film
+                 that the refill adds into with atomics within
+                 film_bound), with bounce_shade's survivor and live-packet
+                 counts; both persist renders must regenerate; then the
+                 three timed on c3 / c4 traffic, each with its bound, and
+                 film_fold beside the library call FOLD_LIBRARY
+  7. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
                  1, none by more than 8), and g2..g5 again in modes
                  wavefront and persist with the megakernel's ray count
-  7. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
+  8. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
-  8. c1-primary — 640x480 at 1 spp (its own size and spp), then through
+  9. c1-primary — 640x480 at 1 spp (its own size and spp), then through
                  --oracle: the same rays, the golden tolerance against the
                  oracle's image
-  9. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
+ 10. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
                  cut from 64 to 8
- 10. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
+ 11. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
                  from bounce 3, spp cut from 256 to 2; occupancy
- 11. c4-persist — the c4 scene and size in mode persist at 1 spp
- 12. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
+ 12. c4-persist — the c4 scene and size in mode persist at PERSIST_SPP (2:
+                 each block's pool regenerates)
+ 13. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
                  max_depth 16, roulette from bounce 3, shard tiles), spp
                  cut from 1024 to 1, over every card: an NCCL group of one
                  in this process on one card, one process per card on
                  several; stats must name that many devices
- 13. c5-spp    — the same, sharded by samples
- 14. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
+ 14. c5-spp    — the same, sharded by samples
+ 15. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
                  spp: the megakernel's rays, the golden tolerance
- 15. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a simulated crash
-                 after 2 samples, resumed, equals the uninterrupted run
-                 bit for bit with equal rays; unsharded and by tiles
- 16. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
+ 16. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a crash after 2
+                 samples, resumed, equals the uninterrupted run bit for
+                 bit with equal rays; unsharded and by tiles
+ 17. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
                  rays, the golden tolerance
- 17. imports   — no module of jax and none of tpurt loaded
- 18. profile   — last (a profiled render slows later ones): c3, c2, c4,
-                 c4 persist and c5 at 1 spp unprofiled (wall), g4 with
+ 18. imports   — no module of jax and none of tpurt loaded
+ 19. profile   — last, in a fresh child process (the timing phases above
+                 ran torch.profiler, and a profiled render slows later
+                 ones in its process): c3, c2, c4, c4 persist (at
+                 PERSIST_SPP) and c5 unprofiled (wall), g4 with
                  --profile-dir (the Chrome trace names the traversal
                  kernel), then the five under torch.profiler: CUDA
-                 launches, device time, idle share and host reads per spp,
-                 the search kernel's device time per launch; c3 must stay
-                 under C3_MAX_LAUNCHES_PER_SPP launches
-The probe (in phase 4) and phases 7-15 are the main paths, each with the
+                 launches, device time (and kernel time alone), idle
+                 share and host reads per spp, the search kernel's device
+                 time per launch; c3 must stay under 300 CUDA launches per
+                 spp, c4 in modes wavefront and persist under 400
+                 (MAX_LAUNCHES_PER_SPP)
+The probe (in phase 4) and phases 8-16 are the main paths, each with the
 launch counts reset just before it and read just after; every render
-path must launch its search kernel and the three fused kernels, and the
-renders of phases 7 and 9-13 must cast PHASE_RAYS exactly. Then the
-card's nvidia-smi line, the kernel table as one JSON object (all eight
-kernels, each with its launches by path, its bound and its operations
-by class), and as the last line {"ok": true, "device": {...}}.
+path must launch its search kernel, the three fused kernels and its
+mode's kernels (the film fold; packet_compact in mode wavefront,
+persist_refill in mode persist), and the renders of phases 8 and 10-14
+must cast PHASE_RAYS exactly. Then the card's nvidia-smi line, the
+kernel table as one JSON object (all eleven kernels, each with its
+launches by path, its bound and its operations by class), and as the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -99,7 +117,8 @@ GOLDEN_DIR = REPO / "tests" / "golden"
 C3_SPP = 4                 # c3-mesh's 128 spp cut to 4 for the smoke
 C2_SPP = 8                 # c2-cornell's 64 spp cut to 8
 C4_SPP = 2                 # c4-wavefront's 256 spp cut to 2
-PERSIST_SPP = 1            # c4's scene and size in mode persist
+PERSIST_SPP = 2            # c4's scene and size in mode persist: at 2 spp
+                           # each block's pool regenerates
 C5_SPP = 1                 # c5-multichip's 1024 spp cut to 1
 CKPT_SPP = 4               # the checkpoint phase's c3-mesh, every 2
 C2_BATCH = 1 << 17         # c2's bounce batch (render.BRUTE_RAY_BATCH)
@@ -118,11 +137,14 @@ L2_FLUSH_BYTES = 1 << 27   # read before each timed call: over twice the
 # kernel's output is array-equal to its plain version, so these stay
 # exactly as the eager bounce cast them
 PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
-              "c4-wavefront": 9_571_880, "c4-persist": 4_785_727,
+              "c4-wavefront": 9_571_880, "c4-persist": 9_571_880,
               "c5-tiles": 19_143_284, "c5-spp": 19_143_284}
-# c3's CUDA launches per spp at most (per batch: the camera kernel, three
-# kernels a bounce; per spp: the film sum)
-C3_MAX_LAUNCHES_PER_SPP = 300
+# CUDA launches per spp at most: c3's (per batch: the camera kernel,
+# three kernels a bounce, the film fold), and c4's in modes wavefront and
+# persist (also: per shrink two compaction kernels, per pool iteration
+# two refill kernels)
+MAX_LAUNCHES_PER_SPP = {"c3-mesh": 300, "c4-wavefront": 400,
+                        "c4-persist": 400}
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -268,12 +290,13 @@ def device_us(prof, keep=lambda key: True) -> float:
                for e in prof.key_averages() if keep(e.key))
 
 
-def time_ms(fn, reps: int) -> dict:
+def time_ms(fn, reps: int, keep=not_flush) -> dict:
     """Per-call times of fn() over reps calls after one warm-up, with the
     L2 flushed (l2_flush) before each call: "device", the CUDA kernels'
-    own time as torch.profiler records it, the flush left out (None if
-    the profiler records none), and "wall", CUDA events around each
-    call, host launch overhead included."""
+    own time as torch.profiler records it over the keys that keep
+    accepts (by default all but the flush; None if the profiler records
+    none), and "wall", CUDA events around each call, host launch
+    overhead included."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -293,7 +316,7 @@ def time_ms(fn, reps: int) -> dict:
             l2_flush()
             fn()
         torch.cuda.synchronize()
-    dev_us = device_us(prof, not_flush)
+    dev_us = device_us(prof, keep)
     return {"device": dev_us / 1e3 / reps if dev_us > 0 else None,
             "wall": wall}
 
@@ -926,6 +949,8 @@ def phase_vmemloop(dev):
 
 
 FUSED = ("camera_rays", "prims_nearest", "bounce_shade")
+# bounce_shade's optional counts (its arguments 11 and 12)
+BOUNCE_COUNTS = ("survivors", "live_packets")
 FIXTURE_OBJ = REPO / "tests" / "fixtures" / "icosphere_vn.obj"
 
 
@@ -964,7 +989,7 @@ class FusedCheck:
     """While open, each call of camera_rays, prims_nearest, hit_shade and
     bounce_shade (kernels/camera.py, prims.py, bounce.py) launches the
     kernel, runs its plain version on the same inputs, and raises unless
-    every output (and the survivor count a bounce adds) is array-equal,
+    every output (and the counts a bounce adds) is array-equal,
     NaN equal to NaN; the caller goes on with the kernel's outputs.
     ``keep`` maps a wrapper name to the index of a call whose arguments
     are kept (cloned) in ``kept``."""
@@ -994,20 +1019,23 @@ class FusedCheck:
             n_calls = self.stats.get(name, {}).get("calls", 0)
             if self.keep.get(name) == n_calls:
                 self.kept[name] = (_clone(args), _clone(kw))
-            args = list(args)
-            survivors = None
+            counts = {}
             if name == "bounce_shade":
-                if len(args) > 11:
-                    survivors = args.pop(11)
-                survivors = kw.pop("survivors", survivors)
-            if survivors is None:
+                counts = dict(zip(BOUNCE_COUNTS, args[11:]))
+                args = args[:11]
+                counts.update((k, kw.pop(k)) for k in BOUNCE_COUNTS
+                              if k in kw)
+                counts = {k: v for k, v in counts.items() if v is not None}
+            if not counts:
                 got = kernel(*args, **kw)
                 return self._checked(name, got, plain(*args, **kw))
-            before = survivors.clone()
-            got = kernel(*args, survivors=survivors, **kw)
-            scratch = torch.zeros_like(survivors)
-            want = plain(*args, survivors=scratch, **kw)
-            self._checked(name, (*got, survivors - before), (*want, scratch))
+            before = {k: v.clone() for k, v in counts.items()}
+            got = kernel(*args, **counts, **kw)
+            scratch = {k: torch.zeros_like(v) for k, v in counts.items()}
+            want = plain(*args, **scratch, **kw)
+            self._checked(name, (*got, *(v - before[k]
+                                         for k, v in counts.items())),
+                          (*want, *scratch.values()))
             return got
 
         self._saved.append((mod, name, kernel))
@@ -1147,6 +1175,323 @@ def phase_fused(dev):
     return rows
 
 
+FRAME = ("film_fold", "packet_compact", "persist_refill")
+EPS32 = 2.0 ** -23     # float32's ulp at 1.0
+FOLD_LIBRARY = "acc.add_(rad.view(c, block, 3).sum(0))"
+
+
+def film_bound(film_before, pix, rad):
+    """Largest difference allowed per film element between two ways of
+    adding rows rad (K,3) into film_before at pixels pix (K,), in another
+    order: an element that k rows reach is a sum of k + 1 terms, rounded
+    k times either way, each rounding off by at most 2**-24 of a partial
+    sum, which is at most mag = |film| + the |rows| it adds; so the two
+    differ by at most k * 2**-23 * mag (0 where no row lands)."""
+    import torch
+    k = torch.zeros(film_before.shape[0], dtype=torch.float32,
+                    device=film_before.device)
+    k.index_add_(0, pix, torch.ones_like(pix, dtype=torch.float32))
+    mag = film_before.abs().index_add(0, pix, rad.abs())
+    return k[:, None] * EPS32 * mag
+
+
+class FrameCheck:
+    """While open, each call of film_fold, packet_compact, persist_refill
+    and persist_commit (kernels/film_fold.py, compact.py, refill.py)
+    launches the kernel on the caller's tensors and runs the plain
+    version on clones of them; every output must be array-equal (NaN
+    equal to NaN), except the film that persist_refill and persist_commit
+    add into with atomics, which must stay within film_bound. The caller
+    goes on with the kernel's outputs. Kept for timing: the first
+    film_fold call that folds a whole block, the first packet_compact
+    call that keeps packets, and the persist_refill call that refills the
+    most slots, each with its inputs as they were before the call."""
+
+    def __init__(self, label):
+        self.label = label
+        self.stats, self.kept, self._saved = {}, {}, []
+
+    def _stat(self, name):
+        return self.stats.setdefault(name, {"calls": 0, "elements": 0,
+                                            "bit_diffs": 0})
+
+    def _same(self, name, what, got, want):
+        ok, bits, err = same_values(got, want)
+        if not ok:
+            raise AssertionError(f"frame ({self.label}): {name} call "
+                                 f"{self._stat(name)['calls']}: {what} "
+                                 f"differs from the plain version (max "
+                                 f"|diff| {err})")
+        st = self._stat(name)
+        st["elements"] += got.numel()
+        st["bit_diffs"] += bits
+
+    def _film(self, name, got, want, tol):
+        import torch
+        diff = (got - want).abs()
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"frame ({self.label}): {name} film off by "
+                                 f"{float(diff.max())}, over film_bound")
+        st = self._stat(name)
+        st["film_elements"] = st.get("film_elements", 0) + got.numel()
+        st["film_diffs"] = st.get("film_diffs", 0) + int((diff > 0).sum())
+        st["film_max_abs_err"] = max(st.get("film_max_abs_err", 0.0),
+                                     float(diff.max()))
+        st["film_max_share_of_bound"] = max(
+            st.get("film_max_share_of_bound", 0.0),
+            float(torch.where(tol > 0, diff / tol, 0.0).max()))
+
+    def _film_fold(self, acc, rad, c, block):
+        from tpurt_torch.kernels import film_fold as fold_k
+        st = self._stat("film_fold")
+        st["max_c"] = max(st.get("max_c", 0), c)
+        if "film_fold" not in self.kept and acc.shape[0] == block:
+            self.kept["film_fold"] = (acc.clone(), rad.clone(), c, block)
+        want = acc.clone()
+        got = self._kernels["film_fold"](acc, rad, c, block)
+        fold_k.film_fold_plain(want, rad, c, block)
+        self._same("film_fold", "acc", got, want)
+        st["calls"] += 1
+        return got
+
+    def _packet_compact(self, q, rad_out, keep):
+        from tpurt_torch.kernels import compact
+        if "packet_compact" not in self.kept and keep > 0:
+            self.kept["packet_compact"] = (_clone(q), rad_out.clone(), keep)
+        q_p, ro_p = _clone(q), rad_out.clone()
+        got = self._kernels["packet_compact"](q, rad_out, keep)
+        want = compact.packet_compact_plain(q_p, ro_p, keep)
+        for field, g, w in zip(got._fields, got, want):
+            self._same("packet_compact", field, g, w.contiguous())
+        self._same("packet_compact", "rad_out", rad_out, ro_p)
+        self._stat("packet_compact")["calls"] += 1
+        return got
+
+    def _persist_refill(self, frame, film, o, d, atten, rad, alive,
+                        live_hit, depth, pix, streams, counter, live):
+        from tpurt_torch.kernels import refill
+        state = (film, o, d, atten, rad, alive, live_hit, depth, pix,
+                 streams, counter, live)
+        before = tuple(t.clone() for t in state)
+        plain = tuple(t.clone() for t in state)
+        self._kernels["persist_refill"](frame, *state)
+        refill.persist_refill_plain(frame, *plain)
+        names = ("film", "o", "d", "atten", "rad", "alive", "live_hit",
+                 "depth", "pix", "streams", "counter", "live")
+        for name, g, w in zip(names[1:], state[1:], plain[1:]):
+            self._same("persist_refill", name, g, w)
+        # the film rows the dead slots add: at most every slot's, at its
+        # pixel before the refill
+        self._film("persist_refill", film, plain[0],
+                   film_bound(before[0], before[8], before[4]))
+        st = self._stat("persist_refill")
+        st["calls"] += 1
+        refills = int(counter) - int(before[10])
+        st["refills"] = st.get("refills", 0) + refills
+        if refills > st.get("most_refills", -1):
+            st["most_refills"] = refills
+            self.kept["persist_refill"] = (frame, before, refills)
+
+    def _persist_commit(self, film, pix, rad):
+        from tpurt_torch.kernels import refill
+        before = film.clone()
+        want = film.clone()
+        self._kernels["persist_commit"](film, pix, rad)
+        refill.persist_commit_plain(want, pix, rad)
+        self._film("persist_commit", film, want, film_bound(before, pix, rad))
+        self._stat("persist_commit")["calls"] += 1
+
+    def __enter__(self):
+        from tpurt_torch.kernels import compact, film_fold, refill
+        self._kernels = {}
+        for mod, name, fn in ((film_fold, "film_fold", self._film_fold),
+                              (compact, "packet_compact",
+                               self._packet_compact),
+                              (refill, "persist_refill",
+                               self._persist_refill),
+                              (refill, "persist_commit",
+                               self._persist_commit)):
+            self._kernels[name] = getattr(mod, name)
+            self._saved.append((mod, name, self._kernels[name]))
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+        return False
+
+
+def frame_cases() -> dict:
+    """Renders whose every film_fold, packet_compact and persist_refill
+    call is checked: c3 and c4 (wavefront) at 1 spp, c4 in mode persist
+    at PERSIST_SPP (its pool regenerates), g3 and g5 in mode wavefront,
+    and g2 in mode persist with a 2,048-slot pool (it regenerates)."""
+    from tpurt_torch import config
+    presets = config.PRESETS
+    golden = {k: config.RenderConfig(**v) for k, v in GOLDENS.items()}
+    return {
+        "c3": presets["c3-mesh"].replace(spp=1),
+        "c4-wavefront": presets["c4-wavefront"].replace(spp=1),
+        "c4-persist": presets["c4-wavefront"].replace(spp=PERSIST_SPP,
+                                                      mode="persist"),
+        "g3-wavefront": golden["g3-cornell"].replace(mode="wavefront"),
+        "g5-wavefront": golden["g5-rr"].replace(mode="wavefront"),
+        "g2-persist": golden["g2-spheres-path"].replace(mode="persist",
+                                                        ray_batch=2048),
+    }
+
+
+def time_refill(frame, before):
+    """persist_refill's kernel and plain version on the state ``before``
+    (restored before each call): the kernel's device time is its two
+    kernels' (refill_mark, refill_apply) in the profile; the plain
+    version's is its call's device time less the restore's."""
+    from tpurt_torch.kernels import refill
+    work_state = tuple(t.clone() for t in before)
+
+    def restore():
+        for w, b in zip(work_state, before):
+            w.copy_(b)
+
+    def kernel():
+        restore()
+        refill.persist_refill(frame, *work_state)
+
+    def plain():
+        restore()
+        refill.persist_refill_plain(frame, *work_state)
+
+    k = time_ms(kernel, 20, keep=lambda key: "refill_" in key)
+    p = time_ms(plain, 5)
+    r = time_ms(restore, 20)
+    dev = k["device"] is not None and p["device"] is not None
+    return {"ms": k["device"] if dev else k["wall"] - r["wall"],
+            "plain_ms": (p["device"] - r["device"]) if dev
+            else p["wall"] - r["wall"],
+            "wall_ms": k["wall"], "restore_wall_ms": r["wall"],
+            "timer": "profiler" if dev else "events"}
+
+
+def phase_frame(dev):
+    """Every film_fold, packet_compact and persist_refill call (and
+    persist_commit, the refill kernel's commit-only launch) of the
+    frame_cases renders checked against its plain version (FrameCheck),
+    and every bounce_shade call's survivor and live-packet counts with
+    the fused kernels (FusedCheck); both persist renders must regenerate,
+    and c4 in mode persist must cast PHASE_RAYS["c4-persist"]. Then each
+    kernel and its plain version timed on the kept inputs (c3's first
+    fold, c4's first shrink, c4 persist's largest refill), each with its
+    bound, and film_fold beside FOLD_LIBRARY. Returns the kernels'
+    rows."""
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch.kernels import _build, compact, film_fold as fold_k
+    kept, cases = {}, {}
+    for label, cfg in frame_cases().items():
+        _build.reset_launches()
+        with FusedCheck(label) as fused, FrameCheck(label) as chk:
+            _, stats = render.render(cfg, device=dev)
+        launches = dict(_build.LAUNCHES)
+        need = mode_kernels(cfg.mode)
+        if cfg.mode == "persist":
+            if chk.stats.get("persist_refill", {}).get("refills", 0) <= 0:
+                raise AssertionError(f"frame ({label}): the pool never "
+                                     "regenerated")
+        for k in need:
+            if chk.stats.get(k, {}).get("calls", 0) == 0:
+                raise AssertionError(f"frame ({label}): {k} never called")
+        if label == "c4-persist":
+            check_rays(label, stats["rays"])
+        cases[label] = chk.stats
+        emit("frame", case=label, mode=cfg.mode, spp=cfg.spp,
+             rays=stats["rays"], occupancy=stats.get("occupancy"),
+             launches={k: launches[k] for k in (*FUSED, *FRAME)},
+             bounce_counts_checked=fused.stats.get("bounce_shade", {}).get(
+                 "calls", 0),
+             check="array_equal (film of persist_refill and "
+                   "persist_commit: film_bound)", **chk.stats)
+        for k, v in chk.kept.items():
+            if k not in kept and (k != "packet_compact"
+                                  or label == "c4-wavefront") \
+                    and (k != "persist_refill" or label == "c4-persist"):
+                kept[k] = v
+    _build.reset_launches()
+
+    def checked(name):
+        return {lab: st.get(name, {}).get("calls", 0)
+                for lab, st in cases.items()}
+
+    rows = {}
+    acc, rad, c, block = kept["film_fold"]
+    m = acc.shape[0]
+    acc_p, acc_l = acc.clone(), acc.clone()
+    rows["film_fold"] = {
+        "shape": f"c3 batch 0, c={c}, block={block}",
+        **bound(nbytes(rad, acc, acc), work((3 * m * c, {"add_mul": 1}))),
+        **timed(lambda: fold_k.film_fold(acc, rad, c, block),
+                lambda: fold_k.film_fold_plain(acc_p, rad, c, block), 50, 20),
+        "row_extra": {"checked_calls": checked("film_fold"),
+                      "max_c": max(st.get("film_fold", {}).get("max_c", 0)
+                                   for st in cases.values())}}
+    lib = time_ms(lambda: acc_l.add_(rad.view(c, block, 3).sum(0)), 50)
+    rows["film_fold"]["library_ms"] = (lib["device"] if lib["device"]
+                                       is not None else lib["wall"])
+
+    q, rad_out, keep = kept["packet_compact"]
+    n, kr = q.o.shape[0], keep * compact.PACKET_R
+    ro_p = rad_out.clone()
+    # every row's alive byte; a kept row's other 84 bytes, read and
+    # written; a dropped row's slot and radiance read, its radiance written
+    rows["packet_compact"] = {
+        "shape": f"c4 first shrink, {n // compact.PACKET_R} -> {keep} "
+                 "packets",
+        **bound(n + kr * (84 + 85) + (n - kr) * (8 + 12 + 12), {}),
+        **timed(lambda: compact.packet_compact(q, rad_out, keep),
+                lambda: compact.packet_compact_plain(q, ro_p, keep), 50, 20),
+        "row_extra": {"checked_calls": checked("packet_compact"),
+                      "live_packets": int(q.alive.reshape(
+                          -1, compact.PACKET_R).any(dim=1).sum())}}
+
+    frame, before, refills = kept["persist_refill"]
+    cap = before[1].shape[0]
+    hits = int(before[6].sum())
+    # every slot: live_hit, alive, depth read, alive written; a slot that
+    # hit: its depth written; a refilled slot: its pix, radiance, pixel
+    # table entry and film row read, its film row, o, d, atten, rad, pix,
+    # streams and depth written
+    rows["persist_refill"] = {
+        "shape": f"c4 persist, {cap} slots, {refills} refilled",
+        **bound(cap * (1 + 1 + 8 + 1) + hits * 8
+                + refills * (8 + 12 + 8 + 12 + 12 + 48 + 8 + 24 + 8),
+                work((refills, CAMERA_RAY_OPS))),
+        **time_refill(frame, before),
+        "row_extra": {"checked_calls": checked("persist_refill"),
+                      "commit_calls": checked("persist_commit"),
+                      "refills_by_case": {lab: st.get("persist_refill", {})
+                                          .get("refills", 0)
+                                          for lab, st in cases.items()},
+                      "film_max_share_of_bound": max(
+                          st.get(k, {}).get("film_max_share_of_bound", 0.0)
+                          for st in cases.values()
+                          for k in ("persist_refill", "persist_commit"))}}
+    for name, row in rows.items():
+        film_err = max((st.get(k, {}).get("film_max_abs_err", 0.0)
+                        for st in cases.values()
+                        for k in ("persist_refill", "persist_commit")),
+                       default=0.0) if name == "persist_refill" else 0.0
+        row.update(max_abs_err=film_err,
+                   check="array_equal" + (", film within film_bound"
+                                          if name == "persist_refill"
+                                          else ""))
+        row["row_extra"]["bit_diffs"] = sum(
+            st.get(name, {}).get("bit_diffs", 0) for st in cases.values())
+        emit("kernel", name=name, **row)
+    torch.cuda.synchronize()
+    return rows
+
+
 GOLDENS = {
     "g1-primary": dict(width=64, height=48, spp=2, seed=11,
                        scene="spheres_plane", mode="primary"),
@@ -1209,24 +1554,34 @@ def phase_goldens(dev):
             if stats["rays"] != rays[name]:
                 raise AssertionError(f"{name} ({mode}): {stats['rays']} rays, "
                                      f"the megakernel cast {rays[name]}")
-            for kernel in (search_kernel(cfg), "camera_rays",
-                           "prims_nearest", "bounce_shade"):
+            for kernel in (search_kernel(cfg), *FUSED, *mode_kernels(mode)):
                 if launches[kernel] == 0:
                     raise AssertionError(f"{name} ({mode}): {kernel} never "
                                          "launched")
     return rays
 
 
-def check_film(label, img, shape, launches, kernel):
+# kernels a render launches besides its search and the fused kernels,
+# by mode: the film fold, and the queue's or the pool's kernel (the pool
+# adds into the film itself)
+MODE_KERNELS = {"wavefront": ("film_fold", "packet_compact"),
+                "persist": ("persist_refill",)}
+
+
+def mode_kernels(mode: str) -> tuple:
+    return MODE_KERNELS.get(mode, ("film_fold",))
+
+
+def check_film(label, img, shape, launches, kernel, extra=("film_fold",)):
     """A finite film of the expected shape, a plausible mean radiance,
-    and ``kernel`` and the three fused kernels launched."""
+    and ``kernel``, the three fused kernels and ``extra`` launched."""
     import numpy as np
     if tuple(img.shape) != shape or not np.isfinite(img).all():
         raise AssertionError(f"{label}: bad film {img.shape}")
     if not 0.05 < float(img.mean()) < 1.5:
         raise AssertionError(f"{label}: implausible mean radiance "
                              f"{img.mean()}")
-    for k in (kernel, *FUSED):
+    for k in (kernel, *FUSED, *extra):
         if launches[k] == 0:
             raise AssertionError(f"{label}: {k} never launched")
 
@@ -1241,17 +1596,18 @@ def check_rays(label, rays, world=None):
                              f"{PHASE_RAYS[label]}")
 
 
-def phase_preset(label, argv, shape, kernel, spp_preset, world=None):
+def phase_preset(label, argv, shape, kernel, spp_preset, world=None,
+                 mode="mega"):
     """One render through tpurt_torch.cli with the launch counts reset
-    just before it and read just after, checked by check_film; with
-    ``world``, a sharded render whose stats must name that many
-    devices."""
+    just before it and read just after, checked by check_film (with the
+    kernels of ``mode``); with ``world``, a sharded render whose stats
+    must name that many devices."""
     from tpurt_torch import cli
     from tpurt_torch.kernels import _build
     _build.reset_launches()
     img, stats = cli.run(["render", *argv])
     launches = dict(_build.LAUNCHES)
-    check_film(label, img, shape, launches, kernel)
+    check_film(label, img, shape, launches, kernel, mode_kernels(mode))
     check_rays(label, stats["rays"], world)
     if world is not None and stats["devices"] != world:
         raise AssertionError(f"{label}: {stats['devices']} devices, "
@@ -1472,36 +1828,42 @@ def kernel_launches(prof) -> dict:
     return {"kernels": kernels, "dtoh_copies": dtoh}
 
 
-# The renders the profile phase measures at 1 spp: CLI arguments and the
-# search kernel each runs.
+PROFILE_ATTEMPTS = 3
+# The renders the profile phase measures: CLI arguments, the search
+# kernel each runs, and its spp (c4 persist at PERSIST_SPP, where its
+# pool regenerates; the rest at 1).
 PROFILE_RUNS = {
-    "c3-mesh": (["--preset", "c3-mesh"], "traverse_nearest"),
-    "c2-cornell": (["--preset", "c2-cornell"], "nearest_tri_small"),
-    "c4-wavefront": (["--preset", "c4-wavefront"], "traverse_nearest"),
+    "c3-mesh": (["--preset", "c3-mesh"], "traverse_nearest", 1),
+    "c2-cornell": (["--preset", "c2-cornell"], "nearest_tri_small", 1),
+    "c4-wavefront": (["--preset", "c4-wavefront"], "traverse_nearest", 1),
     "c4-persist": (["--preset", "c4-wavefront", "--mode", "persist"],
-                   "traverse_nearest"),
-    "c5-tiles": (["--preset", "c5-multichip"], "traverse_nearest"),
+                   "traverse_nearest", PERSIST_SPP),
+    "c5-tiles": (["--preset", "c5-multichip"], "traverse_nearest", 1),
 }
 
 
 def phase_profile():
-    """Last: each PROFILE_RUNS render at 1 spp through the CLI without a
-    profiler (the wall of an unprofiled render); a g4-sized render with
-    --profile-dir (profiled renders slow later renders of the process),
-    whose Chrome trace must exist and name the traversal kernel; then
-    each PROFILE_RUNS render at 1 spp under torch.profiler (CUDA
-    activity): CUDA kernel launches and device time per spp, the idle
-    share against the unprofiled wall, copies to the host (the host's
-    reads), the search kernel's device time per launch and share, and
-    the items with the most device time (top_device_items)."""
+    """Last: a c3 render at 1 spp unmeasured (a process's first render
+    also pays for its first allocations and the kernel library's load),
+    then each PROFILE_RUNS render through the CLI without a profiler (the
+    wall of an unprofiled render); a g4-sized render with --profile-dir
+    (profiled renders slow later renders of the process), whose Chrome
+    trace must exist and name the traversal kernel; then each
+    PROFILE_RUNS render under torch.profiler (CUDA activity), per spp:
+    CUDA kernel launches, device time (kernels and copies) and kernel
+    time alone, the idle share of each against the unprofiled wall,
+    copies to the host (the host's reads), the search kernel's device
+    time per launch and share, and the items with the most device time
+    (top_device_items)."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     from tpurt_torch import cli
     from tpurt_torch.kernels import _build
+    cli.run(["render", "--preset", "c3-mesh", "--spp", "1"])
     walls = {}
-    for label, (argv, _) in PROFILE_RUNS.items():
-        _, stats = cli.run(["render", *argv, "--spp", "1"])
-        walls[label] = stats["wall_s"]
+    for label, (argv, _, spp) in PROFILE_RUNS.items():
+        _, stats = cli.run(["render", *argv, "--spp", str(spp)])
+        walls[label] = stats["wall_s"] / spp
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         _, stats = cli.run(["render", *golden_argv(GOLDENS["g4-mesh"]),
@@ -1515,31 +1877,62 @@ def phase_profile():
     if found == 0:
         raise AssertionError("profile: the trace never names "
                              "traverse_nearest_kernel")
-    for label, (argv, search) in PROFILE_RUNS.items():
-        _build.reset_launches()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, stats = cli.run(["render", *argv, "--spp", "1"])
+    for label, (argv, search, spp) in PROFILE_RUNS.items():
+        # the profiler has once come back with no device activity at all
+        # late in a smoke run (not reproduced); the render is profiled
+        # again, at most PROFILE_ATTEMPTS times
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            _build.reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, stats = cli.run(["render", *argv, "--spp", str(spp)])
+            if device_us(prof) > 0:
+                break
+        else:
+            raise AssertionError(f"render_profile ({label}): no device "
+                                 f"time in {PROFILE_ATTEMPTS} profiles")
         launches = dict(_build.LAUNCHES)
-        total = device_us(prof) / 1e3
+        total = device_us(prof) / 1e3 / spp
+        kernel_ms = device_us(prof, lambda k: not k.startswith(
+            ("Memcpy", "Memset"))) / 1e3 / spp
         search_ms = device_us(prof, lambda k: f"{search}_kernel" in k) / 1e3
         counts = kernel_launches(prof)
-        emit("render_profile", preset=label, spp=1, rays=stats["rays"],
-             cuda_launches_per_spp=counts["kernels"],
-             dtoh_copies_per_spp=counts["dtoh_copies"],
+        per_spp = counts["kernels"] / spp
+        emit("render_profile", preset=label, spp=spp, rays=stats["rays"],
+             profile_attempts=attempt, cuda_launches_per_spp=per_spp,
+             dtoh_copies_per_spp=counts["dtoh_copies"] / spp,
              device_ms_per_spp=total,
              unprofiled_wall_ms_per_spp=walls[label] * 1e3,
              idle_share=1.0 - total / (walls[label] * 1e3),
+             kernel_ms_per_spp=kernel_ms,
+             kernel_idle_share=1.0 - kernel_ms / (walls[label] * 1e3),
              launches=launches, search_kernel=search,
              search_ms=search_ms,
              search_ms_per_launch=search_ms / max(launches[search], 1),
-             search_share=search_ms / total, top=top_device_items(prof))
+             search_share=search_ms / spp / total,
+             top=top_device_items(prof))
         if launches[search] == 0 or search_ms <= 0.0:
             raise AssertionError(f"render_profile ({label}): no {search} "
                                  "device time")
-        if label == "c3-mesh" and \
-                counts["kernels"] >= C3_MAX_LAUNCHES_PER_SPP:
-            raise AssertionError(f"render_profile (c3-mesh): "
-                                 f"{counts['kernels']} CUDA launches per spp")
+        if per_spp >= MAX_LAUNCHES_PER_SPP.get(label, float("inf")):
+            raise AssertionError(f"render_profile ({label}): {per_spp} CUDA "
+                                 "launches per spp")
+
+
+def phase_profile_child(timeout: float = 600.0):
+    """phase_profile in a fresh Python process on the same card, its
+    lines passed through; the phase fails if the child does (or outlasts
+    ``timeout`` seconds, and is then killed)."""
+    import torch
+    torch.cuda.empty_cache()
+    code = "import chip_smoke; chip_smoke.phase_profile()"
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    sys.stdout.write(res.stdout)
+    sys.stdout.flush()
+    if res.returncode != 0:
+        sys.stderr.write(res.stderr)
+        raise AssertionError(f"profile: the child process exited "
+                             f"{res.returncode}")
 
 
 def phase_c1_primary():
@@ -1570,7 +1963,7 @@ def phase_c1_primary():
     if frac >= 0.002 or worst > 8:
         raise AssertionError(f"c1-primary: outside the golden tolerance of "
                              f"the oracle's image ({frac}, {worst})")
-    for k in ("nearest_tri_small", *FUSED):
+    for k in ("nearest_tri_small", *FUSED, "film_fold"):
         if launches[k] == 0:
             raise AssertionError(f"c1-primary: {k} never launched")
     return launches
@@ -1604,6 +1997,12 @@ SOURCES = {
                       "tpurt/trace.py:52"),
     "bounce_shade": ("tpurt_torch/kernels/csrc/bounce_shade.cu",
                      "tpurt/trace.py:271"),
+    "film_fold": ("tpurt_torch/kernels/csrc/film_fold.cu",
+                  "tpurt/render.py:167"),
+    "packet_compact": ("tpurt_torch/kernels/csrc/packet_compact.cu",
+                       "tpurt/wavefront.py:149"),
+    "persist_refill": ("tpurt_torch/kernels/csrc/persist_refill.cu",
+                       "tpurt/wavefront.py:496"),
 }
 
 
@@ -1616,6 +2015,7 @@ def main() -> int:
     results = phase_kernels(dev)
     results["vmemloop"], probe_launches = phase_vmemloop(dev)
     results.update(phase_fused(dev))
+    results.update(phase_frame(dev))
     golden_rays = phase_goldens(dev)
     world = torch.cuda.device_count()
     # the main paths, each read on its own
@@ -1630,11 +2030,11 @@ def main() -> int:
         "c4-wavefront": phase_preset(
             "c4-wavefront",
             ["--preset", "c4-wavefront", "--spp", str(C4_SPP)],
-            (1080, 1920, 3), "traverse_nearest", 256),
+            (1080, 1920, 3), "traverse_nearest", 256, mode="wavefront"),
         "c4-persist": phase_preset(
             "c4-persist", ["--preset", "c4-wavefront", "--mode", "persist",
                            "--spp", str(PERSIST_SPP)],
-            (1080, 1920, 3), "traverse_nearest", 256),
+            (1080, 1920, 3), "traverse_nearest", 256, mode="persist"),
         "c5-tiles": phase_c5("c5-tiles", "tiles", world),
         "c5-spp": phase_c5("c5-spp", "spp", world),
         "goldens-sharded": phase_goldens_sharded(dev, golden_rays),
@@ -1643,7 +2043,7 @@ def main() -> int:
     }
     phase_oracle(golden_rays)
     phase_imports()
-    phase_profile()
+    phase_profile_child()
     emit("elapsed", seconds=time.perf_counter() - t0)
 
     def row(k):
@@ -1658,7 +2058,9 @@ def main() -> int:
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                 "ops_by_class": res["ops_by_class"],
                 "library_ms": res["library_ms"],
-                "library": NO_LIBRARY if k not in FUSED else NO_FUSED_LIBRARY,
+                "library": (FOLD_LIBRARY if k == "film_fold"
+                            else NO_FUSED_LIBRARY if k in FUSED
+                            else NO_LIBRARY),
                 "shape": res["shape"], **res.get("row_extra", {})}
 
     print(smi, flush=True)
@@ -1666,7 +2068,9 @@ def main() -> int:
     # on the render paths as device functions inside traverse_nearest
     # (0 launches of their own entry points, which are checked and timed
     # above); vmemloop runs on the probe's path; camera_rays,
-    # prims_nearest and bounce_shade on every render path.
+    # prims_nearest, bounce_shade and film_fold on every render path;
+    # packet_compact on c4-wavefront (and a wavefront rank of c5 would),
+    # persist_refill on c4-persist.
     print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -85,13 +85,12 @@ def test_sample_ranges_sum_to_the_whole():
 @pytest.mark.parametrize("size", [(48, 32), (45, 31), (17, 9), (3840, 2160)])
 def test_tile_order_equals_tpurt(size):
     """The port places pixels by their tile key instead of sorting them:
-    the same order, ragged edges and the c5 frame included; inverse()
-    undoes it."""
+    the same order, ragged edges and the c5 frame included; the cached
+    inverse (order_cached) undoes it."""
     order = trender.tile_order(*size)
     np.testing.assert_array_equal(order, jrender.tile_order(*size))
-    perm = torch.from_numpy(order).long()
-    assert torch.equal(perm[trender.inverse(perm)],
-                       torch.arange(order.size))
+    pix, _, inv = trender.order_cached(*size, 128, "cpu")
+    assert torch.equal(pix[inv], torch.arange(order.size))
 
 
 def test_unported_modes_and_sharding_raise():

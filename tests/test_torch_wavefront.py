@@ -32,6 +32,7 @@ from tpurt_torch import render as trender  # noqa: E402
 from tpurt_torch import rng as trng  # noqa: E402
 from tpurt_torch import scene as tscene  # noqa: E402
 from tpurt_torch import wavefront as twave  # noqa: E402
+from tpurt_torch.kernels import compact as tcompact  # noqa: E402
 
 GOLDEN_DIR = pathlib.Path(__file__).resolve().parent / "golden"
 RTOL_XLA = 1e-5
@@ -71,11 +72,17 @@ def test_step_matches_jax(spheres):
     decision)."""
     scene, cam, jscene = spheres
     tq, jq = _queue(scene, cam)
+    # counts[b]: the rays entering bounce b (its rays cast)
+    counts = torch.zeros((4, 2), dtype=torch.int32)
+    counts[0, 0] = tq.alive.sum()
     for b in range(3):
-        tq, cast = twave.step(scene, tq, b, 0)
+        tq = twave.step(scene, tq, b, 0, counts[b + 1])
         jq, _, jcast = jwave.step(jscene, jq, jnp.int32(b), 0,
                                   compact=False)
-        assert int(cast) == int(jcast)
+        assert int(counts[b, 0]) == int(jcast)
+        assert int(counts[b + 1, 0]) == int(tq.alive.sum())
+        assert int(counts[b + 1, 1]) == int(
+            tq.alive.reshape(-1, 128).any(dim=1).sum())
     np.testing.assert_array_equal(tq.alive.numpy(), np.asarray(jq.alive))
     for name, rtol, atol in (("o", RTOL_XLA, 1e-5), ("d", 0.0, ATOL_DIR),
                              ("rad", 0.0, 1e-4), ("atten", 0.0, 1e-4)):
@@ -85,12 +92,17 @@ def test_step_matches_jax(spheres):
 
 
 def test_compact_packets_is_stable_and_live_first(spheres):
+    """packet_compact's plain version keeping every packet: a stable
+    live-first packet order, every field moved with its ray, nothing
+    committed."""
     scene, cam, _ = spheres
     tq, _ = _queue(scene, cam)
     rs = np.random.default_rng(4)
     alive = torch.from_numpy(rs.uniform(size=1024) < 0.01)
     alive[256:384] = False                    # one all-dead packet
-    q = twave._compact_packets(tq._replace(alive=alive))
+    rad_out = torch.zeros((1024, 3))
+    q = tcompact.packet_compact_plain(tq._replace(alive=alive), rad_out, 8)
+    assert not rad_out.any()
     live_pk = alive.reshape(8, 128).any(dim=1)
     n_live = int(live_pk.sum())
     assert q.alive[n_live * 128:].sum() == 0

@@ -14,21 +14,32 @@ prims     — sphere and plane nearest hit (ports the primitive half of
             tpurt/trace.py::intersect)
 bounce    — the bounce body after the searches (ports the rest of
             tpurt/trace.py's compiled bounce loop)
+film_fold — a ray batch's samples folded into the tile-order film
+            (ports the fold of tpurt/render.py's frame pass)
+compact   — the wavefront queue's packet compaction, shrink and commit
+            (ports tpurt/wavefront.py::_compact_packets and the
+            packet-row commit of trace_chunk_staged)
+refill    — the persistent pool's regeneration and last commit (ports
+            the regeneration of tpurt/wavefront.py::trace_persistent)
 
-A wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel or raises. ``_build.LAUNCHES`` counts the
-launches.
+The film fold is reached as ``kernels.film_fold.film_fold`` (the module
+shares the function's name). A wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches its kernel or raises.
+``_build.LAUNCHES`` counts the launches.
 """
 
 from .bounce import bounce_shade, hit_shade
 from .camera import camera_rays
+from .compact import packet_compact
 from .intersect import nearest_tri_small
 from .leaf import leaf_phase
 from .prims import prims_nearest
+from .refill import persist_commit, persist_refill
 from .slab import slab_step
 from .traverse import nearest_tri
 from .vmemloop import node_step_loop
 
-__all__ = ["bounce_shade", "camera_rays", "hit_shade", "leaf_phase",
-           "nearest_tri", "nearest_tri_small", "node_step_loop",
-           "prims_nearest", "slab_step"]
+__all__ = ["bounce_shade", "camera_rays", "hit_shade",
+           "leaf_phase", "nearest_tri", "nearest_tri_small",
+           "node_step_loop", "packet_compact", "persist_commit",
+           "persist_refill", "prims_nearest", "slab_step"]

@@ -48,13 +48,19 @@ SIGNATURES = {
     "tt_camera_rays": "p" * 5 + "i" * 22,
     "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
     "tt_hit_shade": "p" * 17 + "i",
-    "tt_bounce_shade": "p" * 7 + "iii" + "p" * 20 + "i",
+    "tt_bounce_shade": "p" * 7 + "iii" + "p" * 21 + "i",
+    "tt_film_fold": "pp" + "iii",
+    "tt_packet_compact": "p" * 18 + "ii",
+    "tt_persist_refill": "p" * 15 + "i" * 9 + "i" * 18,
 }
 
-# kernel name -> launches since the last reset (counted by the wrappers)
+# kernel name -> launches since the last reset (counted by the wrappers:
+# one a call, though a packet_compact call with keep > 0 and a
+# persist_refill step each start two CUDA kernels)
 LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
             "nearest_tri_small": 0, "vmemloop": 0, "camera_rays": 0,
-            "prims_nearest": 0, "bounce_shade": 0}
+            "prims_nearest": 0, "bounce_shade": 0, "film_fold": 0,
+            "packet_compact": 0, "persist_refill": 0}
 
 _LOADED: dict = {}
 

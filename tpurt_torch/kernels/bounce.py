@@ -11,7 +11,9 @@ it). ``hit_shade`` returns trace.intersect's Hit fields (t, n, front,
 mat, ok). ``bounce_shade`` is trace.bounce after its searches: sky, then
 emission, into rad, the draws, scatter, Russian roulette; it returns
 (o, d, atten, rad, alive, live_hit), and a (1,) int32 ``survivors``
-tensor, if given, gains the rays alive after the bounce.
+tensor, if given, gains the rays alive after the bounce; a (1,) int32
+``live_packets`` tensor, if given, the 128-ray packets (rays 128p to
+128p + 127) that hold one.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from .. import linalg, materials, rng
 from ..geometry import INF
 from . import _build
+from .compact import PACKET_R
 from .prims import closer
 
 
@@ -81,7 +84,8 @@ RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95
 
 
 def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
-                       rr_start, prim, tri, survivors=None):
+                       rr_start, prim, tri, survivors=None,
+                       live_packets=None):
     """Plain PyTorch version: the bounce body of trace.bounce."""
     t, n, front, mat, ok = hit_shade_plain(scene, o, d, prim, tri)
     live_hit = alive & ok
@@ -113,6 +117,13 @@ def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
         alive = alive & (~rr_on | survive)
     if survivors is not None:
         survivors.add_(alive.sum(dtype=torch.int32))
+    if live_packets is not None:
+        n = alive.shape[0]
+        padded = torch.zeros(-(-n // PACKET_R) * PACKET_R, dtype=torch.bool,
+                             device=alive.device)
+        padded[:n] = alive
+        live_packets.add_(padded.reshape(-1, PACKET_R).any(dim=1).sum(
+            dtype=torch.int32))
     return o, d, atten, rad, alive, live_hit
 
 
@@ -169,14 +180,15 @@ def hit_shade(scene, o, d, prim, tri):
 
 
 def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
-                 prim, tri, survivors=None):
+                 prim, tri, survivors=None, live_packets=None):
     """trace.bounce after its searches on o's device: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors (or an error).
     depth: the bounce index, an int or an (N,) integer tensor of per-ray
     depths; rr_start: None or the first bounce with roulette."""
     if o.device.type == "cpu":
         return bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
-                                  depth, rr_start, prim, tri, survivors)
+                                  depth, rr_start, prim, tri, survivors,
+                                  live_packets)
     dev = _build.cuda_device("bounce_shade", o)
     n = o.shape[0]
     atten, rad, keys = atten.contiguous(), rad.contiguous(), keys.contiguous()
@@ -193,8 +205,10 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
         _build.check("depth", depth_v, (n,), torch.int64, dev)
     else:
         depth_v = None
-    if survivors is not None:
-        _build.check("survivors", survivors, (1,), torch.int32, dev)
+    for name, count in (("survivors", survivors),
+                        ("live_packets", live_packets)):
+        if count is not None:
+            _build.check(name, count, (1,), torch.int32, dev)
     outs = (torch.empty((n, 3), dtype=torch.float32, device=dev),
             torch.empty((n, 3), dtype=torch.float32, device=dev),
             torch.empty((n, 3), dtype=torch.float32, device=dev),
@@ -206,6 +220,6 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                   0 if rr_start is None else int(rr_start),
                   *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
                   scene.mat_packed, scene.sky_a, scene.sky_b, *outs,
-                  survivors, n)
+                  survivors, live_packets, n)
     _build.LAUNCHES["bounce_shade"] += 1
     return outs

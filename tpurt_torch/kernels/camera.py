@@ -26,10 +26,17 @@ def camera_rays_plain(cam, width: int, height: int, seed: int, pixel_ids,
     return o, d, keys
 
 
-def _i32(word: int) -> int:
+def as_i32(word: int) -> int:
     """A uint32 word as the int32 that ctypes passes."""
     word &= 0xFFFFFFFF
     return word - (1 << 32) if word >= 1 << 31 else word
+
+
+def cam_bits(cam) -> list:
+    """The camera's six vectors as 18 float32 bit patterns (ints), in
+    camera.Camera's field order, as the C entry points take them."""
+    bits = np.concatenate([np.asarray(v, np.float32) for v in cam])
+    return [int(b) for b in bits.view(np.int32)]
 
 
 def camera_rays(cam, width: int, height: int, seed: int, pixel_ids,
@@ -50,8 +57,7 @@ def camera_rays(cam, width: int, height: int, seed: int, pixel_ids,
     o = torch.empty((n, 3), dtype=torch.float32, device=dev)
     d = torch.empty((n, 3), dtype=torch.float32, device=dev)
     keys = torch.empty((3, n), dtype=torch.int64, device=dev)
-    bits = np.concatenate([np.asarray(v, np.float32) for v in cam])
-    _build.launch("tt_camera_rays", dev, pix, smp, o, d, keys, n, _i32(seed),
-                  width, height, *(int(b) for b in bits.view(np.int32)))
+    _build.launch("tt_camera_rays", dev, pix, smp, o, d, keys, n,
+                  as_i32(seed), width, height, *cam_bits(cam))
     _build.LAUNCHES["camera_rays"] += 1
     return o, d, keys

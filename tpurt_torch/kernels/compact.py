@@ -1,0 +1,99 @@
+"""The wavefront queue's shrink: ``packet_compact`` (port of tpurt's
+packet compaction, tpurt/wavefront.py:149-168, and the packet-row commit
+of the rows a shrink drops, :313-317, to ``csrc/packet_compact.cu``).
+
+A queue is the wavefront's SoA ray queue (``wavefront.Queue``: o, d,
+atten, rad, pix, key, alive, slot), packet-aligned. ``packet_compact``
+moves the packets holding a live ray to the front, stably, keeps the
+first ``keep`` packets and writes the radiance of every other row home
+into rad_out (first-queue order) through its ``slot``. With keep = 0 it
+is the last commit: every row goes home and the queue comes back empty.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+PACKET_R = 128   # rays per packet; rays never leave their packet
+
+
+def _compact_packets(q):
+    """Stable packet-granular liveness compaction: packets holding a live
+    ray first, in their order, then the rest; rays never leave their
+    packet. Afterwards rows [live_packets * PACKET_R:] are all dead."""
+    pk = q.o.shape[0] // PACKET_R
+    live = q.alive.reshape(pk, PACKET_R).any(dim=1)
+    order = torch.argsort((~live).to(torch.int8), stable=True)
+
+    def rows(a):
+        return a.reshape(pk, PACKET_R, -1)[order].reshape(a.shape)
+
+    return q._replace(o=rows(q.o), d=rows(q.d), atten=rows(q.atten),
+                      rad=rows(q.rad), pix=rows(q.pix), alive=rows(q.alive),
+                      slot=rows(q.slot),
+                      key=q.key.reshape(3, pk, PACKET_R)[:, order].reshape(
+                          q.key.shape))
+
+
+def _head(q, k: int):
+    """The queue's first k rows."""
+    return q._replace(o=q.o[:k], d=q.d[:k], atten=q.atten[:k],
+                      rad=q.rad[:k], pix=q.pix[:k], key=q.key[:, :k],
+                      alive=q.alive[:k], slot=q.slot[:k])
+
+
+def packet_compact_plain(q, rad_out, keep: int):
+    """Plain PyTorch version: the compaction, the commit of rows
+    [keep * PACKET_R:] into rad_out (in place), and the queue cut to its
+    first keep packets."""
+    q = _compact_packets(q)
+    k = keep * PACKET_R
+    rad_out[q.slot[k:]] = q.rad[k:]
+    return _head(q, k)
+
+
+def packet_compact(q, rad_out, keep: int):
+    """Compact queue q, keep its first ``keep`` packets and commit the
+    rest into rad_out (n0, 3), on q's device: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (or an error). Returns the
+    cut queue (fresh tensors on a card)."""
+    if q.o.device.type == "cpu":
+        return packet_compact_plain(q, rad_out, keep)
+    dev = _build.cuda_device("packet_compact", q.o)
+    n = q.o.shape[0]
+    pk = n // PACKET_R
+    if n % PACKET_R or not 0 <= keep <= pk:
+        raise ValueError(f"packet_compact: {n} rows, keep {keep} packets")
+    for name in ("o", "d", "atten", "rad"):
+        _build.check(name, getattr(q, name), (n, 3), torch.float32, dev)
+    _build.check("pix", q.pix, (n,), torch.int32, dev)
+    _build.check("key", q.key, (3, n), torch.int64, dev)
+    _build.check("alive", q.alive, (n,), torch.bool, dev)
+    _build.check("slot", q.slot, (n,), torch.int64, dev)
+    _build.check("rad_out", rad_out, (rad_out.shape[0], 3), torch.float32,
+                 dev)
+    if q.alive.data_ptr() % 16:
+        raise ValueError("packet_compact: alive is not 16-byte aligned")
+    k = keep * PACKET_R
+    if keep:
+        out = q._replace(
+            o=torch.empty((k, 3), dtype=torch.float32, device=dev),
+            d=torch.empty((k, 3), dtype=torch.float32, device=dev),
+            atten=torch.empty((k, 3), dtype=torch.float32, device=dev),
+            rad=torch.empty((k, 3), dtype=torch.float32, device=dev),
+            pix=torch.empty(k, dtype=torch.int32, device=dev),
+            key=torch.empty((3, k), dtype=torch.int64, device=dev),
+            alive=torch.empty(k, dtype=torch.bool, device=dev),
+            slot=torch.empty(k, dtype=torch.int64, device=dev))
+        dest = torch.empty(pk, dtype=torch.int32, device=dev)
+        outs = (out.o, out.d, out.atten, out.rad, out.pix, out.key,
+                out.alive, out.slot)
+    else:
+        out = _head(q, 0)
+        dest, outs = None, (None,) * 8
+    _build.launch("tt_packet_compact", dev, q.o, q.d, q.atten, q.rad, q.pix,
+                  q.key, q.alive, q.slot, dest, rad_out, *outs, n, keep)
+    _build.LAUNCHES["packet_compact"] += 1
+    return out

@@ -12,7 +12,9 @@
 // n, mat, hit, and the winner's gid, or its slot with tri_src to map it);
 // the scene's tri_shn rows (or null), mat_packed (M,16) and sky. Out: the
 // new o, d, atten, rad, alive and live_hit; survivors, if not null, gains
-// the number of rays alive after the bounce.
+// the number of rays alive after the bounce, and live_packets, if not
+// null, the number of 128-ray packets (rays 128p .. 128p + 127) holding
+// one (the wavefront queue's shrink reads both at once).
 //
 // tt_hit_shade is the same kernel stopped after the merge: trace.intersect
 // on a card (the Hit's t, n, front, mat, ok), for mode primary.
@@ -20,14 +22,18 @@
 // Bound on the H100: device-memory bytes (~230 B a ray; three threefry
 // calls, a cos, sin, double pow and a few divisions and square roots are
 // ~1,000 operations, issue-bound only if the card ran at its FMA rate
-// alone). Design: one thread per ray, no shared memory; the survivors are
-// counted per block by __syncthreads_count and added with one atomicAdd.
+// alone). Design: one thread per ray; the survivors are counted per block
+// by __syncthreads_count and added with one atomicAdd; a packet is live
+// if a ballot of any of its four warps is, flagged in shared memory.
 // The per-ray math is merge_hit and bounce_ray in shade_common.cuh.
 #include <cuda_runtime.h>
 
 #include "shade_common.cuh"
 
 namespace {
+
+constexpr int THREADS = 256;   // a multiple of PACKET_R
+constexpr int PACKET_R = 128;  // rays of a wavefront packet
 
 struct Hits {
   const float* t_p;      // (N,) primitives' t (the search's window)
@@ -89,7 +95,7 @@ __global__ void bounce_shade_kernel(
     float* __restrict__ o_out, float* __restrict__ d_out,
     float* __restrict__ atten_out, float* __restrict__ rad_out,
     bool* __restrict__ alive_out, bool* __restrict__ live_hit_out,
-    int* __restrict__ survivors, int n) {
+    int* __restrict__ survivors, int* __restrict__ live_packets, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool alive_new = false;
   if (i < n) {
@@ -117,6 +123,20 @@ __global__ void bounce_shade_kernel(
     const int c = __syncthreads_count(alive_new);
     if (threadIdx.x == 0 && c > 0) atomicAdd(survivors, c);
   }
+  if (live_packets != nullptr) {
+    __shared__ int packet_live[THREADS / PACKET_R];
+    if (threadIdx.x < THREADS / PACKET_R) packet_live[threadIdx.x] = 0;
+    __syncthreads();
+    const unsigned any = __ballot_sync(0xffffffffu, alive_new);
+    if ((threadIdx.x & 31) == 0 && any != 0u)
+      packet_live[threadIdx.x / PACKET_R] = 1;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int c = 0;
+      for (int k = 0; k < THREADS / PACKET_R; ++k) c += packet_live[k];
+      if (c > 0) atomicAdd(live_packets, c);
+    }
+  }
 }
 
 Hits make_hits(const void* t_p, const void* n_p, const void* m_p,
@@ -128,8 +148,6 @@ Hits make_hits(const void* t_p, const void* n_p, const void* m_p,
               (const bool*)h_t,  (const int*)idx,   (const int*)tri_src,
               (const float*)tri_shn};
 }
-
-constexpr int THREADS = 256;
 
 }  // namespace
 
@@ -153,9 +171,9 @@ extern "C" int tt_hit_shade(const void* o, const void* d, const void* t_p,
   return (int)cudaGetLastError();
 }
 
-// depth_v (per-ray int64 depths), tri_src, tri_shn and survivors may be
-// null; with depth_v null every ray is at bounce `depth`. rr: 0 for no
-// roulette, else roulette from depth rr_start on.
+// depth_v (per-ray int64 depths), tri_src, tri_shn, survivors and
+// live_packets may be null; with depth_v null every ray is at bounce
+// `depth`. rr: 0 for no roulette, else roulette from depth rr_start on.
 extern "C" int tt_bounce_shade(
     const void* o, const void* d, const void* atten, const void* rad,
     const void* alive, const void* keys, const void* depth_v, int depth,
@@ -164,7 +182,8 @@ extern "C" int tt_bounce_shade(
     const void* idx, const void* tri_src, const void* tri_shn,
     const void* mat_packed, const void* sky_a, const void* sky_b, void* o_out,
     void* d_out, void* atten_out, void* rad_out, void* alive_out,
-    void* live_hit_out, void* survivors, int n, void* stream) {
+    void* live_hit_out, void* survivors, void* live_packets, int n,
+    void* stream) {
   if (n > 0) {
     bounce_shade_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
                           (cudaStream_t)stream>>>(
@@ -174,7 +193,8 @@ extern "C" int tt_bounce_shade(
         make_hits(t_p, n_p, m_p, t_t, n_t, m_t, h_t, idx, tri_src, tri_shn),
         (const float*)mat_packed, (const float*)sky_a, (const float*)sky_b,
         (float*)o_out, (float*)d_out, (float*)atten_out, (float*)rad_out,
-        (bool*)alive_out, (bool*)live_hit_out, (int*)survivors, n);
+        (bool*)alive_out, (bool*)live_hit_out, (int*)survivors,
+        (int*)live_packets, n);
   }
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,8 @@
 // Bound on the H100: device-memory bytes (16 B in, 48 B out a ray; two
 // threefry calls and a cos, sin, sqrt and division are ~300 operations,
 // below the card's operation/byte balance for these pipes). Design: one
-// thread per ray, no shared memory; the per-ray math is camera_ray and
-// draw_pair in shade_common.cuh / threefry.cuh.
+// thread per ray, no shared memory; the per-ray math is primary_ray in
+// shade_common.cuh (draw_pair from threefry.cuh, then camera_ray).
 #include <cuda_runtime.h>
 
 #include "shade_common.cuh"
@@ -30,28 +30,13 @@ __global__ void camera_rays_kernel(const long long* __restrict__ pix,
                                    tt::Cam cam) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const uint32_t p = (uint32_t)(unsigned long long)pix[i];
-  const uint32_t s = (uint32_t)(unsigned long long)smp[i];
-  float j0, j1, j2, j3;
-  tt::draw_pair(p, s, seed, tt::CAMERA_STREAM, 0, j0, j1);
-  tt::draw_pair(p, s, seed, tt::CAMERA_STREAM, 1, j2, j3);
   tt::V3 ro, rd;
-  tt::camera_ray(cam, width, height, pix[i], j0, j1, j2, j3, ro, rd);
+  tt::primary_ray(cam, width, height, seed, pix[i], smp[i], ro, rd);
   tt::store3(o + 3 * (size_t)i, ro);
   tt::store3(d + 3 * (size_t)i, rd);
-  keys[i] = p;
-  keys[(size_t)n + i] = s;
+  keys[i] = (uint32_t)(unsigned long long)pix[i];
+  keys[(size_t)n + i] = (uint32_t)(unsigned long long)smp[i];
   keys[2 * (size_t)n + i] = seed;
-}
-
-float as_float(int bits) {
-  float f;
-  memcpy(&f, &bits, sizeof f);
-  return f;
-}
-
-tt::V3 vec(const int* b) {
-  return tt::v3(as_float(b[0]), as_float(b[1]), as_float(b[2]));
 }
 
 }  // namespace
@@ -68,13 +53,7 @@ extern "C" int tt_camera_rays(const void* pix, const void* smp, void* o,
   if (n > 0) {
     const int bits[18] = {c0, c1,  c2,  c3,  c4,  c5,  c6,  c7,  c8,
                           c9, c10, c11, c12, c13, c14, c15, c16, c17};
-    tt::Cam cam;
-    cam.origin = vec(bits);
-    cam.lower_left = vec(bits + 3);
-    cam.horizontal = vec(bits + 6);
-    cam.vertical = vec(bits + 9);
-    cam.lens_u = vec(bits + 12);
-    cam.lens_v = vec(bits + 15);
+    const tt::Cam cam = tt::cam_from_bits(bits);
     const int threads = 256;
     camera_rays_kernel<<<(n + threads - 1) / threads, threads, 0,
                          (cudaStream_t)stream>>>(

@@ -215,6 +215,36 @@ TT_HD void camera_ray(const Cam& c, int width, int height, long long pix,
                        - o.z));
 }
 
+// A Cam from the float32 bit patterns of origin, lower_left, horizontal,
+// vertical, lens_u, lens_v (camera.Camera's field order), 3 each: the C
+// entry points take them as ints.
+TT_HD Cam cam_from_bits(const int* bits) {
+  float f[18];
+  memcpy(f, bits, sizeof f);
+  Cam c;
+  c.origin = load3(f);
+  c.lower_left = load3(f + 3);
+  c.horizontal = load3(f + 6);
+  c.vertical = load3(f + 9);
+  c.lens_u = load3(f + 12);
+  c.lens_v = load3(f + 15);
+  return c;
+}
+
+// The primary ray of pixel pix, sample smp: the two camera draw pairs of
+// stream (pix, smp, seed) (each id cut to a uint32 word, as the stream
+// keys hold it), then camera_ray. camera_rays.cu and persist_refill.cu
+// both call it.
+TT_HD void primary_ray(const Cam& c, int width, int height, uint32_t seed,
+                       long long pix, long long smp, V3& o, V3& d) {
+  const uint32_t p = (uint32_t)(unsigned long long)pix;
+  const uint32_t s = (uint32_t)(unsigned long long)smp;
+  float j0, j1, j2, j3;
+  draw_pair(p, s, seed, CAMERA_STREAM, 0, j0, j1);
+  draw_pair(p, s, seed, CAMERA_STREAM, 1, j2, j3);
+  camera_ray(c, width, height, pix, j0, j1, j2, j3, o, d);
+}
+
 // Running nearest hit (trace._closer): take (t, n, m) where hit and t is
 // strictly nearer. Returns whether it was taken.
 TT_HD bool closer(float& t_best, V3& n_best, int& m_best, bool hit, float t,

@@ -110,7 +110,6 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
     npix = cfg.width * cfg.height
     if film_flat is None:
         film_flat = np.zeros((npix, 3), np.float32)
-    order = render_mod.tile_order(cfg.width, cfg.height)
     n_samples = sample_stop - sample_start
 
     if cfg.shard == "spp":
@@ -122,36 +121,38 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
             )
         per_dev = n_samples // world
         lo = sample_start + rank * per_dev
-        pix = torch.as_tensor(order, device=dev).long()
+        block = render_mod.block_size(
+            npix, render_mod.effective_ray_batch(cfg, scene))
+        pix, valid, inv = render_mod.order_cached(cfg.width, cfg.height,
+                                                  block, dev)
         film_tiled = torch.as_tensor(film_flat, device=dev)[pix]
 
         def reduce(part):
             dist.all_reduce(part, group=mesh.group)
             return part
 
-        nrays = render_mod.accumulate(cfg, scene, cam, pix, None, lo,
+        nrays = render_mod.accumulate(cfg, scene, cam, pix, valid, lo,
                                       lo + per_dev, film_tiled,
                                       reduce=reduce)
-        film_flat = film_tiled[render_mod.inverse(pix)].cpu().numpy()
+        film_flat = film_tiled[inv].cpu().numpy()
     else:  # tiles
-        npix_pad = -(-npix // world) * world
-        block = npix_pad // world
-        gpix = np.concatenate(
-            [order, np.full(npix_pad - npix, order[-1], np.int32)])
+        # the tile order padded to a multiple of the world (pad: dead),
+        # one contiguous share per rank
+        gpix, gvalid, inv = render_mod.order_cached(cfg.width, cfg.height,
+                                                    world, dev)
+        block = gpix.shape[0] // world
         lo = rank * block
-        pix = torch.as_tensor(gpix[lo:lo + block], device=dev).long()
-        valid = torch.arange(lo, lo + block, device=dev) < npix  # pad: dead
         acc = torch.zeros((block, 3), dtype=torch.float32, device=dev)
-        nrays = render_mod.accumulate(cfg, scene, cam, pix, valid,
-                                      sample_start, sample_stop, acc)
+        nrays = render_mod.accumulate(cfg, scene, cam, gpix[lo:lo + block],
+                                      gvalid[lo:lo + block], sample_start,
+                                      sample_stop, acc)
         parts = [torch.empty_like(acc) for _ in range(world)]
         dist.all_gather(parts, acc, group=mesh.group)
         # rows follow the tile order: un-permute, adding the call's sums
         # to the film once (the order of additions that keeps resume
         # exact); on the device, then one copy to the host
         film_d = torch.tensor(film_flat, device=dev)
-        film_d[torch.as_tensor(order, device=dev).long()] += \
-            torch.cat(parts)[:npix]
+        film_d += torch.cat(parts)[inv]
         film_flat = film_d.cpu().numpy()
     # int64: a full c5 frame casts ~2e10 rays
     count = nrays.reshape(1).to(torch.int64)

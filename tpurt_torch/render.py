@@ -1,8 +1,10 @@
 """Render loop: pixel blocks x sample chunks (port of tpurt/render.py).
 
 The frame is cut into (pixel-block x sample-chunk) ray batches that the
-host loops over; the film is summed on the device in tile order and
-permuted back at the end. The block loop (``accumulate``) runs over any
+host loops over; each batch's radiance is folded into the film in tile
+order on the device (``kernels.film_fold``) and the film is permuted
+back at the end, by order tensors uploaded once per frame size
+(``order_cached``). The block loop (``accumulate``) runs over any
 list of pixel ids, so a rank of a sharded render (``mesh``) traces its
 share through it. Each batch is traced by mode: ``primary``
 (one-bounce shading), ``mega`` (``trace.trace``, dead lanes masked) or
@@ -24,6 +26,7 @@ import torch
 from . import metrics, trace, wavefront
 from .config import RenderConfig, build_scene
 from .kernels import camera as camera_k
+from .kernels import film_fold as fold_k
 from .scene import Scene, to_device
 
 BRUTE_RAY_BATCH = 1 << 17  # batch cap for no-BVH bounce paths
@@ -59,12 +62,29 @@ def tile_order(width: int, height: int) -> np.ndarray:
     return slots[slots >= 0]
 
 
-def inverse(perm):
-    """The inverse of a permutation tensor, in O(n)."""
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(perm.shape[0], device=perm.device,
-                             dtype=perm.dtype)
-    return inv
+_ORDER_CACHE: dict = {}
+
+
+def order_cached(width: int, height: int, block: int, device):
+    """Device tensors of the frame's tile order padded to a multiple of
+    ``block`` (port of tpurt's ``_order_pad_cached``): (pix (n_pad,)
+    int64, the order with its tail repeating the last pixel; valid
+    (n_pad,) bool, False on the tail; inv (npix,) int64, the tile-order
+    row of each pixel). Made and uploaded once per (frame, block,
+    device)."""
+    dev = torch.device(device)
+    key = (width, height, block, dev)
+    if key not in _ORDER_CACHE:
+        order = tile_order(width, height).astype(np.int64)
+        npix = order.shape[0]
+        n_pad = -(-npix // block) * block
+        pad = np.concatenate([order, np.full(n_pad - npix, order[-1])])
+        inv = np.empty(npix, np.int64)
+        inv[order] = np.arange(npix)
+        valid = np.arange(n_pad) < npix
+        _ORDER_CACHE[key] = tuple(torch.from_numpy(a).to(dev)
+                                  for a in (pad, valid, inv))
+    return _ORDER_CACHE[key]
 
 
 def block_size(n_pix: int, ray_batch: int) -> int:
@@ -85,8 +105,10 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     traced, never counted), None for none. The list is cut into blocks
     of ``block_size(n, effective_ray_batch)`` pixels (the last padded
     with dead rows) and samples into chunks of about ray_batch rays per
-    batch. ``reduce``, if given, maps each batch's per-pixel sum before
-    it is added (the sample-sharded render sums it over ranks there).
+    batch. Each batch's samples are folded into acc by
+    ``kernels.film_fold``; ``reduce``, if given, maps each batch's
+    per-pixel sum before it is added (the sample-sharded render sums it
+    over ranks there).
     Modes: primary, wavefront (the shrinking ``wavefront.trace_chunk``),
     and the megakernel ``trace.trace`` for every other mode. live_hist
     (np int64 (max_depth,)), if given, gains the wavefront's live counts.
@@ -101,9 +123,11 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     n_pad = -(-n // block) * block
     ok = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
           else valid)
-    pix = torch.cat([pix.long(), pix[-1:].long().expand(n_pad - n)])
-    ok = torch.cat([ok, torch.zeros(n_pad - n, dtype=torch.bool,
-                                    device=dev)])
+    pix = pix.long()
+    if n_pad > n:
+        pix = torch.cat([pix, pix[-1:].expand(n_pad - n)])
+        ok = torch.cat([ok, torch.zeros(n_pad - n, dtype=torch.bool,
+                                        device=dev)])
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     for s0 in range(sample_start, sample_stop, spp_chunk):
         c = min(spp_chunk, sample_stop - s0)
@@ -129,11 +153,14 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
                 rad, cast = trace.trace(scene, o, d, keys, cfg.max_depth,
                                         cfg.rr_start, valid=validf)
                 nrays = nrays + cast
-            part = rad.reshape(c, block, 3).sum(dim=0)
-            if reduce is not None:
-                part = reduce(part)
             m = min(block, n - p0)
-            acc[p0:p0 + m] += part[:m]
+            if reduce is None:
+                fold_k.film_fold(acc[p0:p0 + m], rad, c, block)
+            else:
+                part = torch.zeros((block, 3), dtype=torch.float32,
+                                   device=dev)
+                part = reduce(fold_k.film_fold(part, rad, c, block))
+                acc[p0:p0 + m] += part[:m]
     return nrays
 
 
@@ -156,16 +183,16 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
     ray_batch = effective_ray_batch(cfg, scene)
     block = block_size(npix, ray_batch)
     n_samples = sample_stop - sample_start
-    order = tile_order(cfg.width, cfg.height)
+    pix, valid, inv = order_cached(cfg.width, cfg.height, block, dev)
     if cfg.mode == "persist":
-        return _render_persist(cfg, scene, cam, film_flat, order, block,
+        return _render_persist(cfg, scene, cam, film_flat, pix, block,
                                ray_batch, sample_start, n_samples,
                                stats_sink)
 
-    pix = torch.as_tensor(order, device=dev).long()
+    # the padded tail's rows are traced dead and never read back
     film_tiled = film_flat[pix]
     live_hist = np.zeros(cfg.max_depth, np.int64)
-    nrays = accumulate(cfg, scene, cam, pix, None, sample_start,
+    nrays = accumulate(cfg, scene, cam, pix, valid, sample_start,
                        sample_stop, film_tiled, live_hist=live_hist)
     if cfg.mode == "wavefront" and stats_sink is not None:
         # live counts are summed over every batch, so the capacity is the
@@ -173,21 +200,20 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
         stats_sink["queue_capacity"] = -(-npix // block) * block * n_samples
         stats_sink.setdefault("live_history", []).extend(
             int(x) for x in live_hist)
-    return film_tiled[inverse(pix)], int(nrays)
+    return film_tiled[inv], int(nrays)
 
 
-def _render_persist(cfg, scene, cam, film_flat, order, block, ray_batch,
+def _render_persist(cfg, scene, cam, film_flat, pix, block, ray_batch,
                     sample_start, n_samples, stats_sink):
     """Persistent mode: each pixel block's whole sample range streams
     through one pool of min(ray_batch, rays) slots, rounded up to whole
-    packets."""
-    dev = film_flat.device
+    packets. pix: the tile order on the device (order_cached)."""
     npix = cfg.width * cfg.height
     film_flat = film_flat.clone()    # the pool adds into it in place
     total_rays = 0
     for p0 in range(0, npix, block):
         p1 = min(p0 + block, npix)
-        pixel_table = torch.as_tensor(order[p0:p1], device=dev).long()
+        pixel_table = pix[p0:p1]
         capacity = min(ray_batch, (p1 - p0) * n_samples)
         capacity += (-capacity) % trace.PACKET_R
         film_flat, nrays, occ, _ = wavefront.trace_persistent(

@@ -28,10 +28,11 @@ import torch
 from . import linalg
 from .kernels import bounce as bounce_k
 from .kernels import intersect as intersect_k
-from .kernels import prims, traverse
+from .kernels import compact, prims, traverse
 from .kernels.bounce import RR_CLAMP_HI, RR_CLAMP_LO, sky  # noqa: F401
 
-PACKET_R = 128   # rays per traversal packet; batches are whole packets
+# rays per traversal packet (compact.PACKET_R); batches are whole packets
+PACKET_R = compact.PACKET_R
 
 # Decreed constants of config 1's primary-ray shading (frozen by goldens).
 PRIMARY_LIGHT_DIR = (0.57735027, 0.57735027, 0.57735027)
@@ -68,19 +69,21 @@ def intersect(scene, o, d, t_cap=None) -> Hit:
 
 
 def bounce(scene, o, d, atten, rad, alive, keys, depth, rr_start,
-           survivors=None):
+           survivors=None, live_packets=None):
     """One bounce of N rays: intersect (dead lanes get the window 0), sky
     or emission into rad, scatter, then Russian roulette from depth
     rr_start on. depth is the bounce index, an int or (N,) tensor of
     per-ray depths (the persistent tracer's). Returns (o, d, atten, rad,
     alive, live_hit), live_hit marking live rays that hit a surface; a
     (1,) int32 ``survivors`` tensor, if given, gains the rays alive
-    after the bounce."""
+    after the bounce, and a (1,) int32 ``live_packets`` tensor the
+    128-ray packets that hold one."""
     o, d = o.contiguous(), d.contiguous()
     prim = prims.prims_nearest(scene, o, d, alive=alive)
     tri = search(scene, o, d, prim[0])
     return bounce_k.bounce_shade(scene, o, d, atten, rad, alive, keys,
-                                 depth, rr_start, prim, tri, survivors)
+                                 depth, rr_start, prim, tri, survivors,
+                                 live_packets)
 
 
 def trace(scene, o, d, keys, max_depth: int,
