@@ -35,7 +35,10 @@ exits non-zero and prints no result):
                  timed on the probe's inputs at each T; then the probe's
                  path (python -m tpurt_torch.probe_vmemloop),
                  ns_per_packet_step per T
-  5. fused     — every call of camera_rays, prims_nearest and
+  5. fused     — (in a fresh child process, as are 6 and 19: once a
+                 profile of a process has overflowed torch.profiler's
+                 buffer, its later profiles lose records) every call of
+                 camera_rays, prims_nearest and
                  bounce_shade (and hit_shade, bounce_shade.cu's merge
                  alone) in 1-spp renders of c3, c2, c4, c4 persist, g5, the
                  smooth icosphere fixture, a lens camera and c1, each
@@ -50,9 +53,14 @@ exits non-zero and prints no result):
                  plain version on the same inputs (array-equal; the film
                  that the refill adds into with atomics within
                  film_bound), with bounce_shade's survivor and live-packet
-                 counts; both persist renders must regenerate; then the
-                 three timed on c3 / c4 traffic, each with its bound, and
-                 film_fold beside the library call FOLD_LIBRARY
+                 counts and its packet flags; both persist renders must
+                 regenerate; c4's first shrink again with its slot
+                 permuted row by row; three refill steps on each of the
+                 REFILL_POOLS pools (a ragged cap, every slot dying,
+                 total running out inside a warp); then the three timed
+                 on c3 / c4 traffic, each with its bound, its device time
+                 by kernel and one CUDA kernel a call, and film_fold
+                 beside the library call FOLD_LIBRARY
   7. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
                  1, none by more than 8), and g2..g5 again in modes
@@ -91,8 +99,8 @@ exits non-zero and prints no result):
                  launches, device time (and kernel time alone), idle
                  share and host reads per spp, the search kernel's device
                  time per launch; c3 must stay under 300 CUDA launches per
-                 spp, c4 in modes wavefront and persist under 400
-                 (MAX_LAUNCHES_PER_SPP)
+                 spp, c4 in mode wavefront under 263 and in mode persist
+                 under 171 (MAX_LAUNCHES_PER_SPP)
 The probe (in phase 4) and phases 8-16 are the main paths, each with the
 launch counts reset just before it and read just after; every render
 path must launch its search kernel, the three fused kernels and its
@@ -108,6 +116,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -139,12 +148,12 @@ L2_FLUSH_BYTES = 1 << 27   # read before each timed call: over twice the
 PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
               "c4-wavefront": 9_571_880, "c4-persist": 9_571_880,
               "c5-tiles": 19_143_284, "c5-spp": 19_143_284}
-# CUDA launches per spp at most: c3's (per batch: the camera kernel,
+# CUDA launches per spp, under: c3's (per batch: the camera kernel,
 # three kernels a bounce, the film fold), and c4's in modes wavefront and
-# persist (also: per shrink two compaction kernels, per pool iteration
-# two refill kernels)
-MAX_LAUNCHES_PER_SPP = {"c3-mesh": 300, "c4-wavefront": 400,
-                        "c4-persist": 400}
+# persist (also: one compaction kernel a shrink, one refill kernel a pool
+# iteration; the two-kernel versions of both made 263 and 171)
+MAX_LAUNCHES_PER_SPP = {"c3-mesh": 300, "c4-wavefront": 263,
+                        "c4-persist": 171}
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -265,22 +274,31 @@ def bound(n_bytes: int, ops: dict) -> dict:
 
 
 _FLUSH = []
+_FLUSHES = [0]   # l2_flush calls so far
 
 
 def l2_flush():
     """Reads a float64 buffer larger than the card's L2 (one sum per row
-    of 1,024), so that the next call finds none of its inputs there and
-    no dirty line to write back. No timed function runs a float64
-    kernel, so not_flush tells the flush apart by its name."""
+    of 1,024, one kernel), so that the next call finds none of its inputs
+    there and no dirty line to write back. No timed function runs a
+    float64 kernel, so not_flush tells the flush apart by its name."""
     import torch
     if not _FLUSH:
         _FLUSH.append(torch.zeros((L2_FLUSH_BYTES // 8 // 1024, 1024),
                                   dtype=torch.float64, device="cuda"))
     _FLUSH[0].sum(dim=1)
+    _FLUSHES[0] += 1
 
 
 def not_flush(key: str) -> bool:
     return "double" not in key
+
+
+def is_flush(key: str) -> bool:
+    """l2_flush's kernel, a float64 sum (the plain bounce's float64
+    elementwise kernels are not)."""
+    return "double" in key and "reduce" in key
+
 
 
 def device_us(prof, keep=lambda key: True) -> float:
@@ -290,46 +308,111 @@ def device_us(prof, keep=lambda key: True) -> float:
                for e in prof.key_averages() if keep(e.key))
 
 
-def time_ms(fn, reps: int, keep=not_flush) -> dict:
-    """Per-call times of fn() over reps calls after one warm-up, with the
-    L2 flushed (l2_flush) before each call: "device", the CUDA kernels'
-    own time as torch.profiler records it over the keys that keep
-    accepts (by default all but the flush; None if the profiler records
-    none), and "wall", CUDA events around each call, host launch
-    overhead included."""
+def kernel_name(key: str) -> str:
+    """A profiler key's function name, without namespace, template
+    arguments or parameters (at most 60 characters)."""
+    if key.startswith(("Memcpy", "Memset")):
+        return key[:60]
+    name = key.replace("(anonymous namespace)::", "")
+    name = re.split(r"[(<]", name, maxsplit=1)[0].split("::")[-1]
+    return (name.split()[-1] if name.strip() else key)[:60]
+
+
+def device_us_by_kernel(prof, keep=lambda key: True) -> dict:
+    """Device self time (us) of a CUDA-only profile by kernel_name, over
+    the keys that keep accepts and that have device time."""
+    out: dict = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and keep(e.key):
+            name = kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + us
+    return out
+
+
+QUEUE_SLEEP_CYCLES = 2_000_000   # ~1 ms of the card's clock: the host
+                                 # queues a timed call meanwhile
+
+
+def time_ms(fn, reps: int, keep=not_flush, setup=None,
+            profiled=True) -> dict:
+    """Per-call times of fn() over reps calls after one warm-up, each
+    call after setup() (if given) and an L2 flush (l2_flush): "device",
+    the CUDA kernels' own time as torch.profiler records it over the keys
+    that keep accepts (by default all but the flush; None if the profiler
+    records none, or drops kernels in every window, or with profiled
+    False: on the H100 a window of more records than the profiler's
+    buffer holds lost its last ones and left every later profile of the
+    process short of one), "by_kernel", the
+    same split by kernel name, "launches_per_call", the CUDA kernels
+    launched per call among those keys, and "wall", CUDA events around
+    each fn() queued behind a sleep on the card, so that they span the
+    card's work for the call and not the host's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    l2_flush()
+
+    def call_after_setup():
+        if setup is not None:
+            setup()
+        l2_flush()
+        fn()
+
+    call_after_setup()
     torch.cuda.synchronize()
     marks = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, stop in marks:
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        if setup is not None:
+            setup()
         l2_flush()
         start.record()
         fn()
         stop.record()
     torch.cuda.synchronize()
     wall = sum(a.elapsed_time(b) for a, b in marks) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    if not profiled:
+        return {"device": None, "wall": wall, "by_kernel": {},
+                "launches_per_call": None}
+    # a window that overflows the profiler's buffer loses its last
+    # records (per-call times then read low): the window ends with a
+    # flush and counts only if it holds every flush it ran, else it is
+    # profiled again, at most PROFILE_ATTEMPTS times
+    for _ in range(PROFILE_ATTEMPTS):
+        flushes = _FLUSHES[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call_after_setup()
             l2_flush()
-            fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        seen = sum(e.count for e in prof.key_averages() if is_flush(e.key))
+        if seen == _FLUSHES[0] - flushes:
+            break
+    else:
+        return {"device": None, "wall": wall, "by_kernel": {},
+                "launches_per_call": None}
     dev_us = device_us(prof, keep)
+    launches = sum(e.count for e in prof.key_averages() if keep(e.key)
+                   and (getattr(e, "self_device_time_total", 0) or 0) > 0)
     return {"device": dev_us / 1e3 / reps if dev_us > 0 else None,
-            "wall": wall}
+            "wall": wall,
+            "by_kernel": {k: us / 1e3 / reps for k, us in
+                          device_us_by_kernel(prof, keep).items()},
+            "launches_per_call": launches / reps}
 
 
-def timed(kernel_fn, plain_fn, reps: int, plain_reps: int) -> dict:
+def timed(kernel_fn, plain_fn, reps: int, plain_reps: int,
+          plain_profiled=True) -> dict:
     """Kernel and plain-version times: "ms" / "plain_ms" are device time
-    (event wall time where the profiler saw no device time), the wall
-    times are kept beside them."""
+    (event wall time where the profiler saw no device time, or for a
+    plain version not profiled), the wall times are kept beside them."""
     k = time_ms(kernel_fn, reps)
-    p = time_ms(plain_fn, plain_reps)
+    p = time_ms(plain_fn, plain_reps, profiled=plain_profiled)
     return {"ms": k["device"] if k["device"] is not None else k["wall"],
             "plain_ms": p["device"] if p["device"] is not None else p["wall"],
             "wall_ms": k["wall"], "plain_wall_ms": p["wall"],
+            "by_kernel_ms": k["by_kernel"],
+            "launches_per_call": k["launches_per_call"],
             "timer": "profiler" if k["device"] is not None else "events"}
 
 
@@ -628,9 +711,11 @@ def check_traverse(dscene, cam, cfg, dev):
         return {"node_visits": walks["visits"],
                 "leaf_rows": walks["leaf_rows"],
                 **bound(nbytes(oo, dd, tt, *tables, *got), ops),
+                # the plain walk is timed by events only: its profile
+                # overflowed the profiler's buffer (time_ms)
                 **timed(lambda: traverse.nearest_tri(sc, oo, dd, tt),
                         lambda: traverse.nearest_tri_plain(sc, oo, dd, tt),
-                        10, 1)}
+                        10, 1, plain_profiled=False)}
 
     bounce_res = measure(*cases["bounce"], outs["bounce"])
     render_res = measure(*cases["render"], outs["render"])
@@ -949,8 +1034,9 @@ def phase_vmemloop(dev):
 
 
 FUSED = ("camera_rays", "prims_nearest", "bounce_shade")
-# bounce_shade's optional counts (its arguments 11 and 12)
-BOUNCE_COUNTS = ("survivors", "live_packets")
+# bounce_shade's optional outputs (its arguments 11 to 13): two counts it
+# adds to, and the per-packet live flags it sets
+BOUNCE_COUNTS = ("survivors", "live_packets", "packet_flags")
 FIXTURE_OBJ = REPO / "tests" / "fixtures" / "icosphere_vn.obj"
 
 
@@ -989,8 +1075,10 @@ class FusedCheck:
     """While open, each call of camera_rays, prims_nearest, hit_shade and
     bounce_shade (kernels/camera.py, prims.py, bounce.py) launches the
     kernel, runs its plain version on the same inputs, and raises unless
-    every output (and the counts a bounce adds) is array-equal,
-    NaN equal to NaN; the caller goes on with the kernel's outputs.
+    every output (and the counts a bounce adds, and the packet flags it
+    sets) is array-equal, NaN equal to NaN; the caller goes on with the
+    kernel's outputs. stats["bounce_shade"]["flag_calls"] counts the
+    calls whose packet flags were checked.
     ``keep`` maps a wrapper name to the index of a call whose arguments
     are kept (cloned) in ``kept``."""
 
@@ -1033,9 +1121,14 @@ class FusedCheck:
             got = kernel(*args, **counts, **kw)
             scratch = {k: torch.zeros_like(v) for k, v in counts.items()}
             want = plain(*args, **scratch, **kw)
-            self._checked(name, (*got, *(v - before[k]
+            # a count is checked by what it gained, the flags as set
+            self._checked(name, (*got, *(v if k == "packet_flags"
+                                         else v - before[k]
                                          for k, v in counts.items())),
                           (*want, *scratch.values()))
+            if "packet_flags" in counts:
+                st = self.stats[name]
+                st["flag_calls"] = st.get("flag_calls", 0) + 1
             return got
 
         self._saved.append((mod, name, kernel))
@@ -1204,8 +1297,10 @@ class FrameCheck:
     add into with atomics, which must stay within film_bound. The caller
     goes on with the kernel's outputs. Kept for timing: the first
     film_fold call that folds a whole block, the first packet_compact
-    call that keeps packets, and the persist_refill call that refills the
-    most slots, each with its inputs as they were before the call."""
+    call that keeps packets (with its packet flags and live-packet
+    count), and the persist_refill call that refills the most slots
+    (with the pool's scan state), each with its inputs as they were
+    before the call."""
 
     def __init__(self, label):
         self.label = label
@@ -1254,12 +1349,13 @@ class FrameCheck:
         st["calls"] += 1
         return got
 
-    def _packet_compact(self, q, rad_out, keep):
+    def _packet_compact(self, q, rad_out, keep, *flags):
         from tpurt_torch.kernels import compact
         if "packet_compact" not in self.kept and keep > 0:
-            self.kept["packet_compact"] = (_clone(q), rad_out.clone(), keep)
+            self.kept["packet_compact"] = (_clone(q), rad_out.clone(), keep,
+                                           *_clone(flags))
         q_p, ro_p = _clone(q), rad_out.clone()
-        got = self._kernels["packet_compact"](q, rad_out, keep)
+        got = self._kernels["packet_compact"](q, rad_out, keep, *flags)
         want = compact.packet_compact_plain(q_p, ro_p, keep)
         for field, g, w in zip(got._fields, got, want):
             self._same("packet_compact", field, g, w.contiguous())
@@ -1268,13 +1364,14 @@ class FrameCheck:
         return got
 
     def _persist_refill(self, frame, film, o, d, atten, rad, alive,
-                        live_hit, depth, pix, streams, counter, live):
+                        live_hit, depth, pix, streams, counter, live,
+                        *scan):
         from tpurt_torch.kernels import refill
         state = (film, o, d, atten, rad, alive, live_hit, depth, pix,
                  streams, counter, live)
         before = tuple(t.clone() for t in state)
         plain = tuple(t.clone() for t in state)
-        self._kernels["persist_refill"](frame, *state)
+        self._kernels["persist_refill"](frame, *state, *scan)
         refill.persist_refill_plain(frame, *plain)
         names = ("film", "o", "d", "atten", "rad", "alive", "live_hit",
                  "depth", "pix", "streams", "counter", "live")
@@ -1290,7 +1387,9 @@ class FrameCheck:
         st["refills"] = st.get("refills", 0) + refills
         if refills > st.get("most_refills", -1):
             st["most_refills"] = refills
-            self.kept["persist_refill"] = (frame, before, refills)
+            # the scan state is kept as it is, not cloned: its ticket
+            # counter only grows, so later steps on it stay tagged apart
+            self.kept["persist_refill"] = (frame, before, refills, scan)
 
     def _persist_commit(self, film, pix, rad):
         from tpurt_torch.kernels import refill
@@ -1343,11 +1442,78 @@ def frame_cases() -> dict:
     }
 
 
-def time_refill(frame, before):
-    """persist_refill's kernel and plain version on the state ``before``
-    (restored before each call): the kernel's device time is its two
-    kernels' (refill_mark, refill_apply) in the profile; the plain
-    version's is its call's device time less the restore's."""
+# Synthetic pools that the frame phase steps on the card besides the
+# renders' (their caps, in blocks of the refill kernel and slots): a pool
+# that ends inside a block and inside a warp, a step in which every slot
+# dies, and one in which total runs out inside a warp of the third block.
+REFILL_POOLS = {"ragged_cap": (2, 77), "all_die": (3, 0),
+                "out_in_warp": (4, 0)}
+
+
+def check_refill_pools(dev) -> dict:
+    """persist_refill on the REFILL_POOLS pools (random state made with
+    numpy from a seed; few pixels, so slots of one pixel die together),
+    three steps each on one scan state, every step held against the
+    plain version by FrameCheck. Returns each pool's calls and refills."""
+    import numpy as np
+    import torch
+    from tpurt_torch import config
+    from tpurt_torch.kernels import refill
+    cam = config.build_scene(config.RenderConfig(
+        width=32, height=16, scene="spheres_plane"))[1]
+    npix, counter0, out = 32 * 16, 300, {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for case, (blocks, extra) in REFILL_POOLS.items():
+        cap = blocks * refill.SLOTS + extra
+        rs = np.random.RandomState(len(case))
+        table = rs.permutation(npix)[:100].astype(np.int64)
+        live_hit = rs.uniform(size=cap) < 0.7
+        alive = live_hit & (rs.uniform(size=cap) < 0.6)
+        total = 5000
+        if case == "all_die":
+            alive[:] = False
+        if case == "out_in_warp":
+            # the cut falls on the 10th dead slot from warp 5 of block 2
+            dead_at = np.flatnonzero(~alive)
+            third = dead_at[dead_at >= 2 * refill.SLOTS + 5 * 32]
+            total = counter0 + int(np.searchsorted(dead_at, third[9]))
+        frame = refill.Frame(cam, 32, 16, 7, t(table), 3, total, 5)
+        film = t(rs.uniform(size=(npix, 3)).astype(np.float32))
+        pool = [t(rs.normal(size=(cap, 3)).astype(np.float32)),
+                t(rs.normal(size=(cap, 3)).astype(np.float32)),
+                t(rs.uniform(size=(cap, 3)).astype(np.float32)),
+                t(rs.uniform(size=(cap, 3)).astype(np.float32)), t(alive)]
+        depth = t(rs.randint(0, 5, cap).astype(np.int64))
+        pix = t(rs.choice(table[:8], cap).astype(np.int64))
+        streams = t(rs.randint(0, 2 ** 32, (3, cap)).astype(np.int64))
+        counter = t(np.array([counter0], np.int64))
+        # the two-launch refill (an A/B's parent package) has no scan
+        # state
+        scan = ((refill.scan_state(cap, dev),)
+                if hasattr(refill, "scan_state") else ())
+        with FrameCheck(case) as chk:
+            for _ in range(3):
+                live = torch.zeros(1, dtype=torch.int32, device=dev)
+                refill.persist_refill(frame, film, *pool, t(live_hit), depth,
+                                      pix, streams, counter, live, *scan)
+                live_hit = rs.uniform(size=cap) < 0.7
+        st = chk.stats["persist_refill"]
+        out[case] = {"cap": cap, "calls": st["calls"],
+                     "refills": st["refills"], "bit_diffs": st["bit_diffs"]}
+    return out
+
+
+def time_refill(frame, before, scan):
+    """persist_refill's kernel and plain version on the state ``before``,
+    restored before each call (time_ms's setup, followed by the L2
+    flush, so that the call meets neither the restored state in L2 nor
+    its dirty lines; the scan state goes on from the render's steps):
+    the kernel's device time is its kernel's (persist_refill_kernel) in
+    the profile; the plain version's is its call's device time less the
+    restore's (its event time spans the call alone)."""
     from tpurt_torch.kernels import refill
     work_state = tuple(t.clone() for t in before)
 
@@ -1355,23 +1521,19 @@ def time_refill(frame, before):
         for w, b in zip(work_state, before):
             w.copy_(b)
 
-    def kernel():
-        restore()
-        refill.persist_refill(frame, *work_state)
-
-    def plain():
-        restore()
-        refill.persist_refill_plain(frame, *work_state)
-
-    k = time_ms(kernel, 20, keep=lambda key: "refill_" in key)
-    p = time_ms(plain, 5)
+    k = time_ms(lambda: refill.persist_refill(frame, *work_state, *scan),
+                20, keep=lambda key: "refill_" in key, setup=restore)
+    p = time_ms(lambda: refill.persist_refill_plain(frame, *work_state), 5,
+                setup=restore)
     r = time_ms(restore, 20)
-    dev = k["device"] is not None and p["device"] is not None
-    return {"ms": k["device"] if dev else k["wall"] - r["wall"],
-            "plain_ms": (p["device"] - r["device"]) if dev
-            else p["wall"] - r["wall"],
-            "wall_ms": k["wall"], "restore_wall_ms": r["wall"],
-            "timer": "profiler" if dev else "events"}
+    plain_dev = p["device"] is not None and r["device"] is not None
+    return {"ms": k["device"] if k["device"] is not None else k["wall"],
+            "plain_ms": (p["device"] - r["device"]) if plain_dev
+            else p["wall"],
+            "wall_ms": k["wall"], "plain_wall_ms": p["wall"],
+            "by_kernel_ms": k["by_kernel"],
+            "launches_per_call": k["launches_per_call"],
+            "timer": "profiler" if k["device"] is not None else "events"}
 
 
 def phase_frame(dev):
@@ -1395,10 +1557,18 @@ def phase_frame(dev):
             _, stats = render.render(cfg, device=dev)
         launches = dict(_build.LAUNCHES)
         need = mode_kernels(cfg.mode)
+        flag_calls = fused.stats.get("bounce_shade", {}).get("flag_calls", 0)
         if cfg.mode == "persist":
             if chk.stats.get("persist_refill", {}).get("refills", 0) <= 0:
                 raise AssertionError(f"frame ({label}): the pool never "
                                      "regenerated")
+        # a queue compacted by packet flags had every bounce's flags
+        # checked (the two-launch compaction of an A/B's parent package
+        # takes none)
+        if len(chk.kept.get("packet_compact", ())) > 3 and \
+                flag_calls != fused.stats["bounce_shade"]["calls"]:
+            raise AssertionError(f"frame ({label}): {flag_calls} packet "
+                                 "flag outputs checked, not every bounce's")
         for k in need:
             if chk.stats.get(k, {}).get("calls", 0) == 0:
                 raise AssertionError(f"frame ({label}): {k} never called")
@@ -1409,7 +1579,7 @@ def phase_frame(dev):
              rays=stats["rays"], occupancy=stats.get("occupancy"),
              launches={k: launches[k] for k in (*FUSED, *FRAME)},
              bounce_counts_checked=fused.stats.get("bounce_shade", {}).get(
-                 "calls", 0),
+                 "calls", 0), packet_flags_checked=flag_calls,
              check="array_equal (film of persist_refill and "
                    "persist_commit: film_bound)", **chk.stats)
         for k, v in chk.kept.items():
@@ -1417,6 +1587,9 @@ def phase_frame(dev):
                                   or label == "c4-wavefront") \
                     and (k != "persist_refill" or label == "c4-persist"):
                 kept[k] = v
+    pools = check_refill_pools(dev)
+    emit("frame", case="refill_pools", check="array_equal (film: "
+         "film_bound)", pools=pools)
     _build.reset_launches()
 
     def checked(name):
@@ -1439,22 +1612,25 @@ def phase_frame(dev):
     rows["film_fold"]["library_ms"] = (lib["device"] if lib["device"]
                                        is not None else lib["wall"])
 
-    q, rad_out, keep = kept["packet_compact"]
+    q, rad_out, keep, *flags = kept["packet_compact"]
     n, kr = q.o.shape[0], keep * compact.PACKET_R
     ro_p = rad_out.clone()
+    permuted = check_permuted_slot(q, rad_out, keep, flags)
     # every row's alive byte; a kept row's other 84 bytes, read and
     # written; a dropped row's slot and radiance read, its radiance written
     rows["packet_compact"] = {
         "shape": f"c4 first shrink, {n // compact.PACKET_R} -> {keep} "
                  "packets",
         **bound(n + kr * (84 + 85) + (n - kr) * (8 + 12 + 12), {}),
-        **timed(lambda: compact.packet_compact(q, rad_out, keep),
+        **timed(lambda: compact.packet_compact(q, rad_out, keep, *flags),
                 lambda: compact.packet_compact_plain(q, ro_p, keep), 50, 20),
         "row_extra": {"checked_calls": checked("packet_compact"),
                       "live_packets": int(q.alive.reshape(
-                          -1, compact.PACKET_R).any(dim=1).sum())}}
+                          -1, compact.PACKET_R).any(dim=1).sum()),
+                      "permuted_slot": permuted}}
 
-    frame, before, refills = kept["persist_refill"]
+    frame, before, refills, scan = kept["persist_refill"]
+    refill_times = time_refill(frame, before, scan)
     cap = before[1].shape[0]
     hits = int(before[6].sum())
     # every slot: live_hit, alive, depth read, alive written; a slot that
@@ -1466,8 +1642,9 @@ def phase_frame(dev):
         **bound(cap * (1 + 1 + 8 + 1) + hits * 8
                 + refills * (8 + 12 + 8 + 12 + 12 + 48 + 8 + 24 + 8),
                 work((refills, CAMERA_RAY_OPS))),
-        **time_refill(frame, before),
+        **refill_times,
         "row_extra": {"checked_calls": checked("persist_refill"),
+                      "pool_checks": pools,
                       "commit_calls": checked("persist_commit"),
                       "refills_by_case": {lab: st.get("persist_refill", {})
                                           .get("refills", 0)
@@ -1490,6 +1667,36 @@ def phase_frame(dev):
         emit("kernel", name=name, **row)
     torch.cuda.synchronize()
     return rows
+
+
+def check_permuted_slot(q, rad_out, keep, flags) -> dict:
+    """packet_compact on c4's first-shrink queue with its slot permuted
+    row by row (a dropped packet's rows then land anywhere in rad_out),
+    keeping ``keep`` packets and then none: every output array-equal to
+    the plain version."""
+    import torch
+    from tpurt_torch.kernels import compact
+    gen = torch.Generator().manual_seed(9)
+    perm = torch.randperm(q.slot.shape[0], generator=gen).to(q.slot.device)
+    qp = q._replace(slot=q.slot[perm].contiguous())
+    out = {}
+    for k in (keep, 0):
+        ro, ro_p = rad_out.clone(), rad_out.clone()
+        got = compact.packet_compact(qp, ro, k, *(flags if k else ()))
+        want = compact.packet_compact_plain(_clone(qp), ro_p, k)
+        bits = 0
+        for field, g, w in (*zip(got._fields, got, want),
+                            ("rad_out", ro, ro_p)):
+            ok, b, err = same_values(g, w.contiguous())
+            if not ok:
+                raise AssertionError(f"frame: packet_compact on a permuted "
+                                     f"slot, keep {k}: {field} differs "
+                                     f"(max |diff| {err})")
+            bits += b
+        out[f"keep_{k}"] = {"bit_diffs": bits,
+                            "rows_home": int(q.slot.shape[0]
+                                             - k * compact.PACKET_R)}
+    return out
 
 
 GOLDENS = {
@@ -1918,21 +2125,37 @@ def phase_profile():
                                  "launches per spp")
 
 
-def phase_profile_child(timeout: float = 600.0):
-    """phase_profile in a fresh Python process on the same card, its
-    lines passed through; the phase fails if the child does (or outlasts
-    ``timeout`` seconds, and is then killed)."""
+CHILD_RESULT = "chip_smoke result: "   # the line a phase_child returns
+
+
+def phase_child(name: str, on_card: bool = True, timeout: float = 600.0):
+    """chip_smoke.<name>(), with card 0 as its argument if on_card, in a
+    fresh Python process on the same card: its lines passed through, what
+    it returns sent back as JSON; the phase fails if the child does (or
+    outlasts ``timeout`` seconds, and is then killed). The phases that
+    time kernels run so: once one profile of a process has overflowed
+    torch.profiler's buffer, its later profiles lose records (time_ms),
+    and a profiled render slows later renders of its process."""
     import torch
     torch.cuda.empty_cache()
-    code = "import chip_smoke; chip_smoke.phase_profile()"
+    arg = "torch.device('cuda', 0)" if on_card else ""
+    code = ("import json, torch, chip_smoke\n"
+            f"out = chip_smoke.{name}({arg})\n"
+            f"print({CHILD_RESULT!r} + json.dumps(out), flush=True)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=timeout)
-    sys.stdout.write(res.stdout)
+    out = None
+    for line in res.stdout.splitlines(keepends=True):
+        if line.startswith(CHILD_RESULT):
+            out = json.loads(line[len(CHILD_RESULT):])
+        else:
+            sys.stdout.write(line)
     sys.stdout.flush()
     if res.returncode != 0:
         sys.stderr.write(res.stderr)
-        raise AssertionError(f"profile: the child process exited "
+        raise AssertionError(f"{name}: the child process exited "
                              f"{res.returncode}")
+    return out
 
 
 def phase_c1_primary():
@@ -2014,8 +2237,15 @@ def main() -> int:
     phase_build()
     results = phase_kernels(dev)
     results["vmemloop"], probe_launches = phase_vmemloop(dev)
-    results.update(phase_fused(dev))
-    results.update(phase_frame(dev))
+    results.update(phase_child("phase_fused"))
+    results.update(phase_child("phase_frame"))
+    for k in FRAME:
+        # one CUDA kernel a call, as the profile of its timing saw it
+        if results[k]["timer"] == "profiler" and \
+                results[k]["launches_per_call"] != 1:
+            raise AssertionError(f"frame: {k} launched "
+                                 f"{results[k]['launches_per_call']} CUDA "
+                                 "kernels a call")
     golden_rays = phase_goldens(dev)
     world = torch.cuda.device_count()
     # the main paths, each read on its own
@@ -2043,7 +2273,7 @@ def main() -> int:
     }
     phase_oracle(golden_rays)
     phase_imports()
-    phase_profile_child()
+    phase_child("phase_profile", on_card=False)
     emit("elapsed", seconds=time.perf_counter() - t0)
 
     def row(k):
@@ -2058,6 +2288,7 @@ def main() -> int:
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
                 "ops_by_class": res["ops_by_class"],
                 "library_ms": res["library_ms"],
+                "by_kernel_ms": res.get("by_kernel_ms"),
                 "library": (FOLD_LIBRARY if k == "film_fold"
                             else NO_FUSED_LIBRARY if k in FUSED
                             else NO_LIBRARY),

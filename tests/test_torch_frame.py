@@ -5,7 +5,8 @@ order cache, and a persist render whose pool regenerates.
 
   * packet_compact_plain: array-equal to tpurt's _compact_packets, the
     slice to the kept packets and trace_chunk_staged's packet-row commit
-    (tpurt/wavefront.py:313-317), on every field and on rad_out;
+    (tpurt/wavefront.py:313-317), on every field and on rad_out; with a
+    slot permuted row by row, against tpurt's row commit (commit_rows);
   * persist_refill_plain: array-equal to a numpy transcription of
     tpurt/wavefront.py:496-516 on every slot field (the new rays through
     the port's camera, their streams through tpurt's make_streams), the
@@ -44,12 +45,14 @@ import chip_smoke  # noqa: E402
 F32 = np.float32
 
 
-def _queue_arrays(rs, alive):
+def _queue_arrays(rs, alive, permuted=False):
     """Random queue fields of len(alive) rows; slot keeps packets whole
-    (a packet's rows come from one packet of the first queue)."""
+    (a packet's rows come from one packet of the first queue), or with
+    ``permuted`` is any permutation of the rows."""
     n = alive.shape[0]
     pk = n // 128
-    slot = (rs.permutation(pk)[:, None] * 128 + np.arange(128)).reshape(-1)
+    slot = (rs.permutation(n) if permuted else
+            (rs.permutation(pk)[:, None] * 128 + np.arange(128)).reshape(-1))
     return dict(
         o=rs.normal(size=(n, 3)).astype(F32),
         d=rs.normal(size=(n, 3)).astype(F32),
@@ -70,21 +73,34 @@ def _mask(case, pk, rs):
         alive = np.zeros(n, bool)
         alive[-3] = True
         return alive, 1
-    # ragged: 5 of 16 packets hold a live ray, 6 are kept
+    if case == "keep_over_live":
+        # 3 live packets, the last one among them; 8 kept, so 5 dead
+        # packets follow them in the kept queue
+        alive = np.zeros(n, bool)
+        for p in (2, 9, pk - 1):
+            alive[p * 128 + rs.randint(0, 128)] = True
+        return alive, 8
+    # ragged (and permuted_slot): 5 of 16 packets hold a live ray, 6 are
+    # kept
     alive = np.zeros(n, bool)
     for p in rs.choice(pk, 5, replace=False):
         alive[p * 128 + rs.randint(0, 128, 3)] = True
     return alive, 6
 
 
-@pytest.mark.parametrize("case", ["all_dead", "all_live", "last_packet",
-                                  "ragged"])
+COMPACT_CASES = ["all_dead", "all_live", "last_packet", "ragged",
+                 "keep_over_live", "permuted_slot"]
+
+
+@pytest.mark.parametrize("case", COMPACT_CASES)
 def test_packet_compact_plain_equals_tpurt(case):
-    rs = np.random.RandomState(["all_dead", "all_live", "last_packet",
-                                "ragged"].index(case))
+    """permuted_slot: the slot is a permutation of rows, not of whole
+    packets (the kernel must not assume a packet's slots are 128
+    consecutive values), so tpurt's row commit is the reference."""
+    rs = np.random.RandomState(COMPACT_CASES.index(case))
     pk = 16
     alive, keep = _mask(case, pk, rs)
-    a = _queue_arrays(rs, alive)
+    a = _queue_arrays(rs, alive, permuted=case == "permuted_slot")
     tq = twave.Queue(**{k: torch.from_numpy(v.astype(np.int64) if k in (
         "key", "slot") else v) for k, v in a.items()})
     rad_out = torch.zeros((pk * 128, 3))
@@ -96,10 +112,15 @@ def test_packet_compact_plain_equals_tpurt(case):
                         for k, v in a.items()})
     jq = jwave._compact_packets(jq)
     b = keep * 128
-    # tpurt/wavefront.py:313-317: rows [b:] home as packet rows
-    spk = jq.slot[b::128] // 128
-    j_out = jnp.zeros((pk, 384), jnp.float32).at[spk].set(
-        jq.rad[b:].reshape(-1, 384))
+    if case == "permuted_slot":
+        # rows [b:] home one by one (tpurt/wavefront.py:182)
+        j_out = jwave.commit_rows(jnp.zeros((pk * 128, 3), jnp.float32),
+                                  jq.rad[b:], jq.slot[b:])
+    else:
+        # tpurt/wavefront.py:313-317: rows [b:] home as packet rows
+        spk = jq.slot[b::128] // 128
+        j_out = jnp.zeros((pk, 384), jnp.float32).at[spk].set(
+            jq.rad[b:].reshape(-1, 384))
     np.testing.assert_array_equal(rad_out.numpy(),
                                   np.asarray(j_out).reshape(-1, 3))
     for field in twave.Queue._fields:
@@ -149,28 +170,41 @@ def _np_refill(st, counter, frame):
     return st, counter + int(fill.sum()), fill
 
 
-# (counter, total): every dead slot refills; the counter runs out among
-# them; nothing is left to hand out
-REFILL_CASES = {"all_refill": (300, 5000), "runs_out": (980, 1000),
-                "exhausted": (1000, 1000)}
+# (counter, total, cap): every dead slot refills; the counter runs out
+# among them; nothing is left to hand out; a pool that ends inside a
+# block of the kernel (refill.SLOTS slots) and inside a warp; every slot
+# dies in the step; total runs out inside a warp of the third block
+REFILL_CASES = {"all_refill": (300, 5000, 256), "runs_out": (980, 1000, 256),
+                "exhausted": (1000, 1000, 256),
+                "ragged_cap": (300, 5000, 2 * refill.SLOTS + 77),
+                "all_die": (300, 5000, 3 * refill.SLOTS),
+                "out_in_warp": (300, None, 4 * refill.SLOTS)}
 
 
 @pytest.mark.parametrize("case", sorted(REFILL_CASES))
 def test_persist_refill_plain_equals_tpurt(case, small_cam):
-    counter0, total = REFILL_CASES[case]
+    counter0, total, cap = REFILL_CASES[case]
     rs = np.random.RandomState(len(case))
-    cap, npix = 256, 32 * 16
+    npix = 32 * 16
     table = rs.permutation(npix)[:100].astype(np.int64)
+    live_hit = rs.uniform(size=cap) < 0.7
+    alive = live_hit & (rs.uniform(size=cap) < 0.6)
+    if case == "all_die":
+        alive[:] = False
+    if total is None:
+        # the cut falls on the 10th dead slot of the third block's warp 5
+        dead_at = np.flatnonzero(~alive)
+        third = dead_at[dead_at >= 2 * refill.SLOTS + 5 * 32]
+        total = counter0 + int(np.searchsorted(dead_at, third[9]))
     frame = refill.Frame(small_cam, 32, 16, 7, torch.from_numpy(table), 3,
                          total, 5)
-    live_hit = rs.uniform(size=cap) < 0.7
     st = dict(
         film=rs.uniform(size=(npix, 3)).astype(F32),
         o=rs.normal(size=(cap, 3)).astype(F32),
         d=rs.normal(size=(cap, 3)).astype(F32),
         atten=rs.uniform(size=(cap, 3)).astype(F32),
         rad=rs.uniform(size=(cap, 3)).astype(F32),
-        alive=live_hit & (rs.uniform(size=cap) < 0.6),
+        alive=alive,
         live_hit=live_hit,
         depth=rs.randint(0, 5, cap).astype(np.int64),
         # few pixels: slots of one pixel die together
@@ -195,6 +229,14 @@ def test_persist_refill_plain_equals_tpurt(case, small_cam):
     else:
         # two slots of one pixel died and refilled in this step
         assert np.bincount(st["pix"][fill]).max() >= 2
+    if case == "all_die":
+        assert fill.all()
+    if case == "out_in_warp":
+        # the last refilled slot and the first dead one left without a
+        # ray share a warp
+        last = np.flatnonzero(fill)[-1]
+        first_left = np.flatnonzero(~want["alive"])[0]
+        assert last // 32 == first_left // 32 and last < first_left
 
 
 @pytest.mark.parametrize("c", [1, 3])
@@ -260,10 +302,12 @@ def test_persist_render_regenerates_as_tpurt():
 
 @pytest.mark.parametrize("mode", ["wavefront", "persist"])
 def test_smoke_frame_check_on_a_cpu_render(mode):
-    """chip_smoke.FrameCheck (the card's frame phase) around a small CPU
-    render whose queue shrinks or whose pool regenerates: every wrapped
-    call runs and compares, the film within film_bound, and the wrappers
-    are restored."""
+    """chip_smoke.FrameCheck and FusedCheck (the card's frame phase)
+    around a small CPU render whose queue shrinks or whose pool
+    regenerates: every wrapped call runs and compares, the film within
+    film_bound, every bounce's packet flags in mode wavefront, and the
+    wrappers are restored; the phase's permuted-slot compaction runs on
+    the kept shrink."""
     # 36-packet queues shrink; 1,024-slot pools take 3,072 rays a block
     cfg = tconfig.RenderConfig(width=48, height=32, spp=3, max_depth=6,
                                rr_start=2, seed=4, scene="spheres_plane",
@@ -271,7 +315,8 @@ def test_smoke_frame_check_on_a_cpu_render(mode):
                                else 1024, mode=mode)
     wrapped = (fold_k.film_fold, compact.packet_compact,
                refill.persist_refill, refill.persist_commit)
-    with chip_smoke.FrameCheck("cpu") as chk:
+    with chip_smoke.FusedCheck("cpu") as fused, \
+            chip_smoke.FrameCheck("cpu") as chk:
         img, stats = trender.render(cfg, device="cpu")
     assert (fold_k.film_fold, compact.packet_compact, refill.persist_refill,
             refill.persist_commit) == wrapped
@@ -281,22 +326,39 @@ def test_smoke_frame_check_on_a_cpu_render(mode):
         assert chk.stats["film_fold"]["calls"] > 0
         assert chk.stats["film_fold"]["bit_diffs"] == 0
         assert chk.stats["packet_compact"]["calls"] > 0
-        assert "packet_compact" in chk.kept
+        q, rad_out, keep, flags, live_pk = chk.kept["packet_compact"]
+        assert keep > 0 and 0 < live_pk == int(flags.sum()) <= keep
+        bounces = fused.stats["bounce_shade"]
+        assert bounces["flag_calls"] == bounces["calls"] > 0
+        res = chip_smoke.check_permuted_slot(q, rad_out, keep,
+                                             (flags, live_pk))
+        assert res[f"keep_{keep}"]["bit_diffs"] == 0
+        assert res["keep_0"]["rows_home"] == q.o.shape[0]
     else:
         st = chk.stats["persist_refill"]
         assert st["calls"] > 0 and st["refills"] > 0
         assert st["film_diffs"] == 0
         assert "film_fold" not in chk.stats    # the pool adds into the film
         assert chk.stats["persist_commit"]["calls"] > 0
-        frame, before, refills = chk.kept["persist_refill"]
+        frame, before, refills, scan = chk.kept["persist_refill"]
         assert refills == st["most_refills"] > 0
         assert len(before) == 12
+        # the pool's scan state, as trace_persistent passed it
+        assert len(scan) == 1 and scan[0].dtype == torch.int64
+        pools = chip_smoke.check_refill_pools("cpu")
+        assert set(pools) == set(chip_smoke.REFILL_POOLS)
+        assert all(p["calls"] == 3 and p["refills"] > 0
+                   and p["bit_diffs"] == 0 for p in pools.values())
 
 
-def test_wrappers_run_plain_on_cpu_and_raise_elsewhere(small_cam):
-    """On CPU tensors each wrapper is its plain version and launches
+def test_wrappers_run_plain_on_cpu_and_raise_elsewhere(small_cam,
+                                                       monkeypatch):
+    """On CPU tensors each wrapper is its plain version, takes the card's
+    extra arguments (packet flags and count, the scan state) and launches
     nothing; tensors on another device (meta) make it raise, never fall
-    back."""
+    back. On a card the compaction raises without its packet flags or on
+    a base pointer off 16 bytes, and the refill without its scan state,
+    before any launch (shown with meta tensors let through as a card's)."""
     from tpurt_torch.kernels import _build
     _build.reset_launches()
     rs = np.random.RandomState(9)
@@ -307,7 +369,14 @@ def test_wrappers_run_plain_on_cpu_and_raise_elsewhere(small_cam):
     a = _queue_arrays(rs, rs.uniform(size=256) < 0.01)
     q = twave.Queue(**{k: torch.from_numpy(v.astype(np.int64) if k in (
         "key", "slot") else v) for k, v in a.items()})
+    flags = q.alive.reshape(2, 128).any(dim=1)
     rad_out = torch.zeros((256, 3))
+    kept = compact.packet_compact(q, rad_out, 1, flags, int(flags.sum()))
+    want_out = torch.zeros((256, 3))
+    want = compact.packet_compact_plain(q, want_out, 1)
+    assert all(torch.equal(g, w) for g, w in zip(kept, want))
+    assert torch.equal(rad_out, want_out)
+    rad_out.zero_()
     assert compact.packet_compact(q, rad_out, 0).o.shape == (0, 3)
     assert torch.equal(rad_out[q.slot], q.rad)
     film = torch.zeros((512, 3))
@@ -318,14 +387,53 @@ def test_wrappers_run_plain_on_cpu_and_raise_elsewhere(small_cam):
     with pytest.raises(ValueError):
         fold_k.film_fold(acc.to("meta"), rad.to("meta"), 2, 256)
     with pytest.raises(ValueError):
-        compact.packet_compact(twave.Queue(**meta), rad_out.to("meta"), 1)
+        compact.packet_compact(twave.Queue(**meta), rad_out.to("meta"), 1,
+                               flags.to("meta"), 1)
     with pytest.raises(ValueError):
         refill.persist_commit(film.to("meta"), meta["slot"], meta["rad"])
     frame = refill.Frame(small_cam, 32, 16, 7, torch.arange(100), 0, 100, 5)
+    state = (film.to("meta"), meta["o"], meta["d"], meta["atten"],
+             meta["rad"], meta["alive"], meta["alive"], meta["slot"],
+             meta["slot"], meta["key"], meta["slot"][:1],
+             torch.zeros(1, dtype=torch.int32, device="meta"))
+    scan = refill.scan_state(256, "meta")
     with pytest.raises(ValueError):
-        refill.persist_refill(frame, film.to("meta"), meta["o"], meta["d"],
-                              meta["atten"], meta["rad"], meta["alive"],
-                              meta["alive"], meta["slot"], meta["slot"],
-                              meta["key"], meta["slot"][:1],
-                              torch.zeros(1, dtype=torch.int32,
-                                          device="meta"))
+        refill.persist_refill(frame, *state, scan)
+    # CPU: the plain version, with or without the scan state
+    cpu_state = (film, q.o, q.d, q.atten, q.rad, q.alive, q.alive, q.slot,
+                 q.slot, q.key, torch.tensor([0]),
+                 torch.zeros(1, dtype=torch.int32))
+    got = [t.clone() for t in cpu_state]
+    want = [t.clone() for t in cpu_state]
+    refill.persist_refill(frame, *got, refill.scan_state(256, "cpu"))
+    refill.persist_refill_plain(frame, *want)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert int(got[-1]) > 0 and _build.LAUNCHES["persist_refill"] == 0
+
+    # meta tensors let through as a card's: the checks before the launch
+    monkeypatch.setattr(_build, "cuda_device", lambda kernel, t: t.device)
+
+    def launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(_build, "launch", launch)
+    mq = twave.Queue(**meta)
+    with pytest.raises(ValueError, match="packet_flags"):
+        compact.packet_compact(mq, rad_out.to("meta"), 1)
+    with pytest.raises(ValueError, match="packet_flags"):
+        compact.packet_compact(mq, rad_out.to("meta"), 1, flags.to("meta"))
+    off = torch.empty(256 * 3 + 1, device="meta")[1:].view(256, 3)
+    for name in ("o", "rad"):
+        with pytest.raises(ValueError, match="aligned"):
+            compact.packet_compact(mq._replace(**{name: off}),
+                                   rad_out.to("meta"), 1, flags.to("meta"),
+                                   1)
+    odd_flags = torch.empty(3, dtype=torch.bool, device="meta")[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        compact.packet_compact(mq, rad_out.to("meta"), 1, odd_flags, 1)
+    with pytest.raises(AssertionError, match="launched"):
+        compact.packet_compact(mq, rad_out.to("meta"), 1, flags.to("meta"),
+                               1)
+    with pytest.raises(ValueError, match="scan_state"):
+        refill.persist_refill(frame._replace(
+            pixel_table=frame.pixel_table.to("meta")), *state)

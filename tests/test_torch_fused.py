@@ -23,6 +23,7 @@ import ctypes
 import pathlib
 import subprocess
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -184,14 +185,29 @@ def _equal(got, want, what):
         assert torch.equal(g, w), f"{what}: output {k} differs"
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
+def _tpurt_live_pk(alive):
+    """tpurt's per-packet live flags (tpurt/wavefront.py:158) of an alive
+    mask, padded with dead rays to whole packets."""
+    n = alive.shape[0]
+    padded = np.zeros(-(-n // trace.PACKET_R) * trace.PACKET_R, bool)
+    padded[:n] = alive.numpy()
+    return np.asarray(jnp.any(jnp.asarray(padded).reshape(
+        -1, trace.PACKET_R), axis=-1))
+
+
+@pytest.mark.parametrize("name", sorted(SCENES) + ["spheres-ragged"])
 def test_plain_versions_compose_to_the_replaced_bounce(name):
     """Three bounces through trace.bounce (camera_rays_plain,
     prims_nearest_plain, the search, bounce_shade_plain) equal the
     replaced eager code output for output, with roulette off, from
-    bounce 2, and with per-ray depths; a lens camera on the spheres."""
+    bounce 2, and with per-ray depths; a lens camera on the spheres. The
+    bounce's packet flags equal tpurt's live packets of its alive mask,
+    also for a ray count that ends inside a packet (spheres-ragged)."""
+    ragged = name == "spheres-ragged"
+    name = "spheres" if ragged else name
     aperture = 0.3 if name == "spheres" else 0.0
-    cfg, scene, cam, pix, smp = _setup(SCENES[name], aperture=aperture)
+    cfg, scene, cam, pix, smp = _setup(SCENES[name], aperture=aperture,
+                                       n=1536 - 37 if ragged else 1536)
     o, d, keys = camera_k.camera_rays(cam, 64, 48, cfg.seed, pix, smp)
     want_keys = rng.make_streams(cfg.seed, pix, smp)
     from tpurt_torch import camera as tcamera
@@ -205,13 +221,16 @@ def test_plain_versions_compose_to_the_replaced_bounce(name):
     for rr_start, depth in ((None, 0), (2, 1), (2, 2), (2, depth_v)):
         state = (o, d, torch.ones((n, 3)), torch.zeros((n, 3)), alive)
         survivors = torch.zeros(1, dtype=torch.int32)
+        flags = torch.ones(-(-n // trace.PACKET_R), dtype=torch.bool)
         for _ in range(3):
             got = trace.bounce(scene, *state, keys, depth, rr_start,
-                               survivors=survivors)
+                               survivors=survivors, packet_flags=flags)
             want = _pre_bounce(scene, *state, keys, depth, rr_start)
             _equal(got, want, f"{name} bounce, rr {rr_start}, depth "
                    f"{'per ray' if torch.is_tensor(depth) else depth}")
             assert int(survivors) == int(got[4].sum())
+            np.testing.assert_array_equal(flags.numpy(),
+                                          _tpurt_live_pk(got[4]))
             survivors.zero_()
             state = got[:5]
             depth = depth + 1
@@ -266,6 +285,12 @@ def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
             keys, 0, None, prim, tri)
     _equal(bounce_k.bounce_shade(*args), bounce_k.bounce_shade_plain(*args),
            "bounce")
+    counts = [torch.zeros(1, dtype=torch.int32) for _ in range(4)]
+    flags = [torch.zeros(2, dtype=torch.bool) for _ in range(2)]
+    _equal(bounce_k.bounce_shade(*args, counts[0], counts[1], flags[0]),
+           bounce_k.bounce_shade_plain(*args, counts[2], counts[3],
+                                       flags[1]), "bounce with counts")
+    _equal((*counts[:2], flags[0]), (*counts[2:], flags[1]), "counts")
     assert all(v == 0 for v in _build.LAUNCHES.values())
     meta = o.to("meta")
     with pytest.raises(ValueError):

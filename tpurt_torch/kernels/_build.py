@@ -48,15 +48,14 @@ SIGNATURES = {
     "tt_camera_rays": "p" * 5 + "i" * 22,
     "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
     "tt_hit_shade": "p" * 17 + "i",
-    "tt_bounce_shade": "p" * 7 + "iii" + "p" * 21 + "i",
+    "tt_bounce_shade": "p" * 7 + "iii" + "p" * 22 + "i",
     "tt_film_fold": "pp" + "iii",
-    "tt_packet_compact": "p" * 18 + "ii",
-    "tt_persist_refill": "p" * 15 + "i" * 9 + "i" * 18,
+    "tt_packet_compact": "p" * 18 + "iii",
+    "tt_persist_refill": "p" * 14 + "i" * 9 + "i" * 18,
 }
 
-# kernel name -> launches since the last reset (counted by the wrappers:
-# one a call, though a packet_compact call with keep > 0 and a
-# persist_refill step each start two CUDA kernels)
+# kernel name -> launches since the last reset (counted by the wrappers,
+# one a call; every call starts one CUDA kernel)
 LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
             "nearest_tri_small": 0, "vmemloop": 0, "camera_rays": 0,
             "prims_nearest": 0, "bounce_shade": 0, "film_fold": 0,
@@ -170,6 +169,16 @@ def check(name: str, t, shape, dtype, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def aligned(kernel: str, align: int, *tensors) -> None:
+    """Raise unless every tensor given (None is skipped) starts on an
+    ``align``-byte boundary: a kernel that moves 16 bytes at a time takes
+    no other base pointer."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % align:
+            raise ValueError(f"{kernel}: a tensor at {t.data_ptr():#x} is "
+                             f"not {align}-byte aligned")
 
 
 def launch(entry: str, device, *args) -> None:

@@ -13,7 +13,9 @@ emission, into rad, the draws, scatter, Russian roulette; it returns
 (o, d, atten, rad, alive, live_hit), and a (1,) int32 ``survivors``
 tensor, if given, gains the rays alive after the bounce; a (1,) int32
 ``live_packets`` tensor, if given, the 128-ray packets (rays 128p to
-128p + 127) that hold one.
+128p + 127) that hold one; a (ceil(N / 128),) bool ``packet_flags``
+tensor, if given, is set to which packets hold one (the shrink's
+packet order, ``compact.packet_compact``).
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95
 
 def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
                        rr_start, prim, tri, survivors=None,
-                       live_packets=None):
+                       live_packets=None, packet_flags=None):
     """Plain PyTorch version: the bounce body of trace.bounce."""
     t, n, front, mat, ok = hit_shade_plain(scene, o, d, prim, tri)
     live_hit = alive & ok
@@ -117,13 +119,16 @@ def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
         alive = alive & (~rr_on | survive)
     if survivors is not None:
         survivors.add_(alive.sum(dtype=torch.int32))
-    if live_packets is not None:
+    if live_packets is not None or packet_flags is not None:
         n = alive.shape[0]
         padded = torch.zeros(-(-n // PACKET_R) * PACKET_R, dtype=torch.bool,
                              device=alive.device)
         padded[:n] = alive
-        live_packets.add_(padded.reshape(-1, PACKET_R).any(dim=1).sum(
-            dtype=torch.int32))
+        live_pk = padded.reshape(-1, PACKET_R).any(dim=1)
+        if live_packets is not None:
+            live_packets.add_(live_pk.sum(dtype=torch.int32))
+        if packet_flags is not None:
+            packet_flags.copy_(live_pk)
     return o, d, atten, rad, alive, live_hit
 
 
@@ -180,7 +185,8 @@ def hit_shade(scene, o, d, prim, tri):
 
 
 def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
-                 prim, tri, survivors=None, live_packets=None):
+                 prim, tri, survivors=None, live_packets=None,
+                 packet_flags=None):
     """trace.bounce after its searches on o's device: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors (or an error).
     depth: the bounce index, an int or an (N,) integer tensor of per-ray
@@ -188,7 +194,7 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
     if o.device.type == "cpu":
         return bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
                                   depth, rr_start, prim, tri, survivors,
-                                  live_packets)
+                                  live_packets, packet_flags)
     dev = _build.cuda_device("bounce_shade", o)
     n = o.shape[0]
     atten, rad, keys = atten.contiguous(), rad.contiguous(), keys.contiguous()
@@ -209,6 +215,9 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                         ("live_packets", live_packets)):
         if count is not None:
             _build.check(name, count, (1,), torch.int32, dev)
+    if packet_flags is not None:
+        _build.check("packet_flags", packet_flags, (-(-n // PACKET_R),),
+                     torch.bool, dev)
     outs = (torch.empty((n, 3), dtype=torch.float32, device=dev),
             torch.empty((n, 3), dtype=torch.float32, device=dev),
             torch.empty((n, 3), dtype=torch.float32, device=dev),
@@ -220,6 +229,6 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                   0 if rr_start is None else int(rr_start),
                   *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
                   scene.mat_packed, scene.sky_a, scene.sky_b, *outs,
-                  survivors, live_packets, n)
+                  survivors, live_packets, packet_flags, n)
     _build.LAUNCHES["bounce_shade"] += 1
     return outs

@@ -8,6 +8,9 @@ moves the packets holding a live ray to the front, stably, keeps the
 first ``keep`` packets and writes the radiance of every other row home
 into rad_out (first-queue order) through its ``slot``. With keep = 0 it
 is the last commit: every row goes home and the queue comes back empty.
+On a card the packet order comes from the per-packet live flags that
+the bounce wrote (``bounce_shade``'s ``packet_flags``) and the live
+packet count the host read; the plain version computes it from alive.
 """
 
 from __future__ import annotations
@@ -54,16 +57,24 @@ def packet_compact_plain(q, rad_out, keep: int):
     return _head(q, k)
 
 
-def packet_compact(q, rad_out, keep: int):
+def packet_compact(q, rad_out, keep: int, packet_flags=None,
+                   live_pk=None):
     """Compact queue q, keep its first ``keep`` packets and commit the
     rest into rad_out (n0, 3), on q's device: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (or an error). Returns the
-    cut queue (fresh tensors on a card)."""
+    tensors (which orders the packets by q.alive and ignores the flags),
+    the CUDA kernel for CUDA tensors (or an error). With keep > 0 the
+    kernel needs packet_flags, (n / 128,) bool, packet p's flag set iff
+    it holds a live ray, and live_pk, the number of set flags; it never
+    reads alive in their place. Returns the cut queue (fresh tensors on
+    a card)."""
     if q.o.device.type == "cpu":
         return packet_compact_plain(q, rad_out, keep)
-    dev = _build.cuda_device("packet_compact", q.o)
     n = q.o.shape[0]
     pk = n // PACKET_R
+    if keep and (packet_flags is None or live_pk is None):
+        raise ValueError("packet_compact: keep > 0 needs packet_flags and "
+                         "live_pk on a card")
+    dev = _build.cuda_device("packet_compact", q.o)
     if n % PACKET_R or not 0 <= keep <= pk:
         raise ValueError(f"packet_compact: {n} rows, keep {keep} packets")
     for name in ("o", "d", "atten", "rad"):
@@ -74,8 +85,12 @@ def packet_compact(q, rad_out, keep: int):
     _build.check("slot", q.slot, (n,), torch.int64, dev)
     _build.check("rad_out", rad_out, (rad_out.shape[0], 3), torch.float32,
                  dev)
-    if q.alive.data_ptr() % 16:
-        raise ValueError("packet_compact: alive is not 16-byte aligned")
+    if keep:
+        _build.check("packet_flags", packet_flags, (pk,), torch.bool, dev)
+        if not 0 <= live_pk <= pk:
+            raise ValueError(f"packet_compact: {live_pk} live of {pk} "
+                             "packets")
+    _build.aligned("packet_compact", 16, *q, rad_out, packet_flags)
     k = keep * PACKET_R
     if keep:
         out = q._replace(
@@ -87,13 +102,11 @@ def packet_compact(q, rad_out, keep: int):
             key=torch.empty((3, k), dtype=torch.int64, device=dev),
             alive=torch.empty(k, dtype=torch.bool, device=dev),
             slot=torch.empty(k, dtype=torch.int64, device=dev))
-        dest = torch.empty(pk, dtype=torch.int32, device=dev)
-        outs = (out.o, out.d, out.atten, out.rad, out.pix, out.key,
-                out.alive, out.slot)
+        flags, outs = packet_flags, tuple(out)
     else:
         out = _head(q, 0)
-        dest, outs = None, (None,) * 8
-    _build.launch("tt_packet_compact", dev, q.o, q.d, q.atten, q.rad, q.pix,
-                  q.key, q.alive, q.slot, dest, rad_out, *outs, n, keep)
+        flags, outs, live_pk = None, (None,) * 8, 0
+    _build.launch("tt_packet_compact", dev, *q, flags, rad_out, *outs, n,
+                  keep, live_pk)
     _build.LAUNCHES["packet_compact"] += 1
     return out

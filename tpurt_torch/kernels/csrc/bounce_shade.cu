@@ -12,9 +12,11 @@
 // n, mat, hit, and the winner's gid, or its slot with tri_src to map it);
 // the scene's tri_shn rows (or null), mat_packed (M,16) and sky. Out: the
 // new o, d, atten, rad, alive and live_hit; survivors, if not null, gains
-// the number of rays alive after the bounce, and live_packets, if not
-// null, the number of 128-ray packets (rays 128p .. 128p + 127) holding
-// one (the wavefront queue's shrink reads both at once).
+// the number of rays alive after the bounce, live_packets, if not null,
+// the number of 128-ray packets (rays 128p .. 128p + 127) holding one
+// (the wavefront queue's shrink reads both at once), and packet_flags, if
+// not null, gets one byte a packet, 1 where it holds one (the order of
+// the shrink's packet_compact).
 //
 // tt_hit_shade is the same kernel stopped after the merge: trace.intersect
 // on a card (the Hit's t, n, front, mat, ok), for mode primary.
@@ -24,7 +26,8 @@
 // ~1,000 operations, issue-bound only if the card ran at its FMA rate
 // alone). Design: one thread per ray; the survivors are counted per block
 // by __syncthreads_count and added with one atomicAdd; a packet is live
-// if a ballot of any of its four warps is, flagged in shared memory.
+// if a ballot of any of its four warps is, flagged in shared memory; the
+// block writes its two packets' flags (a packet lies in one block).
 // The per-ray math is merge_hit and bounce_ray in shade_common.cuh.
 #include <cuda_runtime.h>
 
@@ -95,7 +98,8 @@ __global__ void bounce_shade_kernel(
     float* __restrict__ o_out, float* __restrict__ d_out,
     float* __restrict__ atten_out, float* __restrict__ rad_out,
     bool* __restrict__ alive_out, bool* __restrict__ live_hit_out,
-    int* __restrict__ survivors, int* __restrict__ live_packets, int n) {
+    int* __restrict__ survivors, int* __restrict__ live_packets,
+    bool* __restrict__ packet_flags, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool alive_new = false;
   if (i < n) {
@@ -123,7 +127,7 @@ __global__ void bounce_shade_kernel(
     const int c = __syncthreads_count(alive_new);
     if (threadIdx.x == 0 && c > 0) atomicAdd(survivors, c);
   }
-  if (live_packets != nullptr) {
+  if (live_packets != nullptr || packet_flags != nullptr) {
     __shared__ int packet_live[THREADS / PACKET_R];
     if (threadIdx.x < THREADS / PACKET_R) packet_live[threadIdx.x] = 0;
     __syncthreads();
@@ -131,11 +135,15 @@ __global__ void bounce_shade_kernel(
     if ((threadIdx.x & 31) == 0 && any != 0u)
       packet_live[threadIdx.x / PACKET_R] = 1;
     __syncthreads();
-    if (threadIdx.x == 0) {
+    if (live_packets != nullptr && threadIdx.x == 0) {
       int c = 0;
       for (int k = 0; k < THREADS / PACKET_R; ++k) c += packet_live[k];
       if (c > 0) atomicAdd(live_packets, c);
     }
+    const int p = blockIdx.x * (THREADS / PACKET_R) + threadIdx.x;
+    if (packet_flags != nullptr && threadIdx.x < THREADS / PACKET_R &&
+        p < (n + PACKET_R - 1) / PACKET_R)
+      packet_flags[p] = packet_live[threadIdx.x] != 0;
   }
 }
 
@@ -171,9 +179,10 @@ extern "C" int tt_hit_shade(const void* o, const void* d, const void* t_p,
   return (int)cudaGetLastError();
 }
 
-// depth_v (per-ray int64 depths), tri_src, tri_shn, survivors and
-// live_packets may be null; with depth_v null every ray is at bounce
-// `depth`. rr: 0 for no roulette, else roulette from depth rr_start on.
+// depth_v (per-ray int64 depths), tri_src, tri_shn, survivors,
+// live_packets and packet_flags ((n + 127) / 128 bytes) may be null; with
+// depth_v null every ray is at bounce `depth`. rr: 0 for no roulette,
+// else roulette from depth rr_start on.
 extern "C" int tt_bounce_shade(
     const void* o, const void* d, const void* atten, const void* rad,
     const void* alive, const void* keys, const void* depth_v, int depth,
@@ -182,8 +191,8 @@ extern "C" int tt_bounce_shade(
     const void* idx, const void* tri_src, const void* tri_shn,
     const void* mat_packed, const void* sky_a, const void* sky_b, void* o_out,
     void* d_out, void* atten_out, void* rad_out, void* alive_out,
-    void* live_hit_out, void* survivors, void* live_packets, int n,
-    void* stream) {
+    void* live_hit_out, void* survivors, void* live_packets,
+    void* packet_flags, int n, void* stream) {
   if (n > 0) {
     bounce_shade_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
                           (cudaStream_t)stream>>>(
@@ -194,7 +203,7 @@ extern "C" int tt_bounce_shade(
         (const float*)mat_packed, (const float*)sky_a, (const float*)sky_b,
         (float*)o_out, (float*)d_out, (float*)atten_out, (float*)rad_out,
         (bool*)alive_out, (bool*)live_hit_out, (int*)survivors,
-        (int*)live_packets, n);
+        (int*)live_packets, (bool*)packet_flags, n);
   }
   return (int)cudaGetLastError();
 }

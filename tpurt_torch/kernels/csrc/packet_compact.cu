@@ -7,68 +7,44 @@
 // TPU (plain version: kernels/compact.py::packet_compact_plain, eager
 // PyTorch). In: a queue of n = 128 * pk rays, eight fields (o, d, atten,
 // rad (n,3) f32; pix (n,) int32; key (3,n) int64; alive (n,) bool; slot
-// (n,) int64, the ray's row in the batch's first queue), the number of
+// (n,) int64, the ray's row in the batch's first queue), each packet's
+// live flag (pk,) bool as bounce_shade wrote it, the number of live
+// packets (the host's read of bounce_shade's count), the number of
 // packets to keep, and rad_out (n0,3) f32 in first-queue order. Out: the
 // first `keep` packets of the compacted queue (live packets first, each
 // group in its order; rays never leave their packet) in fresh fields of
 // 128 * keep rows, and rad_out[slot] = rad for every row past them.
 //
-// Two launches:
-//   1. packet_order (one block): each packet's live flag (any of its 128
-//      alive bytes, read 16 bytes at a time) and its stable destination,
-//      live packets at their rank among the live, dead ones after all
-//      live packets at their rank among the dead; block scans over
-//      chunks of 1,024 packets carry the counts across chunks.
-//   2. packet_move (one thread per row): a row whose packet lands below
-//      `keep` moves to its packet's destination in every field; any
-//      other row writes its radiance home at rad_out[slot].
-// keep = 0 skips launch 1: every row is written home (the last commit).
+// Bound on the H100: device-memory bytes. A kept packet reads and writes
+// 10,880 B (1,536 B each of o, d, atten and rad; 512 B of pix, 3 x 1,024
+// B of key, 128 B of alive, 1,024 B of slot), a dropped row reads 20 B
+// and writes 12.
 //
-// Bound on the H100: device-memory bytes (a kept row reads and writes 85
-// B, a dropped row reads 20 B and writes 12). Launch 1 reads n bytes on
-// one SM; it runs once per shrink.
+// Design: one launch. A block owns PACKETS consecutive packets, one warp
+// each. Packet p goes to (live flags before p) if it is live, else to
+// live_pk + (dead packets before p): the block counts the flags in front
+// of its first packet (at most pk bytes, 16 a thread, from L2; with
+// PACKETS = 16 a launch over 4,096 packets reads 512 KB of them) and
+// ranks its own by a ballot. A packet that lands below `keep` is copied
+// whole by its warp: every field of a packet is contiguous, so the warp
+// moves it in 16-byte loads and stores, all of a group of fields loaded
+// before any is stored. Any other packet writes its rows' radiance home
+// at rad_out[slot], row by row (slot may be any permutation). keep = 0
+// (the last commit) reads no flags: every packet goes home.
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
+#include <stdint.h>
 
 namespace {
 
 constexpr int PACKET_R = 128;
-constexpr int ORDER_THREADS = 1024;
-constexpr int MOVE_THREADS = 256;
-
-__global__ void __launch_bounds__(ORDER_THREADS)
-    packet_order_kernel(const bool* __restrict__ alive, int pk,
-                        int* __restrict__ dest) {
-  __shared__ int warp_sums[32];
-  int live_before = 0;  // live packets in the chunks before this one
-  for (int p0 = 0; p0 < pk; p0 += ORDER_THREADS) {
-    const int p = p0 + threadIdx.x;
-    int live = 0;
-    if (p < pk) {
-      const uint4* row = (const uint4*)(alive + (size_t)p * PACKET_R);
-#pragma unroll
-      for (int j = 0; j < PACKET_R / 16; ++j) {
-        const uint4 v = row[j];
-        live |= (v.x | v.y | v.z | v.w) != 0u;
-      }
-    }
-    int chunk_live;
-    const int rank = tt::block_exclusive_scan(live, warp_sums, chunk_live);
-    if (p < pk) {
-      // a dead packet keeps -1 - (dead packets before it) until the live
-      // total is known
-      const int live_rank = live_before + rank;
-      dest[p] = live ? live_rank : -1 - (p - live_rank);
-    }
-    live_before += chunk_live;
-  }
-  // each thread rereads only what it wrote itself
-  for (int p = threadIdx.x; p < pk; p += ORDER_THREADS) {
-    const int v = dest[p];
-    if (v < 0) dest[p] = live_before + (-1 - v);
-  }
-}
+constexpr int PACKETS = 16;               // packets of one block
+constexpr int THREADS = 32 * PACKETS;     // a warp a packet
+// a packet's 16-byte chunks in each field
+constexpr int V3_CHUNKS = PACKET_R * 12 / 16;    // o, d, atten, rad
+constexpr int PIX_CHUNKS = PACKET_R * 4 / 16;    // pix (int32)
+constexpr int I64_CHUNKS = PACKET_R * 8 / 16;    // a key row, slot
+constexpr int ALIVE_CHUNKS = PACKET_R / 16;      // alive (bool)
 
 struct Fields {
   const float* o;
@@ -92,55 +68,143 @@ struct OutFields {
   long long* slot;
 };
 
-__device__ __forceinline__ void copy3(const float* src, float* dst,
-                                      long long i, long long r) {
-  dst[3 * r] = src[3 * i];
-  dst[3 * r + 1] = src[3 * i + 1];
-  dst[3 * r + 2] = src[3 * i + 2];
+__host__ __device__ constexpr int per_lane(int chunks) {
+  return (chunks + 31) / 32;
 }
 
-__global__ void __launch_bounds__(MOVE_THREADS)
-    packet_move_kernel(Fields q, const int* __restrict__ dest, int n,
-                       int kept_rows, OutFields out,
-                       float* __restrict__ rad_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long r =
-      dest == nullptr ? (long long)kept_rows
-                      : (long long)dest[i / PACKET_R] * PACKET_R + i % PACKET_R;
-  if (r < kept_rows) {
-    copy3(q.o, out.o, i, r);
-    copy3(q.d, out.d, i, r);
-    copy3(q.atten, out.atten, i, r);
-    copy3(q.rad, out.rad, i, r);
-    out.pix[r] = q.pix[i];
-    out.key[r] = q.key[i];
-    out.key[kept_rows + r] = q.key[(long long)n + i];
-    out.key[2LL * kept_rows + r] = q.key[2LL * n + i];
-    out.alive[r] = q.alive[i];
-    out.slot[r] = q.slot[i];
-  } else {
-    copy3(q.rad, rad_out, i, q.slot[i]);
+// Lane `lane`'s chunks lane, lane + 32, ... of a packet field of N
+// 16-byte chunks at src, into v (read once: streaming loads).
+template <int N>
+__device__ __forceinline__ void load_field(const void* src, int lane,
+                                           uint4 (&v)[per_lane(N)]) {
+  const uint4* s = static_cast<const uint4*>(src);
+#pragma unroll
+  for (int k = 0; k < per_lane(N); ++k) {
+    const int j = lane + 32 * k;
+    if (N % 32 == 0 || j < N) v[k] = __ldcs(s + j);
   }
+}
+
+template <int N>
+__device__ __forceinline__ void store_field(void* dst, int lane,
+                                            const uint4 (&v)[per_lane(N)]) {
+  uint4* t = static_cast<uint4*>(dst);
+#pragma unroll
+  for (int k = 0; k < per_lane(N); ++k) {
+    const int j = lane + 32 * k;
+    if (N % 32 == 0 || j < N) __stcs(t + j, v[k]);
+  }
+}
+
+// Warp-wide copy of packet p of the queue (n rows) to packet dp of the
+// output (kept_rows rows).
+__device__ __forceinline__ void move_packet(const Fields& q,
+                                            const OutFields& out,
+                                            long long n, long long kept_rows,
+                                            long long p, long long dp,
+                                            int lane) {
+  const long long r = p * PACKET_R, t = dp * PACKET_R;
+  {
+    uint4 o[per_lane(V3_CHUNKS)], d[per_lane(V3_CHUNKS)];
+    uint4 a[per_lane(V3_CHUNKS)], e[per_lane(V3_CHUNKS)];
+    load_field<V3_CHUNKS>(q.o + 3 * r, lane, o);
+    load_field<V3_CHUNKS>(q.d + 3 * r, lane, d);
+    load_field<V3_CHUNKS>(q.atten + 3 * r, lane, a);
+    load_field<V3_CHUNKS>(q.rad + 3 * r, lane, e);
+    store_field<V3_CHUNKS>(out.o + 3 * t, lane, o);
+    store_field<V3_CHUNKS>(out.d + 3 * t, lane, d);
+    store_field<V3_CHUNKS>(out.atten + 3 * t, lane, a);
+    store_field<V3_CHUNKS>(out.rad + 3 * t, lane, e);
+  }
+  uint4 px[per_lane(PIX_CHUNKS)], al[per_lane(ALIVE_CHUNKS)];
+  uint4 k0[per_lane(I64_CHUNKS)], k1[per_lane(I64_CHUNKS)];
+  uint4 k2[per_lane(I64_CHUNKS)], sl[per_lane(I64_CHUNKS)];
+  load_field<PIX_CHUNKS>(q.pix + r, lane, px);
+  load_field<I64_CHUNKS>(q.key + r, lane, k0);
+  load_field<I64_CHUNKS>(q.key + n + r, lane, k1);
+  load_field<I64_CHUNKS>(q.key + 2 * n + r, lane, k2);
+  load_field<ALIVE_CHUNKS>(q.alive + r, lane, al);
+  load_field<I64_CHUNKS>(q.slot + r, lane, sl);
+  store_field<PIX_CHUNKS>(out.pix + t, lane, px);
+  store_field<I64_CHUNKS>(out.key + t, lane, k0);
+  store_field<I64_CHUNKS>(out.key + kept_rows + t, lane, k1);
+  store_field<I64_CHUNKS>(out.key + 2 * kept_rows + t, lane, k2);
+  store_field<ALIVE_CHUNKS>(out.alive + t, lane, al);
+  store_field<I64_CHUNKS>(out.slot + t, lane, sl);
+}
+
+// Warp-wide commit of packet p: rad_out[slot[r]] = rad[r] for its rows.
+__device__ __forceinline__ void commit_packet(const Fields& q,
+                                              float* __restrict__ rad_out,
+                                              long long p, int lane) {
+  constexpr int ROWS = PACKET_R / 32;
+  long long sl[ROWS];
+  float x[ROWS], y[ROWS], z[ROWS];
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const long long r = p * PACKET_R + lane + 32 * k;
+    sl[k] = __ldcs(q.slot + r);
+    x[k] = __ldcs(q.rad + 3 * r);
+    y[k] = __ldcs(q.rad + 3 * r + 1);
+    z[k] = __ldcs(q.rad + 3 * r + 2);
+  }
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    rad_out[3 * sl[k]] = x[k];
+    rad_out[3 * sl[k] + 1] = y[k];
+    rad_out[3 * sl[k] + 2] = z[k];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+    packet_compact_kernel(Fields q, const bool* __restrict__ flags, int pk,
+                          int live_pk, int keep, OutFields out,
+                          float* __restrict__ rad_out) {
+  __shared__ int warp_live[PACKETS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p0 = blockIdx.x * PACKETS;
+  const int p = p0 + warp;
+  int dest = keep;  // keep = 0: every packet goes home
+  if (keep > 0) {
+    // live flags in front of the block: p0 bytes, a multiple of 16, each
+    // 0 or 1, so a word's popcount is its live packets
+    int c = 0;
+    for (int j = threadIdx.x; j < p0 / 16; j += THREADS) {
+      const uint4 v = reinterpret_cast<const uint4*>(flags)[j];
+      c += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+    }
+    c = __reduce_add_sync(0xffffffffu, c);
+    if (lane == 0) warp_live[warp] = c;
+    const unsigned mine = __ballot_sync(
+        0xffffffffu, lane < PACKETS && p0 + lane < pk && flags[p0 + lane]);
+    __syncthreads();
+    int live_rank = __popc(mine & ((1u << warp) - 1u));
+#pragma unroll
+    for (int w = 0; w < PACKETS; ++w) live_rank += warp_live[w];
+    dest = (mine >> warp & 1u) ? live_rank : live_pk + (p - live_rank);
+  }
+  if (p >= pk) return;
+  if (dest < keep)
+    move_packet(q, out, (long long)pk * PACKET_R, (long long)keep * PACKET_R,
+                p, dest, lane);
+  else
+    commit_packet(q, rad_out, p, lane);
 }
 
 }  // namespace
 
-// n rows (a multiple of 128, alive 16-byte aligned), keep packets kept
-// (0: every row goes home, and dest and the eight outputs may be null);
-// dest is (n / 128,) int32 scratch.
+// n rows (a multiple of 128; every pointer 16-byte aligned), keep
+// packets kept. keep > 0: flags (n / 128,) bool and live_pk, the number
+// of set flags. keep = 0: every row goes home; flags and the eight
+// outputs may be null.
 extern "C" int tt_packet_compact(
     const void* o, const void* d, const void* atten, const void* rad,
     const void* pix, const void* key, const void* alive, const void* slot,
-    void* dest, void* rad_out, void* o2, void* d2, void* atten2, void* rad2,
-    void* pix2, void* key2, void* alive2, void* slot2, int n, int keep,
-    void* stream) {
+    const void* flags, void* rad_out, void* o2, void* d2, void* atten2,
+    void* rad2, void* pix2, void* key2, void* alive2, void* slot2, int n,
+    int keep, int live_pk, void* stream) {
   if (n > 0) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (keep > 0) {
-      packet_order_kernel<<<1, ORDER_THREADS, 0, s>>>(
-          (const bool*)alive, n / PACKET_R, (int*)dest);
-    }
+    const int pk = n / PACKET_R;
     const Fields q{(const float*)o,   (const float*)d,
                    (const float*)atten, (const float*)rad,
                    (const int*)pix,   (const long long*)key,
@@ -148,10 +212,9 @@ extern "C" int tt_packet_compact(
     const OutFields out{(float*)o2,    (float*)d2,     (float*)atten2,
                         (float*)rad2,  (int*)pix2,     (long long*)key2,
                         (bool*)alive2, (long long*)slot2};
-    packet_move_kernel<<<(n + MOVE_THREADS - 1) / MOVE_THREADS,
-                         MOVE_THREADS, 0, s>>>(
-        q, keep > 0 ? (const int*)dest : nullptr, n, keep * PACKET_R, out,
-        (float*)rad_out);
+    packet_compact_kernel<<<(pk + PACKETS - 1) / PACKETS, THREADS, 0,
+                            (cudaStream_t)stream>>>(
+        q, (const bool*)flags, pk, live_pk, keep, out, (float*)rad_out);
   }
   return (int)cudaGetLastError();
 }

@@ -24,29 +24,84 @@
 // from tt::primary_ray (the camera_rays kernel's code), atten 1, rad 0,
 // depth 0, alive.
 //
-// Two launches a step, over blocks of SLOTS slots:
-//   1. refill_mark: the depth step and cut, in place; each block's count
-//      of dead slots into block_dead; block 0 copies the counter into
-//      counter_prev.
-//   2. refill_apply: a block adds the dead counts of the blocks before it
-//      to counter_prev (one pass over block totals), then ranks its own
-//      dead slots with block scans, in slot order, and refills; the last
-//      block writes the new counter (no block of this launch reads it).
-// commit_only: one launch, film[pix[s]] += rad[s] for every slot.
+// Bound on the H100: device-memory bytes (every slot reads live_hit,
+// alive and depth and writes alive; a slot that hit writes its depth; a
+// refilled slot reads ~40 B and writes ~110 B, with two threefry calls
+// and the camera math).
 //
-// Bound on the H100: device-memory bytes (a refilled slot reads ~60 B and
-// writes ~90 B, two threefry calls and the camera math; a slot that keeps
-// its ray reads and writes ~20 B).
+// Design: one launch a step, blocks of 256 threads that own SLOTS = 1,024
+// slots, four a thread (c4's 524,288 slots: 512 blocks, four on each SM,
+// one wave). A block takes a ticket from an atomic counter as its id, so
+// it only ever waits on blocks that are running or done. Inside a warp, a
+// dead slot's rank is __popc(ballot & lanemask_lt); warp totals are
+// summed once in shared memory. The device-wide rank is a single-pass
+// scan with decoupled look-back (Merrill & Garland, 2016): block b
+// publishes its dead count (status AGG), then warp 0 reads 32
+// predecessors' words at a time, adding their counts back to the nearest
+// inclusive prefix (status PREFIX), and publishes its own prefix. Words
+// carry the step's tag (ticket / blocks + 1), so one scan state serves
+// every step of a trace_persistent call without a reset; the first ticket
+// of a step seeds the scan with the counter, and the last writes the new
+// counter. The block lists its dead slots in shared memory in slot order;
+// its threads then take the refills in turn, so a warp runs primary_ray
+// on 32 refills, not on the few dead lanes it happens to hold. Two block
+// barriers a step (three with the ticket's).
+// commit_only: one launch, film[pix[s]] += rad[s] for every slot.
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
 #include "shade_common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int PER_THREAD = 8;
-constexpr int SLOTS = THREADS * PER_THREAD;  // slots of one block
+constexpr int WARPS = THREADS / 32;
+constexpr int PER_THREAD = 4;                  // slots of one thread
+constexpr int SLOTS = THREADS * PER_THREAD;    // slots of one block
+constexpr int MIN_BLOCKS = 4;  // resident blocks an SM, 64 registers a
+                               // thread: c4's 512 blocks in one wave
+constexpr unsigned FULL = 0xffffffffu;
+
+// A look-back word: the step's tag (30 bits), the status (2 bits) and the
+// value (32 bits: a dead count, or counter + dead slots up to here,
+// below 2^32 as total < 2^31 and cap < 2^31).
+constexpr unsigned long long STATUS_AGG = 1, STATUS_PREFIX = 2;
+constexpr unsigned long long TAG_MASK = (1ull << 30) - 1;
+
+using Word = cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>;
+
+__device__ __forceinline__ void publish(unsigned long long* w,
+                                        unsigned long long tag,
+                                        unsigned long long status,
+                                        unsigned long long value) {
+  Word(*w).store((tag << 34) | (status << 32) | (value & 0xffffffffull),
+                 cuda::std::memory_order_release);
+}
+
+// Warp 0 of block b (b > 0): counter + the dead slots of blocks 0 .. b-1.
+__device__ unsigned long long look_back(unsigned long long* words, int b,
+                                        unsigned long long tag, int lane) {
+  unsigned long long sum = 0;
+  for (int j = b - 1;; j -= 32) {
+    const int q = j - lane;  // lane 0 reads the nearest predecessor
+    unsigned long long w = 0, status = STATUS_PREFIX;  // none before 0
+    for (;;) {
+      if (q >= 0) {
+        w = Word(words[q]).load(cuda::std::memory_order_acquire);
+        status = (w >> 34) == tag ? (w >> 32) & 3u : 0u;
+      }
+      if (__all_sync(FULL, status != 0)) break;
+      __nanosleep(32);
+    }
+    const unsigned prefix = __ballot_sync(FULL, status == STATUS_PREFIX);
+    const int stop = prefix ? __ffs(prefix) - 1 : 31;
+    unsigned long long v = lane <= stop ? (w & 0xffffffffull) : 0ull;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+    sum += v;
+    if (prefix) return sum;
+  }
+}
 
 struct Pool {
   bool* alive;
@@ -70,86 +125,125 @@ struct Frame {
   tt::Cam cam;
 };
 
-__global__ void __launch_bounds__(THREADS)
-    refill_mark_kernel(const bool* __restrict__ live_hit, Pool p,
-                       int max_depth, const long long* __restrict__ counter,
-                       long long* __restrict__ counter_prev,
-                       int* __restrict__ block_dead) {
-  int dead = 0;
+// scan: [0] the ticket counter, [1 + b] block b's look-back word; zeroed
+// once, then kept across the steps of a pool (all of `blocks` blocks).
+// Thread x of block b owns slots b * SLOTS + k * THREADS + x, k <
+// PER_THREAD; slot order is block, then k, then warp, then lane.
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    persist_refill_kernel(const bool* __restrict__ live_hit, Pool p,
+                          int max_depth, Frame f, float* __restrict__ film,
+                          long long* __restrict__ counter,
+                          unsigned long long* __restrict__ scan, int blocks,
+                          int* __restrict__ live_out) {
+  __shared__ unsigned long long ticket_s, excl_s;
+  __shared__ int warp_dead[PER_THREAD][WARPS];
+  __shared__ int dead_slot[SLOTS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) ticket_s = atomicAdd(scan, 1ull);
+  __syncthreads();
+  const unsigned long long ticket = ticket_s;
+  const int b = (int)(ticket % (unsigned)blocks);
+  const unsigned long long tag = (ticket / (unsigned)blocks + 1) & TAG_MASK;
+  unsigned long long* words = scan + 1;
+  const int s0 = b * SLOTS + threadIdx.x;
+
+  // the depth step and cut; each warp's dead slots by ballot
+  bool hit[PER_THREAD], keeps[PER_THREAD], dead[PER_THREAD];
+  long long dep[PER_THREAD];
+  unsigned mask[PER_THREAD];
 #pragma unroll
   for (int k = 0; k < PER_THREAD; ++k) {
-    const int s = blockIdx.x * SLOTS + k * THREADS + threadIdx.x;
-    int is_dead = 0;
+    const int s = s0 + k * THREADS;
+    hit[k] = keeps[k] = false;
+    dep[k] = 0;
     if (s < p.cap) {
-      long long dep = p.depth[s];
-      if (live_hit[s]) {
-        dep += 1;
-        p.depth[s] = dep;
-      }
-      const bool a = p.alive[s] && dep < max_depth;
-      p.alive[s] = a;
-      is_dead = !a;
+      hit[k] = live_hit[s];
+      dep[k] = p.depth[s] + (hit[k] ? 1 : 0);
+      keeps[k] = p.alive[s] && dep[k] < max_depth;
     }
-    dead += __syncthreads_count(is_dead);
+    dead[k] = s < p.cap && !keeps[k];
+    mask[k] = __ballot_sync(FULL, dead[k]);
+    if (lane == 0) warp_dead[k][warp] = __popc(mask[k]);
   }
-  if (threadIdx.x == 0) {
-    block_dead[blockIdx.x] = dead;
-    if (blockIdx.x == 0) *counter_prev = *counter;
-  }
-}
+  __syncthreads();
 
-__global__ void __launch_bounds__(THREADS)
-    refill_apply_kernel(Pool p, Frame f, float* __restrict__ film,
-                        const int* __restrict__ block_dead,
-                        const long long* __restrict__ counter_prev,
-                        long long* __restrict__ counter,
-                        int* __restrict__ live_out) {
-  __shared__ int warp_sums[32];
-  int before = 0;
-  for (int b = threadIdx.x; b < (int)blockIdx.x; b += THREADS)
-    before += block_dead[b];
-  int dead_before;
-  tt::block_exclusive_scan(before, warp_sums, dead_before);
-  const long long counter0 = *counter_prev;
-  long long next = counter0 + dead_before;  // the rank of the next dead slot
-  int alive_after = 0;
+  // the dead slots' rank in the block (listed in slot order), its count
+  int rank[PER_THREAD], agg = 0;
+#pragma unroll
   for (int k = 0; k < PER_THREAD; ++k) {
-    const int s = blockIdx.x * SLOTS + k * THREADS + threadIdx.x;
-    const bool in = s < p.cap;
-    const bool dead = in && !p.alive[s];
-    int chunk_dead;
-    const long long r =
-        next + tt::block_exclusive_scan(dead, warp_sums, chunk_dead);
-    next += chunk_dead;
-    const bool refill = dead && r < f.total;
-    if (refill) {
-      const size_t k3 = 3 * (size_t)s;
-      const long long old = p.pix[s];
-      atomicAdd(film + 3 * old, p.rad[k3]);
-      atomicAdd(film + 3 * old + 1, p.rad[k3 + 1]);
-      atomicAdd(film + 3 * old + 2, p.rad[k3 + 2]);
-      const long long pix = f.pixel_table[r % f.npix_chunk];
-      const long long smp = f.sample_lo + r / f.npix_chunk;
-      tt::V3 ro, rd;
-      tt::primary_ray(f.cam, f.width, f.height, f.seed, pix, smp, ro, rd);
-      tt::store3(p.o + k3, ro);
-      tt::store3(p.d + k3, rd);
-      tt::store3(p.atten + k3, tt::v3(1.0f, 1.0f, 1.0f));
-      tt::store3(p.rad + k3, tt::v3(0.0f, 0.0f, 0.0f));
-      p.pix[s] = pix;
-      p.streams[s] = (uint32_t)(unsigned long long)pix;
-      p.streams[(size_t)p.cap + s] = (uint32_t)(unsigned long long)smp;
-      p.streams[2 * (size_t)p.cap + s] = f.seed;
+    rank[k] = agg + __popc(mask[k] & ((1u << lane) - 1u));
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      rank[k] += w < warp ? warp_dead[k][w] : 0;
+      agg += warp_dead[k][w];
+    }
+    if (dead[k]) dead_slot[rank[k]] = s0 + k * THREADS;
+  }
+
+  // the block's first rank: counter + the dead slots of blocks before it
+  if (warp == 0) {
+    unsigned long long excl;
+    if (b == 0) {
+      excl = (unsigned long long)*counter;
+    } else {
+      if (lane == 0) publish(words + b, tag, STATUS_AGG, agg);
+      excl = look_back(words, b, tag, lane);
+    }
+    if (lane == 0) {
+      publish(words + b, tag, STATUS_PREFIX, excl + agg);
+      excl_s = excl;
+    }
+  }
+  __syncthreads();
+  const long long excl = (long long)excl_s;
+  const long long room = f.total - excl;
+  const int refills = room <= 0 ? 0 : room < agg ? (int)room : agg;
+
+#pragma unroll
+  for (int k = 0; k < PER_THREAD; ++k) {
+    const int s = s0 + k * THREADS;
+    if (s >= p.cap) continue;
+    if (dead[k] && rank[k] < refills) {
       p.depth[s] = 0;
       p.alive[s] = true;
+    } else {
+      if (hit[k]) p.depth[s] = dep[k];
+      p.alive[s] = keeps[k];
     }
-    alive_after += __syncthreads_count(in && (refill || !dead));
+  }
+  // thread x refills the block's dead slots x, x + THREADS, ... of its
+  // list, dead slot i with ray excl + i
+  for (int i = threadIdx.x; i < refills; i += THREADS) {
+    const int t = dead_slot[i];
+    const long long r = excl + i;
+    const size_t k3 = 3 * (size_t)t;
+    const long long old = p.pix[t];
+    atomicAdd(film + 3 * old, p.rad[k3]);
+    atomicAdd(film + 3 * old + 1, p.rad[k3 + 1]);
+    atomicAdd(film + 3 * old + 2, p.rad[k3 + 2]);
+    const long long pix = f.pixel_table[r % f.npix_chunk];
+    const long long smp = f.sample_lo + r / f.npix_chunk;
+    tt::V3 ro, rd;
+    tt::primary_ray(f.cam, f.width, f.height, f.seed, pix, smp, ro, rd);
+    tt::store3(p.o + k3, ro);
+    tt::store3(p.d + k3, rd);
+    tt::store3(p.atten + k3, tt::v3(1.0f, 1.0f, 1.0f));
+    tt::store3(p.rad + k3, tt::v3(0.0f, 0.0f, 0.0f));
+    p.pix[t] = pix;
+    p.streams[t] = (uint32_t)(unsigned long long)pix;
+    p.streams[(size_t)p.cap + t] = (uint32_t)(unsigned long long)smp;
+    p.streams[2 * (size_t)p.cap + t] = f.seed;
   }
   if (threadIdx.x == 0) {
+    const int n_in = p.cap - b * SLOTS < SLOTS ? p.cap - b * SLOTS : SLOTS;
+    const int alive_after = n_in - agg + refills;
     if (alive_after > 0) atomicAdd(live_out, alive_after);
-    if (blockIdx.x == gridDim.x - 1) {
-      // ranks counter0 .. next - 1 went to the dead slots; those below
-      // total took a ray
+    if (b == blocks - 1) {
+      // ranks counter0 .. excl + agg - 1 went to the dead slots; those
+      // below total took a ray (no other block reads or writes the
+      // counter once block 0 has read it, which this prefix waited on)
+      const long long counter0 = *counter;
+      const long long next = excl + agg;
       const long long cut = f.total > counter0 ? f.total : counter0;
       *counter = next < cut ? next : cut;
     }
@@ -171,19 +265,20 @@ __global__ void film_commit_kernel(const long long* __restrict__ pix,
 
 // The pool's state (live_hit, alive, depth, o, d, atten, rad, pix,
 // streams) over cap slots, the film, the pixel table of npix_chunk ids;
-// counter (1,) int64, counter_prev (1,) int64 and block_dead
-// (ceil(cap / 2048),) int32 scratch; live_out (1,) int32. commit_only:
-// only film[pix] += rad, every other pointer but pix, rad and film may be
-// null. cam: the camera's 18 float32 bit patterns (as tt_camera_rays).
+// counter (1,) int64; scan (1 + ceil(cap / 1024),) uint64, zeroed before
+// a pool's first step and kept across its steps; live_out (1,) int32.
+// commit_only: only film[pix] += rad, every other pointer but pix, rad
+// and film may be null. cam: the camera's 18 float32 bit patterns (as
+// tt_camera_rays).
 extern "C" int tt_persist_refill(
     const void* live_hit, void* alive, void* depth, void* o, void* d,
     void* atten, void* rad, void* pix, void* streams, void* film,
-    const void* pixel_table, void* counter, void* counter_prev,
-    void* block_dead, void* live_out, int cap, int npix_chunk, int total,
-    int sample_lo, int seed, int width, int height, int max_depth,
-    int commit_only, int c0, int c1, int c2, int c3, int c4, int c5, int c6,
-    int c7, int c8, int c9, int c10, int c11, int c12, int c13, int c14,
-    int c15, int c16, int c17, void* stream) {
+    const void* pixel_table, void* counter, void* scan, void* live_out,
+    int cap, int npix_chunk, int total, int sample_lo, int seed, int width,
+    int height, int max_depth, int commit_only, int c0, int c1, int c2,
+    int c3, int c4, int c5, int c6, int c7, int c8, int c9, int c10,
+    int c11, int c12, int c13, int c14, int c15, int c16, int c17,
+    void* stream) {
   if (cap <= 0) return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
   if (commit_only) {
@@ -199,11 +294,9 @@ extern "C" int tt_persist_refill(
   const Frame f{(const long long*)pixel_table, npix_chunk, total, sample_lo,
                 (uint32_t)seed, width, height, tt::cam_from_bits(bits)};
   const int blocks = (cap + SLOTS - 1) / SLOTS;
-  refill_mark_kernel<<<blocks, THREADS, 0, st>>>(
-      (const bool*)live_hit, p, max_depth, (const long long*)counter,
-      (long long*)counter_prev, (int*)block_dead);
-  refill_apply_kernel<<<blocks, THREADS, 0, st>>>(
-      p, f, (float*)film, (const int*)block_dead,
-      (const long long*)counter_prev, (long long*)counter, (int*)live_out);
+  persist_refill_kernel<<<blocks, THREADS, 0, st>>>(
+      (const bool*)live_hit, p, max_depth, f, (float*)film,
+      (long long*)counter, (unsigned long long*)scan, blocks,
+      (int*)live_out);
   return (int)cudaGetLastError();
 }

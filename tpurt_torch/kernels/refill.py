@@ -9,6 +9,9 @@ rays remain, each first adding its finished ray's radiance into the film.
 Every slot of the pool is updated in place; the step adds the number of
 slots alive after it into a (1,) int32 ``live`` tensor, which the loop
 reads once (its only host read) and which is the next step's live count.
+On a card a step is one kernel launch whose device-wide rank of the
+dead slots is a single-pass scan; its state (``scan_state``) is zeroed
+once per pool and kept across the pool's steps.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from . import _build
 from . import camera as camera_k
 
-SLOTS = 2048   # slots of one block of the refill kernels (SLOTS in the .cu)
+SLOTS = 1024  # slots of one block of the refill kernel (SLOTS in the .cu)
 
 
 class Frame(NamedTuple):
@@ -70,22 +73,37 @@ def persist_refill_plain(frame: Frame, film, o, d, atten, rad, alive,
     live += alive.sum(dtype=torch.int32)
 
 
+def scan_state(cap: int, device):
+    """The refill kernel's scan state for a pool of cap slots: a ticket
+    counter and one look-back word per block of SLOTS slots, zeroed.
+    Allocate it once per pool and pass it to every step: its words carry
+    the step's tag, so it needs no reset between steps."""
+    return torch.zeros(1 + -(-cap // SLOTS), dtype=torch.int64,
+                       device=device)
+
+
 def persist_commit_plain(film, pix, rad):
     """Plain PyTorch version of the last commit: film[pix] += rad."""
     film.index_add_(0, pix, rad)
 
 
 def persist_refill(frame: Frame, film, o, d, atten, rad, alive, live_hit,
-                   depth, pix, streams, counter, live):
+                   depth, pix, streams, counter, live, scan=None):
     """One regeneration step on the pool's device, as
-    ``persist_refill_plain``: the plain version for CPU tensors, the CUDA
-    kernel (two launches) for CUDA tensors (or an error)."""
+    ``persist_refill_plain``: the plain version for CPU tensors (which
+    needs no scan state), the CUDA kernel (one launch) for CUDA tensors
+    (or an error). On a card ``scan`` is required: the pool's
+    ``scan_state``, the same tensor for every step of the pool."""
     if o.device.type == "cpu":
         return persist_refill_plain(frame, film, o, d, atten, rad, alive,
                                     live_hit, depth, pix, streams, counter,
                                     live)
+    if scan is None:
+        raise ValueError("persist_refill: a card needs the pool's "
+                         "scan_state")
     dev = _build.cuda_device("persist_refill", o)
     cap = o.shape[0]
+    _build.check("scan", scan, (1 + -(-cap // SLOTS),), torch.int64, dev)
     _build.check("film", film, (film.shape[0], 3), torch.float32, dev)
     for name, a in (("o", o), ("d", d), ("atten", atten), ("rad", rad)):
         _build.check(name, a, (cap, 3), torch.float32, dev)
@@ -101,11 +119,9 @@ def persist_refill(frame: Frame, film, o, d, atten, rad, alive, live_hit,
     if not 0 <= frame.total < 2 ** 31 or frame.sample_lo >= 2 ** 31:
         raise ValueError(f"persist_refill: total {frame.total} or sample_lo "
                          f"{frame.sample_lo} outside int32")
-    prev = torch.empty(1, dtype=torch.int64, device=dev)
-    block_dead = torch.empty(-(-cap // SLOTS), dtype=torch.int32, device=dev)
     _build.launch("tt_persist_refill", dev, live_hit, alive, depth, o, d,
-                  atten, rad, pix, streams, film, table, counter, prev,
-                  block_dead, live, cap, table.shape[0], frame.total,
+                  atten, rad, pix, streams, film, table, counter, scan,
+                  live, cap, table.shape[0], frame.total,
                   frame.sample_lo, camera_k.as_i32(frame.seed), frame.width,
                   frame.height, frame.max_depth, 0,
                   *camera_k.cam_bits(frame.cam))
@@ -125,6 +141,6 @@ def persist_commit(film, pix, rad):
     _build.check("rad", rad, (cap, 3), torch.float32, dev)
     _build.check("pix", pix, (cap,), torch.int64, dev)
     _build.launch("tt_persist_refill", dev, None, None, None, None, None,
-                  None, rad, pix, None, film, None, None, None, None, None,
+                  None, rad, pix, None, film, None, None, None, None,
                   cap, 1, 0, 0, 0, 0, 0, 0, 1, *([0] * 18))
     _build.LAUNCHES["persist_refill"] += 1

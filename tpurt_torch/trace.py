@@ -69,21 +69,22 @@ def intersect(scene, o, d, t_cap=None) -> Hit:
 
 
 def bounce(scene, o, d, atten, rad, alive, keys, depth, rr_start,
-           survivors=None, live_packets=None):
+           survivors=None, live_packets=None, packet_flags=None):
     """One bounce of N rays: intersect (dead lanes get the window 0), sky
     or emission into rad, scatter, then Russian roulette from depth
     rr_start on. depth is the bounce index, an int or (N,) tensor of
     per-ray depths (the persistent tracer's). Returns (o, d, atten, rad,
     alive, live_hit), live_hit marking live rays that hit a surface; a
     (1,) int32 ``survivors`` tensor, if given, gains the rays alive
-    after the bounce, and a (1,) int32 ``live_packets`` tensor the
-    128-ray packets that hold one."""
+    after the bounce, a (1,) int32 ``live_packets`` tensor the 128-ray
+    packets that hold one, and a (ceil(N / 128),) bool ``packet_flags``
+    tensor is set to which packets hold one."""
     o, d = o.contiguous(), d.contiguous()
     prim = prims.prims_nearest(scene, o, d, alive=alive)
     tri = search(scene, o, d, prim[0])
     return bounce_k.bounce_shade(scene, o, d, atten, rad, alive, keys,
                                  depth, rr_start, prim, tri, survivors,
-                                 live_packets)
+                                 live_packets, packet_flags)
 
 
 def trace(scene, o, d, keys, max_depth: int,

@@ -5,18 +5,21 @@ persistent fixed-capacity pool (port of tpurt/wavefront.py).
 bounce and one 8-byte host read per bounce (live rays and live
 packets), and shrinks the queue as rays die: when the packets that still
 hold a live ray fit a smaller power of two (8 packets at least), one
-``kernels.compact.packet_compact`` call moves live packets to the front,
-drops the dead tail and commits its radiance home through the queue's
-``slot``. It keeps the contract of tpurt's ``trace_chunk_staged``:
+``kernels.compact.packet_compact`` call (one kernel launch on a card)
+moves live packets to the front, in the order of the per-packet live
+flags that the bounce wrote, drops the dead tail and commits its
+radiance home through the queue's ``slot``. It keeps the contract of tpurt's ``trace_chunk_staged``:
 radiance back in input queue order, rays_cast, and the live count after
 each bounce. tpurt's stage ladder and one-dispatch staging were shaped
 by XLA; images do not depend on the shrink rule, because every draw is
 keyed by (seed, pixel, sample, bounce).
 
 ``trace_persistent`` keeps tpurt's regeneration rule exactly
-(``kernels.refill.persist_refill``): dead slots take the next rays off a
-global counter in slot order, so its iteration count and occupancy equal
-tpurt's. It reads the host once per iteration (4 bytes).
+(``kernels.refill.persist_refill``, one kernel launch a step on a card,
+its scan state allocated once per call): dead slots take the next rays
+off a global counter in slot order, so its iteration count and
+occupancy equal tpurt's. It reads the host once per iteration (4
+bytes).
 
 Not ported: ``trace_static``, tpurt's fixed-size queue for ``mesh``
 (``shard_map`` needs one shape on every chip; a rank of the port's mesh
@@ -69,15 +72,19 @@ def make_queue(o, d, pix, keys, alive=None) -> Queue:
     )
 
 
-def step(scene, q: Queue, bounce: int, rr_start, counts) -> Queue:
+def step(scene, q: Queue, bounce: int, rr_start, counts,
+         packet_flags=None) -> Queue:
     """One wavefront bounce over the queue: intersect, emission / sky,
     scatter, Russian roulette, then the live mask. Radiance stays in the
     queue. counts (2,) int32 gains the rays alive after the bounce and
     the packets holding one (the rays cast by the next bounce, and the
-    shrink's count); the caller reads both at once."""
+    shrink's count); the caller reads both at once. packet_flags
+    (N / 128,) bool, if given, is set to which packets hold a live ray
+    (the shrink's packet order)."""
     o, d, atten, rad, alive, _ = trace.bounce(
         scene, q.o, q.d, q.atten, q.rad, q.alive, q.key, bounce, rr_start,
-        survivors=counts[0:1], live_packets=counts[1:2])
+        survivors=counts[0:1], live_packets=counts[1:2],
+        packet_flags=packet_flags)
     return q._replace(o=o, d=d, atten=atten, rad=rad, alive=alive)
 
 
@@ -97,9 +104,12 @@ def trace_chunk(scene, queue: Queue, max_depth: int, rr_start):
     the live count after bounce b, 0 after extinction).
 
     The host reads the device once per bounce: the 8-byte (live rays,
-    live packets) pair that the bounce counts up. A shrink is one
-    ``packet_compact`` call, which also writes the dropped rows'
-    radiance home; rays_cast sums the live counts on the device."""
+    live packets) pair that the bounce counts up. The bounce also flags
+    each packet that holds a live ray, into one flag buffer per chunk
+    (its first N / 128 bytes for a queue of N rays). A shrink is one
+    ``packet_compact`` call, which orders the packets by those flags
+    and the count just read, and writes the dropped rows' radiance
+    home; rays_cast sums the live counts on the device."""
     n = queue.o.shape[0]
     if n % PACKET_R:
         raise ValueError(f"queue of {n} rays is not packet-aligned")
@@ -109,22 +119,24 @@ def trace_chunk(scene, queue: Queue, max_depth: int, rr_start):
     # (live rays, live packets) after bounce b
     counts = torch.zeros((max_depth + 1, 2), dtype=torch.int32, device=dev)
     counts[0, 0] = queue.alive.sum(dtype=torch.int32)
+    flags = torch.empty(n // PACKET_R, dtype=torch.bool, device=dev)
     hist = [0] * max_depth
     q = queue
     done = 0
     for b in range(max_depth):
-        q = step(scene, q, b, rr_start, counts[b + 1])
+        pk = q.o.shape[0] // PACKET_R
+        q = step(scene, q, b, rr_start, counts[b + 1], flags[:pk])
         done += 1
         live_rays, live_pk = counts[b + 1].tolist()
         hist[b] = live_rays
         if live_pk == 0:
             break
-        pk = q.o.shape[0] // PACKET_R
         keep = _shrink_target(live_pk, pk)
         if keep < pk:
             # rows past the live packets are dead: their radiance is
             # final, so it goes home now and the rows are dropped
-            q = compact.packet_compact(q, rad_out, keep)
+            q = compact.packet_compact(q, rad_out, keep, flags[:pk],
+                                       live_pk)
     compact.packet_compact(q, rad_out, 0)
     return rad_out, counts[:done, 0].sum(dtype=torch.int64), hist
 
@@ -159,6 +171,7 @@ def trace_persistent(scene, cam, film, pixel_table, sample_lo: int,
     depth = torch.zeros(capacity, dtype=torch.int64, device=dev)
     counter = torch.full((1,), min(capacity, total), dtype=torch.int64,
                          device=dev)
+    scan = refill_k.scan_state(capacity, dev)
     n_alive = min(capacity, total)
     nrays = iters = 0
     while n_alive:
@@ -171,7 +184,8 @@ def trace_persistent(scene, cam, film, pixel_table, sample_lo: int,
         o, d, atten, rad, alive, live_hit = trace.bounce(
             scene, o, d, atten, rad, alive, streams, depth, rr_start)
         refill_k.persist_refill(frame, film, o, d, atten, rad, alive,
-                                live_hit, depth, pix, streams, counter, slot)
+                                live_hit, depth, pix, streams, counter, slot,
+                                scan)
         n_alive = int(slot)
 
     # every slot's last occupant commits here
