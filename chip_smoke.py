@@ -35,7 +35,7 @@ exits non-zero and prints no result):
                  timed on the probe's inputs at each T; then the probe's
                  path (python -m tpurt_torch.probe_vmemloop),
                  ns_per_packet_step per T
-  5. fused     — (in a fresh child process, as are 6 and 19: once a
+  5. fused     — (in a fresh child process, as are 6, 8 and 20: once a
                  profile of a process has overflowed torch.profiler's
                  buffer, its later profiles lose records) every call of
                  camera_rays, prims_nearest and
@@ -43,9 +43,14 @@ exits non-zero and prints no result):
                  alone) in 1-spp renders of c3, c2, c4, c4 persist, g5, the
                  smooth icosphere fixture, a lens camera and c1, each
                  array-equal to its plain version on the same inputs (NaN
-                 equal to NaN); then the three timed on the c3 render's own
-                 inputs, each with its bound
-  6. frame     — every film_fold, packet_compact and persist_refill call
+                 equal to NaN), the mega renders through the host loop
+                 (host_loop=True), whose calls a wrapper sees; then the
+                 three timed on the c3 render's own inputs as the frame
+                 graph runs them, each with its bound: the camera at the
+                 cursor (array-equal to the per-call entry's rays), the
+                 bounce in place with its depth on the card
+  6. frame     — (mega through the host loop) every film_fold,
+                 packet_compact and persist_refill call
                  (and persist_commit, the refill kernel's commit-only
                  launch) in renders of c3 and c4 at 1 spp, c4 in mode
                  persist at PERSIST_SPP, g3 and g5 in mode wavefront and
@@ -59,57 +64,75 @@ exits non-zero and prints no result):
                  REFILL_POOLS pools (a ragged cap, every slot dying,
                  total running out inside a warp); then the three timed
                  on c3 / c4 traffic, each with its bound, its device time
-                 by kernel and one CUDA kernel a call, and film_fold
+                 by kernel and one CUDA kernel a call (film_fold at the
+                 cursor, as the frame graph folds, checked also at a
+                 ragged last block and into a part), and film_fold
                  beside the library call FOLD_LIBRARY
   7. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
                  1, none by more than 8), and g2..g5 again in modes
                  wavefront and persist with the megakernel's ray count
-  8. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
+  8. graph     — every mega render path through the frame graph and
+                 through the host loop (c3 at 4 spp, c2 at 8, c5 by tiles
+                 and by spp, g2..g5 unsharded and sharded, c3 through
+                 checkpoints unsharded and by tiles): films array-equal,
+                 rays PHASE_RAYS and the goldens', launches counted by
+                 execution equal to the host loop's, capture and
+                 instantiate seconds apart from the walls; then
+                 frame_graph.cu's kernels against their plain versions,
+                 the condition timed with its bound
+  9. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
-  9. c1-primary — 640x480 at 1 spp (its own size and spp), then through
+ 10. c1-primary — 640x480 at 1 spp (its own size and spp), then through
                  --oracle: the same rays, the golden tolerance against the
                  oracle's image
- 10. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
+ 11. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
                  cut from 64 to 8
- 11. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
+ 12. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
                  from bounce 3, spp cut from 256 to 2; occupancy
- 12. c4-persist — the c4 scene and size in mode persist at PERSIST_SPP (2:
+ 13. c4-persist — the c4 scene and size in mode persist at PERSIST_SPP (2:
                  each block's pool regenerates)
- 13. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
+ 14. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
                  max_depth 16, roulette from bounce 3, shard tiles), spp
                  cut from 1024 to 1, over every card: an NCCL group of one
                  in this process on one card, one process per card on
                  several; stats must name that many devices
- 14. c5-spp    — the same, sharded by samples
- 15. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
+ 15. c5-spp    — the same, sharded by samples
+ 16. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
                  spp: the megakernel's rays, the golden tolerance
- 16. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a crash after 2
+ 17. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a crash after 2
                  samples, resumed, equals the uninterrupted run bit for
                  bit with equal rays; unsharded and by tiles
- 17. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
+ 18. oracle    — g1 and g3 through the CLI's --oracle (NumPy): the card's
                  rays, the golden tolerance
- 18. imports   — no module of jax and none of tpurt loaded
- 19. profile   — last, in a fresh child process (the timing phases above
+ 19. imports   — no module of jax and none of tpurt loaded
+ 20. profile   — last, in a fresh child process (the timing phases above
                  ran torch.profiler, and a profiled render slows later
                  ones in its process): c3, c2, c4, c4 persist (at
                  PERSIST_SPP) and c5 unprofiled (wall), g4 with
                  --profile-dir (the Chrome trace names the traversal
                  kernel), then the five under torch.profiler: CUDA
                  launches, device time (and kernel time alone), idle
-                 share and host reads per spp, the search kernel's device
-                 time per launch; c3 must stay under 300 CUDA launches per
-                 spp, c4 in mode wavefront under 263 and in mode persist
-                 under 171 (MAX_LAUNCHES_PER_SPP)
-The probe (in phase 4) and phases 8-16 are the main paths, each with the
-launch counts reset just before it and read just after; every render
+                 share and host reads per spp, the host's launch calls
+                 (cudaLaunchKernel, cudaGraphLaunch) per spp, the port's
+                 kernels as the profiler saw them beside the counted
+                 launches, the search kernel's device time per launch;
+                 c3 must stay under 300 CUDA launches per spp, c4 in mode
+                 wavefront under 263 and in mode persist under 171
+                 (MAX_LAUNCHES_PER_SPP), and c3's and c2's mega renders
+                 may copy to the host at most twice a render call, the ray
+                 count and the film (MAX_DTOH_PER_RENDER)
+The probe (in phase 4) and phases 9-17 are the main paths, each with the
+launch counts reset just before it and read just after (a mega render's
+kernels run as frame-graph nodes, counted by execution); every render
 path must launch its search kernel, the three fused kernels and its
-mode's kernels (the film fold; packet_compact in mode wavefront,
-persist_refill in mode persist), and the renders of phases 8 and 10-14
-must cast PHASE_RAYS exactly. Then the card's nvidia-smi line, the
-kernel table as one JSON object (all eleven kernels, each with its
-launches by path, its bound and its operations by class), and as the
-last line {"ok": true, "device": {...}}.
+mode's kernels (the film fold and frame_graph in mode mega;
+packet_compact in mode wavefront, persist_refill in mode persist), and
+the renders of phases 9 and 11-15 must cast PHASE_RAYS exactly. Then
+the card's nvidia-smi line, the kernel table as one JSON object (all
+twelve kernels, each with its launches by path, its bound and its
+operations by class), and as the last line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -154,6 +177,9 @@ PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
 # iteration; the two-kernel versions of both made 263 and 171)
 MAX_LAUNCHES_PER_SPP = {"c3-mesh": 300, "c4-wavefront": 263,
                         "c4-persist": 171}
+# copies to the host in one mega render call through the CLI, at most:
+# the ray count and the film (the frame graph reads nothing between)
+MAX_DTOH_PER_RENDER = {"c3-mesh": 2, "c2-cornell": 2}
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -301,11 +327,18 @@ def is_flush(key: str) -> bool:
 
 
 
+def on_device(e) -> bool:
+    """A profile item that ran on the card (a kernel, copy or memset),
+    not an operator or runtime call on the host (whose device time, with
+    CPU activity on, repeats its kernels')."""
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
 def device_us(prof, keep=lambda key: True) -> float:
-    """Device self time (us) of a CUDA-only profile, over the keys that
-    keep accepts."""
+    """Device self time (us) of a profile's items on the card, over the
+    keys that keep accepts."""
     return sum(getattr(e, "self_device_time_total", 0) or 0
-               for e in prof.key_averages() if keep(e.key))
+               for e in prof.key_averages() if keep(e.key) and on_device(e))
 
 
 def kernel_name(key: str) -> str:
@@ -324,7 +357,7 @@ def device_us_by_kernel(prof, keep=lambda key: True) -> dict:
     out: dict = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and keep(e.key):
+        if us > 0 and keep(e.key) and on_device(e):
             name = kernel_name(e.key)
             out[name] = out.get(name, 0.0) + us
     return out
@@ -780,13 +813,13 @@ def c2_traffic(dev, cfg=None):
     calls = []
     kernel = intersect.nearest_tri_small
 
-    def record(*args):
+    def record(*args, **kw):
         calls.append(tuple(a.clone() for a in args))
-        return kernel(*args)
+        return kernel(*args, **kw)
 
     intersect.nearest_tri_small = record
     try:
-        render.render(cfg, device=dev)
+        render.render(cfg, device=dev, host_loop=True)
     finally:
         intersect.nearest_tri_small = kernel
     out, batch, bounce, before = [], 0, 0, None
@@ -1195,7 +1228,8 @@ def phase_fused(dev):
         if key not in scenes:
             scenes[key] = config.build_scene(cfg)
         with FusedCheck(label, keep if label == "c3" else None) as chk:
-            _, stats = render.render(cfg, *scenes[key], device=dev)
+            _, stats = render.render(cfg, *scenes[key], device=dev,
+                                     host_loop=True)
         need = ("camera_rays", "prims_nearest",
                 "hit_shade" if cfg.mode == "primary" else "bounce_shade")
         for k in need:
@@ -1219,12 +1253,17 @@ def phase_fused(dev):
     (cam, w, h, seed, pix, smp), _ = kept["camera_rays"]
     n = pix.shape[0]
     outs = camera.camera_rays(cam, w, h, seed, pix, smp)
-    rows["camera_rays"] = {
-        "shape": f"c3 batch 0, N={n}", "checked_calls": totals("camera_rays"),
+    per_call = {
         **bound(nbytes(pix, smp, *outs), work((n, CAMERA_RAY_OPS))),
         **timed(lambda: camera.camera_rays(cam, w, h, seed, pix, smp),
                 lambda: camera.camera_rays_plain(cam, w, h, seed, pix, smp),
                 50, 10)}
+    rows["camera_rays"] = {
+        "shape": f"c3 batch 0 at the cursor, N={n}",
+        "checked_calls": totals("camera_rays"),
+        **check_camera_cursor(cam, w, h, seed, pix, smp, outs),
+        "per_call": {k: per_call[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "bytes")}}
 
     (scene, o, d), kw = kept["prims_nearest"]
     alive = kw["alive"]
@@ -1249,23 +1288,111 @@ def phase_fused(dev):
      tri) = args
     live = int(alive.sum())
     outs = bounce.bounce_shade(*args)
+    fresh = timed(lambda: bounce.bounce_shade(*args),
+                  lambda: bounce.bounce_shade_plain(*args), 50, 10)
     rows["bounce_shade"] = {
-        "shape": f"c3 batch 0 bounce {depth}, N={o.shape[0]}, live {live}",
+        "shape": f"c3 batch 0 bounce {depth}, N={o.shape[0]}, live {live}, "
+                 "in place, depth on the device",
         "checked_calls": totals("bounce_shade", "hit_shade"),
         **bound(nbytes(o, d, atten, rad, alive, keys, *prim, *tri,
                        scene.mat_packed, scene.sky_a, scene.sky_b, *outs),
                 work((o.shape[0], MERGE_OPS), (live, BOUNCE_LIVE_OPS))),
-        **timed(lambda: bounce.bounce_shade(*args),
-                lambda: bounce.bounce_shade_plain(*args), 50, 10)}
+        **check_bounce_in_place(args, outs),
+        "fresh_outputs": {k: fresh[k] for k in ("ms", "plain_ms")}}
     for name, row in rows.items():
         names = (name, "hit_shade") if name == "bounce_shade" else (name,)
+        extra = {k: row.pop(k) for k in ("per_call", "fresh_outputs")
+                 if k in row}
         row.update(max_abs_err=0.0, check="array_equal, NaN equal to NaN",
                    row_extra={"checked_calls": row.pop("checked_calls"),
                               "bit_diffs": sum(
                                   st.get(k, {}).get("bit_diffs", 0)
-                                  for st in cases.values() for k in names)})
+                                  for st in cases.values() for k in names),
+                              **extra})
         emit("kernel", name=name, **row)
     return rows
+
+
+def check_camera_cursor(cam, w, h, seed, pix, smp, outs) -> dict:
+    """The frame graph's camera (camera_rays_cursor) on c3's first batch
+    at the cursor (p0 0, s0 0, c 1, the whole block): o, d and keys
+    array-equal to camera_rays' outs on the same pixels and samples, and
+    all six outputs and the live count to its plain version; then timed
+    with its bound (pixel and live rows read, 73 bytes a ray written).
+    Returns the row's numbers."""
+    import torch
+    from tpurt_torch import render
+    from tpurt_torch.kernels import camera, frame_graph
+    n = pix.shape[0]
+    pix_pad, ok_pad, _ = render.order_cached(w, h, n, pix.device)
+    if not torch.equal(pix_pad[:n], pix) or int(smp.max()) != 0:
+        raise AssertionError("camera cursor: kept batch is not c3's first")
+    state = torch.zeros(frame_graph.STATE_SLOTS, dtype=torch.int64,
+                        device=pix.device)
+    live, live_p = (torch.zeros(1, dtype=torch.int32, device=pix.device)
+                    for _ in range(2))
+    view = torch.tensor(camera.view_words(cam, w, h, seed),
+                        dtype=torch.int32, device=pix.device)
+    got = camera.camera_rays_cursor(view, pix_pad, ok_pad, state, 1, n, live)
+    want = camera.camera_rays_cursor_plain(view, pix_pad, ok_pad, state, 1,
+                                           n, live_p)
+    for k, (g, ref) in enumerate((*zip(got, want), (live, live_p),
+                                  *zip(got[:3], outs))):
+        ok, _, err = same_values(g, ref)
+        if not ok:
+            raise AssertionError(f"camera cursor: output {k} differs "
+                                 f"(max |diff| {err})")
+    return {**bound(nbytes(pix_pad[:n], ok_pad[:n], *got),
+                    work((n, CAMERA_RAY_OPS))),
+            **timed(lambda: camera.camera_rays_cursor(
+                        view, pix_pad, ok_pad, state, 1, n, live, out=got),
+                    lambda: camera.camera_rays_cursor_plain(
+                        view, pix_pad, ok_pad, state, 1, n, live_p), 50, 10)}
+
+
+def check_bounce_in_place(args, outs) -> dict:
+    """bounce_shade as the frame graph runs it (outputs aliased to its
+    inputs, the bounce index read from an int64 on the card) on the kept
+    c3 bounce: every output array-equal to the plain version's and to
+    the fresh-output call's outs; then timed, the state restored before
+    each call. Returns the row's numbers."""
+    import torch
+    from tpurt_torch.kernels import bounce
+    (scene, o, d, atten, rad, alive, keys, depth, rr_start, prim,
+     tri) = args
+    depth_d = torch.tensor(depth, dtype=torch.int64, device=o.device)
+    start = (o, d, atten, rad, alive)
+    state = [t.clone() for t in start]
+    live_hit = torch.empty_like(alive)
+
+    def restore():
+        for dst, src in zip(state, start):
+            dst.copy_(src)
+
+    def in_place():
+        return bounce.bounce_shade(scene, *state, keys, depth_d, rr_start,
+                                   prim, tri, out=(*state, live_hit))
+
+    got = in_place()
+    want = bounce.bounce_shade_plain(*args)
+    for k, (g, ref, fresh) in enumerate(zip(got, want, outs)):
+        for what, r in (("plain", ref), ("fresh outputs", fresh)):
+            ok, _, err = same_values(g, r)
+            if not ok:
+                raise AssertionError(f"bounce in place: output {k} differs "
+                                     f"from the {what} (max |diff| {err})")
+    kernel = time_ms(in_place, 50, keep=lambda k: "bounce_shade_kernel" in k,
+                     setup=restore)
+    plain = time_ms(lambda: bounce.bounce_shade_plain(*args), 10)
+    return {"ms": kernel["device"] if kernel["device"] is not None
+            else kernel["wall"],
+            "plain_ms": plain["device"] if plain["device"] is not None
+            else plain["wall"],
+            "wall_ms": kernel["wall"], "plain_wall_ms": plain["wall"],
+            "by_kernel_ms": kernel["by_kernel"],
+            "launches_per_call": kernel["launches_per_call"],
+            "timer": "profiler" if kernel["device"] is not None
+            else "events"}
 
 
 FRAME = ("film_fold", "packet_compact", "persist_refill")
@@ -1554,9 +1681,9 @@ def phase_frame(dev):
     for label, cfg in frame_cases().items():
         _build.reset_launches()
         with FusedCheck(label) as fused, FrameCheck(label) as chk:
-            _, stats = render.render(cfg, device=dev)
+            _, stats = render.render(cfg, device=dev, host_loop=True)
         launches = dict(_build.LAUNCHES)
-        need = mode_kernels(cfg.mode)
+        need = [k for k in mode_kernels(cfg.mode) if k in FRAME]
         flag_calls = fused.stats.get("bounce_shade", {}).get("flag_calls", 0)
         if cfg.mode == "persist":
             if chk.stats.get("persist_refill", {}).get("refills", 0) <= 0:
@@ -1600,14 +1727,18 @@ def phase_frame(dev):
     acc, rad, c, block = kept["film_fold"]
     m = acc.shape[0]
     acc_p, acc_l = acc.clone(), acc.clone()
+    per_call = timed(lambda: fold_k.film_fold(acc, rad, c, block),
+                     lambda: fold_k.film_fold_plain(acc_p, rad, c, block),
+                     50, 20)
     rows["film_fold"] = {
-        "shape": f"c3 batch 0, c={c}, block={block}",
+        "shape": f"c3 batch 0 at the cursor, c={c}, block={block}",
         **bound(nbytes(rad, acc, acc), work((3 * m * c, {"add_mul": 1}))),
-        **timed(lambda: fold_k.film_fold(acc, rad, c, block),
-                lambda: fold_k.film_fold_plain(acc_p, rad, c, block), 50, 20),
+        **check_fold_cursor(acc, rad, c, block),
         "row_extra": {"checked_calls": checked("film_fold"),
                       "max_c": max(st.get("film_fold", {}).get("max_c", 0)
-                                   for st in cases.values())}}
+                                   for st in cases.values()),
+                      "per_call": {k: per_call[k]
+                                   for k in ("ms", "plain_ms")}}}
     lib = time_ms(lambda: acc_l.add_(rad.view(c, block, 3).sum(0)), 50)
     rows["film_fold"]["library_ms"] = (lib["device"] if lib["device"]
                                        is not None else lib["wall"])
@@ -1667,6 +1798,36 @@ def phase_frame(dev):
         emit("kernel", name=name, **row)
     torch.cuda.synchronize()
     return rows
+
+
+def check_fold_cursor(acc, rad, c, block) -> dict:
+    """The frame graph's fold (film_fold at the state's cursor) against
+    its plain version, array-equal: at p0 0 of a film of block rows (c3's
+    first batch, timed), at the ragged last block of a film of 2.5
+    blocks, and into a part at row 0 without the state (the
+    sample-sharded render's). Returns the kernel's and the plain
+    version's times on the first."""
+    import torch
+    from tpurt_torch.kernels import film_fold as fold_k, frame_graph
+    state = torch.zeros(frame_graph.STATE_SLOTS, dtype=torch.int64,
+                        device=acc.device)
+    gen = torch.Generator(device=acc.device).manual_seed(5)
+    big = torch.randn((block * 5 // 2, 3), generator=gen, device=acc.device)
+    for film, p0, at in ((acc, 0, True), (big, 2 * block, True),
+                         (acc, 0, False)):
+        state[frame_graph.P0] = p0
+        st = state if at else None
+        got = fold_k.film_fold(film.clone(), rad, c, block, st)
+        want = fold_k.film_fold_plain(film.clone(), rad, c, block, st)
+        ok, _, err = same_values(got, want)
+        if not ok:
+            raise AssertionError(f"fold cursor at {p0} ({at}): differs from "
+                                 f"the plain version (max |diff| {err})")
+    state[frame_graph.P0] = 0
+    acc_k, acc_p = acc.clone(), acc.clone()
+    return timed(lambda: fold_k.film_fold(acc_k, rad, c, block, state),
+                 lambda: fold_k.film_fold_plain(acc_p, rad, c, block, state),
+                 50, 20)
 
 
 def check_permuted_slot(q, rad_out, keep, flags) -> dict:
@@ -1770,13 +1931,15 @@ def phase_goldens(dev):
 
 # kernels a render launches besides its search and the fused kernels,
 # by mode: the film fold, and the queue's or the pool's kernel (the pool
-# adds into the film itself)
+# adds into the film itself), or the frame graph's loop control
 MODE_KERNELS = {"wavefront": ("film_fold", "packet_compact"),
-                "persist": ("persist_refill",)}
+                "persist": ("persist_refill",),
+                "primary": ("film_fold",)}
 
 
 def mode_kernels(mode: str) -> tuple:
-    return MODE_KERNELS.get(mode, ("film_fold",))
+    """The film fold and the frame graph's loop control in mode mega."""
+    return MODE_KERNELS.get(mode, ("film_fold", "frame_graph"))
 
 
 def check_film(label, img, shape, launches, kernel, extra=("film_fold",)):
@@ -1810,10 +1973,12 @@ def phase_preset(label, argv, shape, kernel, spp_preset, world=None,
     kernels of ``mode``); with ``world``, a sharded render whose stats
     must name that many devices."""
     from tpurt_torch import cli
-    from tpurt_torch.kernels import _build
+    from tpurt_torch.kernels import _build, frame_graph
+    built = dict(frame_graph.BUILD_STATS)
     _build.reset_launches()
     img, stats = cli.run(["render", *argv])
     launches = dict(_build.LAUNCHES)
+    built = {k: frame_graph.BUILD_STATS[k] - v for k, v in built.items()}
     check_film(label, img, shape, launches, kernel, mode_kernels(mode))
     check_rays(label, stats["rays"], world)
     if world is not None and stats["devices"] != world:
@@ -1824,7 +1989,9 @@ def phase_preset(label, argv, shape, kernel, spp_preset, world=None,
          wall_s=stats["wall_s"], mrays_per_s=stats["mrays_per_s"],
          launches=launches, mean_radiance=float(img.mean()),
          occupancy=stats.get("occupancy"), devices=stats.get("devices"),
-         shard=stats.get("shard"))
+         shard=stats.get("shard"), graphs_built=built["graphs"],
+         graph_capture_s=built["capture_s"],
+         graph_instantiate_s=built["instantiate_s"])
     return launches
 
 
@@ -1843,7 +2010,7 @@ def _c5_rank(rank, world, port, label, argv, shape, out_dir):
     img, stats = cli.run(["render", *argv])
     launches = dict(_build.LAUNCHES)
     check_film(f"{label} rank {rank}", img, shape, launches,
-               "traverse_nearest")
+               "traverse_nearest", mode_kernels("mega"))
     if stats["devices"] != world:
         raise AssertionError(f"{label}: {stats['devices']} devices, "
                              f"expected {world}")
@@ -2013,26 +2180,300 @@ def phase_oracle(golden_rays):
                                  f"card cast {golden_rays[name]}")
 
 
+FRAME_STATE_BYTES = 80   # frame_cond: 4 slots read, 6 written (int64)
+# rays_cast of tpurt_torch.entry's batch: tpurt's entry forward casts as
+# many (tests/test_torch_entry.py holds the port's against it on the CPU)
+ENTRY_RAYS = 3403
+
+
+def check_frame_kernels(dev) -> dict:
+    """frame_graph.cu's two kernels launched alone (no graph) against
+    their plain versions, array-equal state: the condition going on,
+    stopping at a live count of 0 and stopping at max_depth; the cursor
+    stepping inside the pixel list and wrapping to the next chunk. Then
+    the condition timed (its state restored before each call), with its
+    bound (FRAME_STATE_BYTES; a few integer operations). Returns the
+    kernel's row."""
+    import torch
+    from tpurt_torch.kernels import frame_graph as fg
+    slots = fg.STATE_SLOTS
+
+    def state(p0=0, s0=0, k=0, live=0):
+        st = torch.zeros(slots, dtype=torch.int64, device=dev)
+        st[fg.P0], st[fg.S0], st[fg.K] = p0, s0, k
+        fg.live_word(st).fill_(live)
+        return st
+
+    cases = [("cond", state(k=2, live=5)), ("cond", state(k=2)),
+             ("cond", state(k=8, live=3)), ("advance", state(p0=0, s0=4)),
+             ("advance", state(p0=2048, s0=4))]
+    for kind, st in cases:
+        got, want = st.clone(), st.clone()
+        if kind == "cond":
+            fg.frame_cond(got, 8)
+            fg.frame_cond_plain(want, 8)
+        else:
+            fg.frame_advance(got, 1024, 3072, 3)
+            fg.frame_advance_plain(want, 1024, 3072, 3)
+        if not torch.equal(got, want):
+            raise AssertionError(f"frame_graph: {kind} on {st.tolist()} "
+                                 f"gave {got.tolist()}, the plain version "
+                                 f"{want.tolist()}")
+    start = state(k=2, live=5)
+    st, st_p = start.clone(), start.clone()
+    row = {"shape": "one state of 8 int64 slots, max_depth 8",
+           **bound(FRAME_STATE_BYTES, {"cmp_minmax": 8}),
+           "max_abs_err": 0.0, "check": "array_equal"}
+    k = time_ms(lambda: fg.frame_cond(st, 8), 50,
+                keep=lambda key: "frame_cond_kernel" in key,
+                setup=lambda: st.copy_(start))
+    p = time_ms(lambda: fg.frame_cond_plain(st_p, 8), 10,
+                setup=lambda: st_p.copy_(start), profiled=False)
+    a = time_ms(lambda: fg.frame_advance(st, 1024, 3072, 3), 50,
+                keep=lambda key: "frame_advance_kernel" in key,
+                setup=lambda: st.copy_(start))
+    row.update(ms=k["device"] if k["device"] is not None else k["wall"],
+               plain_ms=p["wall"], wall_ms=k["wall"],
+               by_kernel_ms=k["by_kernel"],
+               launches_per_call=k["launches_per_call"],
+               timer="profiler" if k["device"] is not None else "events",
+               row_extra={"advance_ms": a["device"] if a["device"]
+                          is not None else a["wall"],
+                          "checked_states": len(cases)})
+    emit("kernel", name="frame_graph", **row)
+    return row
+
+
+def graph_cases(golden_rays) -> dict:
+    """The mega renders that run through the frame graph and through the
+    host loop in phase_graph: label -> (config, how it is driven, the
+    rays it must cast)."""
+    from tpurt_torch import config
+    presets = config.PRESETS
+    cases = {
+        "c3-mesh": (presets["c3-mesh"].replace(spp=C3_SPP), "render",
+                    PHASE_RAYS["c3-mesh"]),
+        "c2-cornell": (presets["c2-cornell"].replace(spp=C2_SPP), "render",
+                       PHASE_RAYS["c2-cornell"]),
+        "c5-tiles": (presets["c5-multichip"].replace(spp=C5_SPP,
+                                                     shard="tiles"),
+                     "sharded", PHASE_RAYS["c5-tiles"]),
+        "c5-spp": (presets["c5-multichip"].replace(spp=C5_SPP, shard="spp"),
+                   "sharded", PHASE_RAYS["c5-spp"]),
+    }
+    for name, kw in sorted(GOLDENS.items()):
+        cfg = config.RenderConfig(**kw)
+        if cfg.mode != "mega":
+            continue
+        cases[name] = (cfg, "render", golden_rays[name])
+        for shard in ("tiles", "spp"):
+            cases[f"{name}-{shard}"] = (cfg.replace(shard=shard), "sharded",
+                                        golden_rays[name])
+    for shard in ("none", "tiles"):
+        cases[f"checkpoint-{shard}"] = (
+            presets["c3-mesh"].replace(spp=CKPT_SPP, shard=shard),
+            "checkpoint", PHASE_RAYS["c3-mesh"])
+    return cases
+
+
+def phase_graph(dev, golden_rays):
+    """Every mega render path through the frame graph and through the
+    host loop on the card (graph_cases): c3 at C3_SPP, c2 at C2_SPP, c5
+    by tiles and by spp (a group of one), g2..g5 unsharded and sharded,
+    and c3 through checkpoints every 2 unsharded and by tiles. The films
+    must be array-equal (the first graph render, which captures, and a
+    second one on the cached graphs) and every render must cast its
+    case's rays; the graph's launches, counted by execution (the fixed
+    nodes at each launch, the bounces from the device counter), must
+    equal the host loop's for every kernel both run, and frame_graph's
+    must be two a batch and one a bounce. Capture and instantiate
+    seconds are reported apart from the walls. Then one scene's graphs
+    under another camera and seed (check_graph_views), the entry point's
+    twin (tpurt_torch.entry) on the card: its radiance array-equal to the
+    host loop's on the same batch, ENTRY_RAYS rays; and the loop
+    control's kernels are held against their plain versions
+    (check_frame_kernels). Returns {"frame_graph": its row}."""
+    import tempfile
+    import numpy as np
+    import torch
+    from tpurt_torch import checkpoint, config, entry, mesh, render
+    from tpurt_torch import scene as scene_mod
+    from tpurt_torch.kernels import _build, frame_graph
+    m = mesh.make_mesh(dev)
+    scenes, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (cfg, how, want) in graph_cases(golden_rays).items():
+            key = (cfg.scene, cfg.mesh_subdiv, cfg.width, cfg.height)
+            if key not in scenes:
+                scene, cam = config.build_scene(cfg)
+                scenes.clear()   # one scene on the card at a time
+                scenes[key] = (scene_mod.to_device(scene, dev), cam)
+            dscene, cam = scenes[key]
+
+            def draw(host_loop):
+                if how == "render":
+                    return render.render(cfg, dscene, cam, device=dev,
+                                         host_loop=host_loop)
+                if how == "sharded":
+                    return mesh.render_sharded(cfg, dscene, cam, mesh=m,
+                                               host_loop=host_loop)
+                return checkpoint.render_with_checkpoints(
+                    cfg, dscene, cam, f"{tmp}/{label}.npz", every=2,
+                    mesh=m, device=dev, host_loop=host_loop)
+
+            built = dict(frame_graph.BUILD_STATS)
+            _build.reset_launches()
+            img_g, st_g = draw(False)
+            lg = dict(_build.LAUNCHES)
+            built = {k: frame_graph.BUILD_STATS[k] - v
+                     for k, v in built.items()}
+            img_w, st_w = draw(False)
+            _build.reset_launches()
+            img_h, st_h = draw(True)
+            lh = dict(_build.LAUNCHES)
+            same = bool(np.array_equal(img_g, img_h)
+                        and np.array_equal(img_w, img_h))
+            rays = [st_g["rays"], st_w["rays"], st_h["rays"]]
+            emit("graph", case=label, how=how, spp=cfg.spp,
+                 shard=cfg.shard, rays=rays, expected_rays=want,
+                 films_array_equal=same, graphs_built=built["graphs"],
+                 capture_s=built["capture_s"],
+                 instantiate_s=built["instantiate_s"],
+                 graph_wall_first_s=st_g["wall_s"],
+                 graph_wall_s=st_w["wall_s"], host_loop_wall_s=st_h["wall_s"],
+                 launches_by_execution=lg, host_loop_launches=lh)
+            if not same:
+                raise AssertionError(f"graph ({label}): the graph's film "
+                                     "differs from the host loop's")
+            if rays != [want] * 3:
+                raise AssertionError(f"graph ({label}): rays {rays}, "
+                                     f"expected {want}")
+            shared = [k for k, v in lh.items() if v and k != "frame_graph"]
+            if any(lg[k] != lh[k] for k in shared) or lg["frame_graph"] != \
+                    2 * lg["camera_rays"] + lg["bounce_shade"]:
+                raise AssertionError(f"graph ({label}): launches by "
+                                     f"execution {lg} against the host "
+                                     f"loop's {lh}")
+            for k, v in lg.items():
+                total[k] = total.get(k, 0) + v
+    emit("graph", case="all", launches_by_execution=total,
+         build=dict(frame_graph.BUILD_STATS))
+    check_graph_views(dev, scenes)
+    fn, (dscene, cam, pix, smp, seed) = entry.entry(dev)
+    rad, nrays = fn(dscene, cam, pix, smp, seed)
+    rays = int(nrays)
+    # the same batch through the host loop
+    cfg = entry.CONFIG.replace(seed=seed, ray_batch=pix.shape[0] * 2,
+                               spp_chunk=2)
+    want = torch.zeros_like(rad)
+    want_rays = frame_graph.read_tally(dscene, render.accumulate(
+        cfg, dscene, cam, pix, None, 0, 2, want, host_loop=True))
+    same = bool(torch.equal(rad, want))
+    emit("graph", case="entry", rays=rays, host_loop_rays=want_rays,
+         expected_rays=ENTRY_RAYS, rad_array_equal=same,
+         rad_sum=float(rad.double().sum()))
+    if not same or rays != want_rays or rays != ENTRY_RAYS:
+        raise AssertionError(f"graph (entry): {rays} rays, the host loop's "
+                             f"{want_rays}, array-equal {same}")
+    return {"frame_graph": check_frame_kernels(dev)}
+
+
+def check_graph_views(dev, scenes) -> None:
+    """One frame graph a scene and shape, whatever the camera and seed:
+    c3 at CKPT_SPP rendered from its camera (which may capture), then
+    from a moved one (a thin lens) with another seed and from its own
+    camera again, each through the graph and the host loop. The films
+    must be array-equal and the rays equal, and the last two renders
+    must capture no graph (the view is loaded for each call)."""
+    import numpy as np
+    from tpurt_torch import camera as camera_mod
+    from tpurt_torch import config, render
+    from tpurt_torch import scene as scene_mod
+    from tpurt_torch.kernels import frame_graph
+    cfg = config.PRESETS["c3-mesh"].replace(spp=CKPT_SPP)
+    key = (cfg.scene, cfg.mesh_subdiv, cfg.width, cfg.height)
+    if key not in scenes:
+        scene, cam = config.build_scene(cfg)
+        scenes.clear()
+        scenes[key] = (scene_mod.to_device(scene, dev), cam)
+    dscene, cam = scenes[key]
+    moved = camera_mod.with_lens(cam, 0.1, 4.0)
+    views = (("own", cam, cfg.seed), ("moved", moved, cfg.seed + 1),
+             ("own", cam, cfg.seed))
+    images = []
+    for k, (label, c, seed) in enumerate(views):
+        if k == 1:
+            built = frame_graph.BUILD_STATS["graphs"]
+            entries = len(frame_graph._CACHE)
+        run = cfg.replace(seed=seed)
+        img_g, st_g = render.render(run, dscene, c, device=dev)
+        img_h, st_h = render.render(run, dscene, c, device=dev,
+                                    host_loop=True)
+        same = bool(np.array_equal(img_g, img_h))
+        images.append(img_g)
+        emit("graph", case=f"view-{label}-{k}", seed=seed,
+             rays=[st_g["rays"], st_h["rays"]], films_array_equal=same,
+             cached_graphs=len(frame_graph._CACHE))
+        if not same or st_g["rays"] != st_h["rays"]:
+            raise AssertionError(f"graph (view {label}): the graph's film or "
+                                 "rays differ from the host loop's")
+    if frame_graph.BUILD_STATS["graphs"] != built or \
+            len(frame_graph._CACHE) != entries:
+        raise AssertionError("graph (views): a new camera or seed captured "
+                             "another graph")
+    if np.array_equal(images[0], images[1]) or \
+            not np.array_equal(images[0], images[2]):
+        raise AssertionError("graph (views): the moved camera's film is not "
+                             "its own")
+
+
 def top_device_items(prof, n=6) -> list:
     """The n keys of a CUDA-only profile with the most device time:
     [name (cut to 60 characters), device ms, calls]."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or 0
-    items = sorted(prof.key_averages(), key=dev_us, reverse=True)
+    items = sorted(filter(on_device, prof.key_averages()), key=dev_us,
+                   reverse=True)
     return [[e.key[:60], dev_us(e) / 1e3, e.count] for e in items[:n]]
 
 
+# the runtime calls by which the host starts work on the card: a kernel,
+# a kernel with launch attributes (vmemloop's clusters), a graph
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cudaGraphLaunch")
+
+
+# kernels counted under another LAUNCHES name: frame_graph.cu's two, and
+# persist_commit's (counted as a persist_refill launch)
+PROFILE_NAMES = {"frame_cond_kernel": "frame_graph",
+                 "frame_advance_kernel": "frame_graph",
+                 "film_commit_kernel": "persist_refill"}
+
+
 def kernel_launches(prof) -> dict:
-    """CUDA kernels launched in a CUDA-only profile, and its copies from
-    the device to the host (the host's reads)."""
-    kernels = dtoh = 0
+    """CUDA kernels run in a profile, its copies from the device to the
+    host (the host's reads), the host's launch calls (HOST_LAUNCH_CALLS,
+    from its CPU activity) and the runs of each of the port's kernels
+    the profiler saw (by LAUNCHES name; PROFILE_NAMES)."""
+    from tpurt_torch.kernels import _build
+    kernels = dtoh = host = 0
+    port: dict = {}
     for e in prof.key_averages():
         if e.key.startswith("Memcpy DtoH"):
             dtoh += e.count
-        elif (getattr(e, "self_device_time_total", 0) or 0) > 0 and \
+        elif e.key in HOST_LAUNCH_CALLS:
+            host += e.count
+        elif on_device(e) and \
+                (getattr(e, "self_device_time_total", 0) or 0) > 0 and \
                 not e.key.startswith(("Memcpy", "Memset")):
             kernels += e.count
-    return {"kernels": kernels, "dtoh_copies": dtoh}
+            name = kernel_name(e.key)
+            name = PROFILE_NAMES.get(name, name.removesuffix(
+                "_cursor_kernel").removesuffix("_kernel"))
+            if name in _build.LAUNCHES:
+                port[name] = port.get(name, 0) + e.count
+    return {"kernels": kernels, "dtoh_copies": dtoh,
+            "host_launch_calls": host, "port_kernels": port}
 
 
 PROFILE_ATTEMPTS = 3
@@ -2056,11 +2497,13 @@ def phase_profile():
     wall of an unprofiled render); a g4-sized render with --profile-dir
     (profiled renders slow later renders of the process), whose Chrome
     trace must exist and name the traversal kernel; then each
-    PROFILE_RUNS render under torch.profiler (CUDA activity), per spp:
-    CUDA kernel launches, device time (kernels and copies) and kernel
-    time alone, the idle share of each against the unprofiled wall,
-    copies to the host (the host's reads), the search kernel's device
-    time per launch and share, and the items with the most device time
+    PROFILE_RUNS render under torch.profiler (CPU and CUDA activity),
+    per spp: CUDA kernel launches, device time (kernels and copies) and
+    kernel time alone, the idle share of each against the unprofiled
+    wall, copies to the host (the host's reads; MAX_DTOH_PER_RENDER a
+    call), the host's launch calls, the port's kernels the profiler saw,
+    which must equal the counted launches, the search kernel's device time per
+    launch and share, and the items with the most device time
     (top_device_items)."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
@@ -2087,26 +2530,38 @@ def phase_profile():
     for label, (argv, search, spp) in PROFILE_RUNS.items():
         # the profiler has once come back with no device activity at all
         # late in a smoke run (not reproduced); the render is profiled
-        # again, at most PROFILE_ATTEMPTS times
+        # again, at most PROFILE_ATTEMPTS times; so is one whose kernel
+        # runs differ from the counted launches (a profile that lost
+        # records), and the phase fails if every attempt differs
         for attempt in range(1, PROFILE_ATTEMPTS + 1):
             _build.reset_launches()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
                 _, stats = cli.run(["render", *argv, "--spp", str(spp)])
-            if device_us(prof) > 0:
+            launches = dict(_build.LAUNCHES)
+            counts = kernel_launches(prof)
+            counted = {k: v for k, v in launches.items() if v}
+            if device_us(prof) > 0 and counts["port_kernels"] == counted:
                 break
         else:
-            raise AssertionError(f"render_profile ({label}): no device "
-                                 f"time in {PROFILE_ATTEMPTS} profiles")
-        launches = dict(_build.LAUNCHES)
+            raise AssertionError(
+                f"render_profile ({label}): in {PROFILE_ATTEMPTS} profiles "
+                f"no device time or the kernels the profiler saw "
+                f"({counts['port_kernels']}) are not the counted launches "
+                f"({counted})")
         total = device_us(prof) / 1e3 / spp
         kernel_ms = device_us(prof, lambda k: not k.startswith(
             ("Memcpy", "Memset"))) / 1e3 / spp
         search_ms = device_us(prof, lambda k: f"{search}_kernel" in k) / 1e3
-        counts = kernel_launches(prof)
         per_spp = counts["kernels"] / spp
         emit("render_profile", preset=label, spp=spp, rays=stats["rays"],
              profile_attempts=attempt, cuda_launches_per_spp=per_spp,
              dtoh_copies_per_spp=counts["dtoh_copies"] / spp,
+             dtoh_copies=counts["dtoh_copies"],
+             host_launch_calls_per_spp=counts["host_launch_calls"] / spp,
+             profiler_port_kernels=counts["port_kernels"],
+             counted_port_kernels=counted,
+             profiler_counts_equal=counts["port_kernels"] == counted,
              device_ms_per_spp=total,
              unprofiled_wall_ms_per_spp=walls[label] * 1e3,
              idle_share=1.0 - total / (walls[label] * 1e3),
@@ -2123,13 +2578,20 @@ def phase_profile():
         if per_spp >= MAX_LAUNCHES_PER_SPP.get(label, float("inf")):
             raise AssertionError(f"render_profile ({label}): {per_spp} CUDA "
                                  "launches per spp")
+        if counts["dtoh_copies"] > MAX_DTOH_PER_RENDER.get(label,
+                                                           float("inf")):
+            raise AssertionError(f"render_profile ({label}): "
+                                 f"{counts['dtoh_copies']} copies to the "
+                                 "host in one render call")
 
 
 CHILD_RESULT = "chip_smoke result: "   # the line a phase_child returns
 
 
-def phase_child(name: str, on_card: bool = True, timeout: float = 600.0):
-    """chip_smoke.<name>(), with card 0 as its argument if on_card, in a
+def phase_child(name: str, on_card: bool = True, timeout: float = 600.0,
+                args=()):
+    """chip_smoke.<name>(), with card 0 as its argument if on_card and
+    then ``args`` (JSON values), in a
     fresh Python process on the same card: its lines passed through, what
     it returns sent back as JSON; the phase fails if the child does (or
     outlasts ``timeout`` seconds, and is then killed). The phases that
@@ -2138,9 +2600,10 @@ def phase_child(name: str, on_card: bool = True, timeout: float = 600.0):
     and a profiled render slows later renders of its process."""
     import torch
     torch.cuda.empty_cache()
-    arg = "torch.device('cuda', 0)" if on_card else ""
+    call = (["torch.device('cuda', 0)"] if on_card else []) + [
+        f"*json.loads({json.dumps(json.dumps(list(args)))})"]
     code = ("import json, torch, chip_smoke\n"
-            f"out = chip_smoke.{name}({arg})\n"
+            f"out = chip_smoke.{name}({', '.join(call)})\n"
             f"print({CHILD_RESULT!r} + json.dumps(out), flush=True)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=timeout)
@@ -2226,6 +2689,8 @@ SOURCES = {
                        "tpurt/wavefront.py:149"),
     "persist_refill": ("tpurt_torch/kernels/csrc/persist_refill.cu",
                        "tpurt/wavefront.py:496"),
+    "frame_graph": ("tpurt_torch/kernels/csrc/frame_graph.cu",
+                    "tpurt/trace.py:267"),
 }
 
 
@@ -2247,6 +2712,7 @@ def main() -> int:
                                  f"{results[k]['launches_per_call']} CUDA "
                                  "kernels a call")
     golden_rays = phase_goldens(dev)
+    results.update(phase_child("phase_graph", args=[golden_rays]))
     world = torch.cuda.device_count()
     # the main paths, each read on its own
     paths = {
@@ -2299,9 +2765,10 @@ def main() -> int:
     # on the render paths as device functions inside traverse_nearest
     # (0 launches of their own entry points, which are checked and timed
     # above); vmemloop runs on the probe's path; camera_rays,
-    # prims_nearest, bounce_shade and film_fold on every render path;
-    # packet_compact on c4-wavefront (and a wavefront rank of c5 would),
-    # persist_refill on c4-persist.
+    # prims_nearest, bounce_shade and film_fold on every render path (in
+    # mode mega as nodes of the frame graph, counted by execution);
+    # frame_graph on the mega paths; packet_compact on c4-wavefront (and
+    # a wavefront rank of c5 would), persist_refill on c4-persist.
     print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

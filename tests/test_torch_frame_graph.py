@@ -1,0 +1,353 @@
+"""tpurt_torch's frame graph (kernels/frame_graph.py) on the CPU: the
+plain versions of what the graph runs, and the graph's schedule against
+tpurt's one-dispatch frame pass.
+
+  * the cursor camera (camera_rays_cursor_plain, and the wrapper with
+    out buffers): array-equal to camera_rays_plain on the explicit
+    repeats of render.accumulate's host loop, at a ragged last block and
+    with c > 1, with alive and the live count;
+  * bounce_shade_plain with the bounce index as a 0-dim tensor (the
+    graph's device counter): bit-equal to the same call with an int;
+  * the fold at the cursor (film_fold_plain with the state): array-equal
+    to the host loop's fold of acc[p0:p0 + m], m = min(block, n - p0);
+  * the loop condition and the cursor's step: the bounces and rays the
+    host loop of trace.trace runs and counts, the batches in its order;
+  * the plain frame loop (the graph's schedule: cursor, condition,
+    rays_cast on the device) against tpurt's render_samples in mode mega
+    on g3 and a small blob: rays_cast equal, the film within 1e-4 RMSE
+    (XLA's CPU compiler contracts FMAs, which moves radiance by ulps and,
+    rarely, a path); against the port's host loop: array-equal;
+  * one cached graph per scene and shape: two cameras and two seeds on
+    one scene render through the same FrameGraph, each film array-equal
+    to the host loop's;
+  * batch_schedule: the runs tpurt's render_samples dispatches
+    (tpurt/render.py:249-263).
+The CUDA kernels and the captured graph are held against these on the
+card by chip_smoke.py's ``graph`` phase.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpurt import config as jconfig  # noqa: E402
+from tpurt import film  # noqa: E402
+from tpurt import render as jrender  # noqa: E402
+from tpurt_torch import camera as camera_mod  # noqa: E402
+from tpurt_torch import config as tconfig  # noqa: E402
+from tpurt_torch import render as trender  # noqa: E402
+from tpurt_torch import scene as tscene  # noqa: E402
+from tpurt_torch import trace as ttrace  # noqa: E402
+from tpurt_torch.kernels import bounce as bounce_k  # noqa: E402
+from tpurt_torch.kernels import camera as camera_k  # noqa: E402
+from tpurt_torch.kernels import film_fold as fold_k  # noqa: E402
+from tpurt_torch.kernels import frame_graph as fg_k  # noqa: E402
+from tpurt_torch.kernels import prims  # noqa: E402
+
+SMALL = tconfig.RenderConfig(width=40, height=30, spp=3, seed=7,
+                             scene="spheres_plane", max_depth=6, rr_start=2)
+
+
+@pytest.fixture(scope="module")
+def small():
+    scene, cam = tconfig.build_scene(SMALL)
+    return tscene.to_device(scene, "cpu"), cam
+
+
+def _padded(n, n_pad, seed):
+    """A pixel list of n random ids padded to n_pad with its last id, and
+    its live rows (a few dead inside, the tail dead)."""
+    rs = np.random.RandomState(seed)
+    pix = rs.randint(0, SMALL.width * SMALL.height, n)
+    ok = rs.uniform(size=n) > 0.1
+    pix_pad = np.concatenate([pix, np.full(n_pad - n, pix[-1])])
+    ok_pad = np.concatenate([ok, np.zeros(n_pad - n, bool)])
+    return torch.from_numpy(pix_pad.astype(np.int64)), torch.from_numpy(ok_pad)
+
+
+def _view(cam, cfg=SMALL):
+    return torch.tensor(camera_k.view_words(cam, cfg.width, cfg.height,
+                                            cfg.seed), dtype=torch.int32)
+
+
+def _state(p0=0, s0=0):
+    st = torch.zeros(fg_k.STATE_SLOTS, dtype=torch.int64)
+    st[fg_k.P0], st[fg_k.S0] = p0, s0
+    return st
+
+
+@pytest.mark.parametrize("n,block,c,p0,s0", [
+    (1000, 256, 1, 0, 0),
+    (1000, 256, 3, 768, 5),      # the ragged last block (232 rows), c = 3
+    (300, 128, 2, 256, 11),      # 44 live-or-dead rows, then the tail
+])
+def test_cursor_camera_equals_explicit_repeats(small, n, block, c, p0, s0):
+    _, cam = small
+    n_pad = -(-n // block) * block
+    pix, ok = _padded(n, n_pad, seed=n + c)
+    st = _state(p0, s0)
+    live = fg_k.live_word(st)
+    view = _view(cam)
+    got = camera_k.camera_rays_cursor_plain(view, pix, ok, st, c, block,
+                                            live)
+    # render.accumulate's host loop, as before the graph
+    pixf = pix[p0:p0 + block].repeat(c)
+    smp = torch.arange(s0, s0 + c).repeat_interleave(block)
+    o, d, keys = camera_k.camera_rays_plain(cam, SMALL.width, SMALL.height,
+                                            SMALL.seed, pixf, smp)
+    alive = ok[p0:p0 + block].repeat(c)
+    for g, w in zip(got, (o, d, keys, alive, torch.ones_like(o),
+                          torch.zeros_like(o))):
+        assert torch.equal(g, w)
+    assert int(live) == int(alive.sum())
+    # the wrapper writes the same into the caller's buffers
+    out = tuple(torch.empty_like(t) for t in got)
+    back = camera_k.camera_rays_cursor(view, pix, ok, st, c, block, live,
+                                       out=out)
+    assert back is out
+    assert all(torch.equal(g, w) for g, w in zip(out, got))
+    assert int(live) == 2 * int(alive.sum())
+
+
+def _bounce_inputs(scene, cam, n=1536, seed=3):
+    """A bounce's inputs from camera rays: o, d, atten, rad, alive, keys,
+    prim, tri."""
+    rs = np.random.RandomState(seed)
+    pix = torch.from_numpy(rs.randint(0, SMALL.width * SMALL.height, n))
+    o, d, keys = camera_k.camera_rays_plain(cam, SMALL.width, SMALL.height,
+                                            SMALL.seed, pix,
+                                            torch.zeros_like(pix))
+    alive = torch.from_numpy(rs.uniform(size=n) > 0.2)
+    atten = torch.from_numpy(rs.uniform(0.2, 1.0, (n, 3)).astype(np.float32))
+    rad = torch.from_numpy(rs.uniform(0.0, 0.5, (n, 3)).astype(np.float32))
+    prim = prims.prims_nearest_plain(scene, o, d, alive=alive)
+    tri = ttrace.search(scene, o, d, prim[0])
+    return o, d, atten, rad, alive, keys, prim, tri
+
+
+@pytest.mark.parametrize("depth,rr_start", [(0, None), (1, 2), (2, 2),
+                                            (5, 2)])
+def test_bounce_depth_tensor_bit_equal_to_int(small, depth, rr_start):
+    scene, cam = small
+    o, d, atten, rad, alive, keys, prim, tri = _bounce_inputs(scene, cam)
+    s_int = torch.zeros(1, dtype=torch.int32)
+    s_dev = torch.zeros(1, dtype=torch.int32)
+    want = bounce_k.bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
+                                       depth, rr_start, prim, tri, s_int)
+    got = bounce_k.bounce_shade_plain(
+        scene, o, d, atten, rad, alive, keys,
+        torch.tensor(depth, dtype=torch.int64), rr_start, prim, tri, s_dev)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32) if g.is_floating_point()
+                           else g,
+                           w.view(torch.int32) if w.is_floating_point()
+                           else w)
+    assert int(s_int) == int(s_dev) == int(want[4].sum())
+
+
+def test_bounce_in_place_equals_fresh_outputs(small):
+    """bounce_shade's wrapper with its outputs aliased to its inputs (the
+    graph's in-place update) leaves what fresh outputs get."""
+    scene, cam = small
+    o, d, atten, rad, alive, keys, prim, tri = _bounce_inputs(scene, cam)
+    want = bounce_k.bounce_shade(scene, o, d, atten, rad, alive, keys, 3, 2,
+                                 prim, tri)
+    state = [t.clone() for t in (o, d, atten, rad, alive)]
+    live_hit = torch.empty_like(alive)
+    depth = torch.tensor(3, dtype=torch.int64)
+    got = bounce_k.bounce_shade(scene, *state[:4], state[4], keys, depth, 2,
+                                prim, tri, out=(*state, live_hit))
+    assert got[0] is state[0] and got[5] is live_hit
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,block,c,p0", [(1000, 256, 1, 0),
+                                          (1000, 256, 2, 512),
+                                          (1000, 256, 3, 768),   # m = 232
+                                          (300, 384, 2, 0)])     # m = n
+def test_cursor_fold_equals_host_loop_slice(n, block, c, p0):
+    rs = np.random.RandomState(p0 + c)
+    acc = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32))
+    rad = torch.from_numpy(rs.normal(size=(c * block, 3)).astype(np.float32))
+    want = acc.clone()
+    m = min(block, n - p0)
+    fold_k.film_fold_plain(want[p0:p0 + m], rad, c, block)   # render.py
+    got = fold_k.film_fold(acc.clone(), rad, c, block, _state(p0))
+    assert torch.equal(got, want)
+    # a part, as the sample-sharded render folds: block rows at row 0,
+    # without the state
+    part = fold_k.film_fold(torch.zeros((block, 3)), rad, c, block)
+    assert torch.equal(part, fold_k.film_fold_plain(
+        torch.zeros((block, 3)), rad, c, block, _state(0)))
+
+
+@pytest.mark.parametrize("live,max_depth", [([5, 3, 1, 0, 7], 8),
+                                            ([5, 3, 1, 2], 3),
+                                            ([0, 4], 5),
+                                            ([4, 4], 0)])
+def test_condition_stops_where_the_host_loop_stops(live, max_depth):
+    """live[k]: the rays entering bounce k. The condition runs as many
+    bounces, with the same bounce indices, and counts the same rays as
+    trace.trace's host loop (break at 0, stop at max_depth)."""
+    want_depths = []
+    for depth in range(max_depth):
+        if live[depth] == 0:
+            break
+        want_depths.append(depth)
+    st = _state()
+    word = fg_k.live_word(st)
+    depths = []
+    word.fill_(live[0])
+    fg_k.frame_cond(st, max_depth)
+    while int(st[fg_k.GO]):
+        depths.append(int(st[fg_k.DEPTH]))
+        word.fill_(live[len(depths)] if len(depths) < len(live) else 0)
+        fg_k.frame_cond(st, max_depth)
+    assert depths == want_depths
+    assert int(st[fg_k.RAYS]) == sum(live[k] for k in want_depths)
+    assert int(st[fg_k.ITERS]) == int(st[fg_k.K]) == len(want_depths)
+    assert int(word) == 0
+
+
+@pytest.mark.parametrize("n,block,c,chunks", [(1000, 256, 1, 3),
+                                              (1000, 512, 2, 2),
+                                              (128, 128, 4, 2)])
+def test_advance_walks_the_host_loop_order(n, block, c, chunks):
+    n_pad = -(-n // block) * block
+    want = [(p0, s0) for s0 in range(9, 9 + c * chunks, c)
+            for p0 in range(0, n_pad, block)]
+    st, got = _state(0, 9), []
+    for _ in want:
+        got.append((int(st[fg_k.P0]), int(st[fg_k.S0])))
+        fg_k.frame_advance(st, block, n_pad, c)
+    assert got == want
+    assert (int(st[fg_k.P0]), int(st[fg_k.S0])) == (0, 9 + c * chunks)
+
+
+FRAME_CASES = {
+    "g3-cornell": dict(width=48, height=48, spp=8, seed=11,
+                       scene="cornell", mode="mega", max_depth=6),
+    "blob": dict(width=32, height=24, spp=3, seed=5, scene="blob",
+                 mesh_subdiv=2, mode="mega", max_depth=5, rr_start=2,
+                 spp_chunk=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FRAME_CASES))
+def test_plain_frame_loop_matches_tpurt_render_samples(name):
+    kw = FRAME_CASES[name]
+    tcfg = tconfig.RenderConfig(**kw)
+    jcfg = jconfig.RenderConfig(**kw)
+    scene, cam = tconfig.build_scene(tcfg)
+    dev = tscene.to_device(scene, "cpu")
+    got, rays = trender.render_samples(tcfg, dev, cam, 0, tcfg.spp)
+    jscene, jcam = jconfig.build_scene(jcfg)
+    jfilm, jrays = jrender.render_samples(jcfg, jscene.device(), jcam, 0,
+                                          jcfg.spp)
+    assert rays == int(jrays)
+    assert film.rmse(got.numpy(), np.asarray(jfilm)) < 1e-4
+    host, host_rays = trender.render_samples(tcfg, dev, cam, 0, tcfg.spp,
+                                             host_loop=True)
+    assert host_rays == rays and torch.equal(host, got)
+
+
+def test_frame_graph_state_after_a_call(small):
+    """One accumulate call's graph on the CPU: the state's rays_cast and
+    bounces are the host loop's, and the cursor ends past the range."""
+    scene, cam = small
+    cfg = SMALL.replace(spp_chunk=2)
+    n = cfg.width * cfg.height
+    block = trender.block_size(n, cfg.ray_batch)
+    pix, valid, _ = trender.order_cached(cfg.width, cfg.height, block, "cpu")
+    g = fg_k.get(scene, pix.shape[0], block, 2, cfg.max_depth,
+                 cfg.rr_start, False, "cpu")
+    acc = torch.zeros((pix.shape[0], 3))
+    g.begin(cam, cfg.width, cfg.height, cfg.seed, pix, valid, acc, 1)
+    g.launch(scene)
+    g.end(acc)
+    want = torch.zeros_like(acc)
+    want_tally = trender.accumulate(cfg, scene, cam, pix, valid, 1, 3, want,
+                                    host_loop=True)
+    assert want_tally.tolist() == [int(g.state[fg_k.RAYS]), 0]
+    assert torch.equal(acc, want)
+    assert 0 < int(g.state[fg_k.ITERS]) <= cfg.max_depth
+    assert (int(g.state[fg_k.P0]), int(g.state[fg_k.S0])) == (0, 3)
+    # the graph's own call tallies its rays and bounces
+    again = torch.zeros_like(acc)
+    tally = trender.accumulate(cfg, scene, cam, pix, valid, 1, 3, again)
+    assert tally.tolist() == [int(g.state[fg_k.RAYS]),
+                              int(g.state[fg_k.ITERS])]
+    assert fg_k.read_tally(scene, tally) == int(g.state[fg_k.RAYS])
+    assert torch.equal(again, want)
+
+
+def test_one_graph_serves_every_camera_and_seed():
+    """The graph cache holds shapes only: two cameras and two seeds on one
+    scene go through one FrameGraph (the view is loaded for each call),
+    and each film is the host loop's, array-equal. The entry goes when
+    the scene is freed."""
+    cfg = SMALL.replace(width=24, height=16, spp=2)
+    scene, cam = tconfig.build_scene(cfg)
+    scene = tscene.to_device(scene, "cpu")
+    other = camera_mod.make_camera((1.5, 1.0, 2.5), (0.0, 0.2, -1.0),
+                                   (0.0, 1.0, 0.0), 35.0, cfg.aspect)
+    before = set(fg_k._CACHE)
+    films = []
+    for c, seed in ((cam, cfg.seed), (other, cfg.seed), (other, 99)):
+        run = cfg.replace(seed=seed)
+        got, rays = trender.render_samples(run, scene, c, 0, run.spp)
+        want, want_rays = trender.render_samples(run, scene, c, 0, run.spp,
+                                                 host_loop=True)
+        assert rays == want_rays and torch.equal(got, want)
+        films.append(got)
+        assert len(set(fg_k._CACHE) - before) == 1
+    assert not torch.equal(films[0], films[1])
+    assert not torch.equal(films[1], films[2])
+    del scene
+    assert set(fg_k._CACHE) == before
+
+
+@pytest.mark.parametrize("start,stop,chunk", [(0, 8, 3), (0, 4, 4),
+                                              (2, 9, 2), (5, 6, 4),
+                                              (0, 7, 1)])
+def test_batch_schedule_equals_tpurt(monkeypatch, start, stop, chunk):
+    """The (s0, c, n_chunks) runs tpurt's render_samples hands to
+    _accum_frame (recorded instead of traced)."""
+    cfg = jconfig.RenderConfig(width=16, height=16, spp=stop, seed=1,
+                               scene="spheres_plane", mode="mega",
+                               spp_chunk=chunk)
+    scene, cam = jconfig.build_scene(cfg)
+    runs = []
+
+    def record(scene, cam, order_pad, valid_pad, inv_order, film_flat,
+               nrays_acc, s0, n_chunks, seed, width, height, mode,
+               max_depth, rr_start, block, c, n_blocks):
+        runs.append((int(s0), c, int(n_chunks)))
+        return film_flat, nrays_acc
+
+    monkeypatch.setattr(jrender, "_accum_frame", record)
+    jrender.render_samples(cfg, scene, cam, start, stop)
+    assert trender.batch_schedule(start, stop,
+                                  min(chunk, max(1, stop - start))) == runs
+
+
+@pytest.mark.parametrize("fn", ["camera", "fold", "cond", "advance"])
+def test_graph_wrappers_raise_off_the_cpu(small, fn):
+    """A wrapper runs its plain version only for CPU tensors; tensors on
+    another device (here meta) must launch a kernel or raise."""
+    _, cam = small
+    st = torch.zeros(fg_k.STATE_SLOTS, dtype=torch.int64, device="meta")
+    pix = torch.zeros(256, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        if fn == "camera":
+            camera_k.camera_rays_cursor(
+                _view(cam).to("meta"), pix, pix.bool(), st, 1, 256,
+                torch.zeros(1, dtype=torch.int32, device="meta"))
+        elif fn == "fold":
+            fold_k.film_fold(torch.zeros((256, 3), device="meta"),
+                             torch.zeros((256, 3), device="meta"), 1, 256,
+                             st)
+        elif fn == "cond":
+            fg_k.frame_cond(st, 4)
+        else:
+            fg_k.frame_advance(st, 128, 256, 1)

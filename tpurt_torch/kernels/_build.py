@@ -13,7 +13,12 @@ floats). So there is no ``--use_fast_math``, no ``-ftz=true``, and
 division and sqrt stay IEEE.
 
 Each C entry point returns ``cudaGetLastError()``; ``launch`` raises on
-anything but 0. ``LAUNCHES`` counts successful launches per kernel.
+anything but 0. ``LAUNCHES`` counts the kernels that ran, by kernel: a
+wrapper counts its launch (``count``), except while a frame graph is
+being captured (``CAPTURING``); a graph replay counts its fixed nodes
+when it is launched, and the caller that reads the render's ray count
+adds its bounce iterations, which only the device knows
+(``frame_graph.read_tally``).
 """
 
 from __future__ import annotations
@@ -46,20 +51,36 @@ SIGNATURES = {
     "tt_vmemloop": "p" * 9 + "i" * 7,
     "tt_vmemloop_clusters": "iip",
     "tt_camera_rays": "p" * 5 + "i" * 22,
+    "tt_camera_rays_cursor": "p" * 11 + "ii",
     "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
     "tt_hit_shade": "p" * 17 + "i",
-    "tt_bounce_shade": "p" * 7 + "iii" + "p" * 22 + "i",
-    "tt_film_fold": "pp" + "iii",
+    "tt_bounce_shade": "p" * 8 + "iii" + "p" * 22 + "i",
+    "tt_film_fold": "ppp" + "iii",
+    "tt_frame_graph": "pp" + "ii",
+    "tt_frame_advance": "p" + "iii",
+    "tt_graph_begin": "p",
+    "tt_graph_while": "pp",
+    "tt_graph_while_end": "",
+    "tt_graph_end": "p",
+    "tt_graph_abort": "p",
+    "tt_graph_launch": "p",
+    "tt_graph_destroy": "p",
+    "tt_graph_memset": "pi",
     "tt_packet_compact": "p" * 18 + "iii",
     "tt_persist_refill": "p" * 14 + "i" * 9 + "i" * 18,
 }
 
-# kernel name -> launches since the last reset (counted by the wrappers,
-# one a call; every call starts one CUDA kernel)
+# kernel name -> launches since the last reset (one a wrapper call, or
+# one a node run of a frame graph; every one starts one CUDA kernel)
 LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
             "nearest_tri_small": 0, "vmemloop": 0, "camera_rays": 0,
             "prims_nearest": 0, "bounce_shade": 0, "film_fold": 0,
-            "packet_compact": 0, "persist_refill": 0}
+            "packet_compact": 0, "persist_refill": 0, "frame_graph": 0}
+
+# True while kernels/frame_graph.py captures a graph: the wrappers then
+# record nodes, which run (and are counted) only when the graph is
+# launched
+CAPTURING = [False]
 
 _LOADED: dict = {}
 
@@ -67,6 +88,12 @@ _LOADED: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count(kernel: str) -> None:
+    """One launch of ``kernel`` by its wrapper (none while capturing)."""
+    if not CAPTURING[0]:
+        LAUNCHES[kernel] += 1
 
 
 def _nvcc() -> str:
@@ -144,6 +171,14 @@ def load():
         lib.tt_error_string.restype = ctypes.c_char_p
         _LOADED["lib"] = lib
     return _LOADED["lib"]
+
+
+def copy_into(out, got):
+    """A plain version's outputs ``got`` copied into the caller's ``out``
+    tensors (the frame graph's fixed buffers, on the CPU); returns out."""
+    for dst, src in zip(out, got):
+        dst.copy_(src)
+    return out
 
 
 def cuda_device(kernel: str, t):

@@ -180,21 +180,26 @@ def hit_shade(scene, o, d, prim, tri):
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     _build.launch("tt_hit_shade", dev, o, d, *_prim_args(prim, n, dev),
                   *_tri_args(scene, tri, n, dev), t, nrm, front, mat, ok, n)
-    _build.LAUNCHES["bounce_shade"] += 1
+    _build.count("bounce_shade")
     return t, nrm, front, mat, ok
 
 
 def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                  prim, tri, survivors=None, live_packets=None,
-                 packet_flags=None):
+                 packet_flags=None, out=None):
     """trace.bounce after its searches on o's device: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors (or an error).
-    depth: the bounce index, an int or an (N,) integer tensor of per-ray
-    depths; rr_start: None or the first bounce with roulette."""
+    depth: the bounce index, an int, a 0-dim int64 tensor on the device
+    (read when the kernel runs: the frame graph's bounce counter) or an
+    (N,) integer tensor of per-ray depths; rr_start: None or the first
+    bounce with roulette. ``out``, if given, is the six outputs to write,
+    and may be (o, d, atten, rad, alive, live_hit) themselves: the
+    update is then in place."""
     if o.device.type == "cpu":
-        return bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
-                                  depth, rr_start, prim, tri, survivors,
-                                  live_packets, packet_flags)
+        got = bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
+                                 depth, rr_start, prim, tri, survivors,
+                                 live_packets, packet_flags)
+        return got if out is None else _build.copy_into(out, got)
     dev = _build.cuda_device("bounce_shade", o)
     n = o.shape[0]
     atten, rad, keys = atten.contiguous(), rad.contiguous(), keys.contiguous()
@@ -206,11 +211,13 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
     _build.check("mat_packed", scene.mat_packed, (m, 16), torch.float32, dev)
     _build.check("sky_a", scene.sky_a, (3,), torch.float32, dev)
     _build.check("sky_b", scene.sky_b, (3,), torch.float32, dev)
-    if torch.is_tensor(depth):
+    depth_v = depth_p = None
+    if torch.is_tensor(depth) and depth.dim() == 0:
+        depth_p, depth = depth, 0
+        _build.check("depth", depth_p, (), torch.int64, dev)
+    elif torch.is_tensor(depth):
         depth_v, depth = depth.to(torch.int64).contiguous(), 0
         _build.check("depth", depth_v, (n,), torch.int64, dev)
-    else:
-        depth_v = None
     for name, count in (("survivors", survivors),
                         ("live_packets", live_packets)):
         if count is not None:
@@ -218,17 +225,23 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
     if packet_flags is not None:
         _build.check("packet_flags", packet_flags, (-(-n // PACKET_R),),
                      torch.bool, dev)
-    outs = (torch.empty((n, 3), dtype=torch.float32, device=dev),
-            torch.empty((n, 3), dtype=torch.float32, device=dev),
-            torch.empty((n, 3), dtype=torch.float32, device=dev),
-            torch.empty((n, 3), dtype=torch.float32, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev))
+    outs = out if out is not None else (
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty((n, 3), dtype=torch.float32, device=dev),
+        torch.empty(n, dtype=torch.bool, device=dev),
+        torch.empty(n, dtype=torch.bool, device=dev))
+    for name, a, shape, dtype in zip(
+            ("o out", "d out", "atten out", "rad out", "alive out",
+             "live_hit out"), outs, ((n, 3),) * 4 + ((n,),) * 2,
+            (torch.float32,) * 4 + (torch.bool,) * 2):
+        _build.check(name, a, shape, dtype, dev)
     _build.launch("tt_bounce_shade", dev, o, d, atten, rad, alive, keys,
-                  depth_v, int(depth), int(rr_start is not None),
+                  depth_v, depth_p, int(depth), int(rr_start is not None),
                   0 if rr_start is None else int(rr_start),
                   *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
                   scene.mat_packed, scene.sky_a, scene.sky_b, *outs,
                   survivors, live_packets, packet_flags, n)
-    _build.LAUNCHES["bounce_shade"] += 1
+    _build.count("bounce_shade")
     return outs

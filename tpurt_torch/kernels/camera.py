@@ -5,6 +5,15 @@ of tpurt's compiled render step, ``rng.make_streams`` + ``camera_draws``
 The plain version is those three functions of the port in eager
 PyTorch; the kernel computes the same rays and keys in one launch, bit
 for bit as the plain version computes them on a card.
+
+``camera_rays_cursor`` is the frame graph's camera (kernels/
+frame_graph.py): the batch at a cursor on the device, c samples of
+``block`` rows of a padded pixel list from row p0 = state[0], samples
+from s0 = state[1] on, sample-major (tpurt/render.py:151-155), with the
+camera, frame size and seed read from a view array on the device (so a
+captured graph serves any camera and seed); it also writes each ray's
+alive flag and its start state (atten 1, rad 0) and adds the live rays
+into a count on the device.
 """
 
 from __future__ import annotations
@@ -59,5 +68,85 @@ def camera_rays(cam, width: int, height: int, seed: int, pixel_ids,
     keys = torch.empty((3, n), dtype=torch.int64, device=dev)
     _build.launch("tt_camera_rays", dev, pix, smp, o, d, keys, n,
                   as_i32(seed), width, height, *cam_bits(cam))
-    _build.LAUNCHES["camera_rays"] += 1
+    _build.count("camera_rays")
     return o, d, keys
+
+
+VIEW_WORDS = 21   # seed, width, height, the camera's 18 bit patterns
+
+
+def view_words(cam, width: int, height: int, seed: int) -> list:
+    """The frame graph's view as int32 words (``VIEW_WORDS``): the seed's
+    low 32 bits, width, height and cam_bits(cam), as the cursor camera
+    reads them on the device."""
+    return [as_i32(seed), width, height, *cam_bits(cam)]
+
+
+def view_unpack(view):
+    """(cam, width, height, seed) of a view (VIEW_WORDS,) int32 tensor:
+    view_words' inverse (the seed's low 32 bits, which are all the rng
+    keeps)."""
+    words = [int(w) for w in view.tolist()]
+    vecs = np.array(words[3:], np.int32).view(np.float32).reshape(6, 3)
+    return (camera_mod.Camera(*vecs), words[1], words[2],
+            words[0] & 0xFFFFFFFF)
+
+
+def camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c: int,
+                             block: int, live):
+    """Plain PyTorch version of the cursor camera: the explicit repeats
+    of render.accumulate's host loop at p0 = state[0], s0 = state[1],
+    with the camera, frame size and seed of ``view`` (view_words).
+    Returns (o, d, keys, alive, atten, rad); live (1,) int32 gains the
+    live rays."""
+    cam, width, height, seed = view_unpack(view)
+    p0, s0 = int(state[0]), int(state[1])
+    rows = slice(p0, p0 + block)
+    pixf = pix_pad[rows].repeat(c)                       # sample-major
+    smp = (s0 + torch.arange(c, device=pix_pad.device)).repeat_interleave(
+        block)
+    o, d, keys = camera_rays_plain(cam, width, height, seed, pixf, smp)
+    alive = ok_pad[rows].repeat(c)
+    live.add_(alive.sum(dtype=torch.int32))
+    return (o, d, keys, alive, torch.ones_like(o), torch.zeros_like(o))
+
+
+def camera_rays_cursor(view, pix_pad, ok_pad, state, c: int, block: int,
+                       live, out=None):
+    """The batch at the cursor on pix_pad's device: the plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors (or an error). view
+    (VIEW_WORDS,) int32: the camera, frame size and seed (view_words);
+    pix_pad (n_pad,) int64 and ok_pad (n_pad,) bool: the padded pixel
+    list and its live rows; state (>= 2,) int64 holds p0, s0; live (1,)
+    int32. ``out``, if given, is (o, d, keys, alive, atten, rad) to write
+    (the frame graph's fixed buffers), else they are allocated. Returns
+    them."""
+    n = c * block
+    if pix_pad.device.type == "cpu":
+        got = camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c,
+                                       block, live)
+        return got if out is None else _build.copy_into(out, got)
+    dev = _build.cuda_device("camera_rays", pix_pad)
+    n_pad = pix_pad.shape[0]
+    _build.check("view", view, (VIEW_WORDS,), torch.int32, dev)
+    _build.check("pix_pad", pix_pad, (n_pad,), torch.int64, dev)
+    _build.check("ok_pad", ok_pad, (n_pad,), torch.bool, dev)
+    _build.check("state", state, (state.shape[0],), torch.int64, dev)
+    _build.check("live", live, (1,), torch.int32, dev)
+    if out is None:
+        out = (torch.empty((n, 3), dtype=torch.float32, device=dev),
+               torch.empty((n, 3), dtype=torch.float32, device=dev),
+               torch.empty((3, n), dtype=torch.int64, device=dev),
+               torch.empty(n, dtype=torch.bool, device=dev),
+               torch.empty((n, 3), dtype=torch.float32, device=dev),
+               torch.empty((n, 3), dtype=torch.float32, device=dev))
+    for name, a, shape, dtype in zip(
+            ("o", "d", "keys", "alive", "atten", "rad"), out,
+            ((n, 3), (n, 3), (3, n), (n,), (n, 3), (n, 3)),
+            (torch.float32, torch.float32, torch.int64, torch.bool,
+             torch.float32, torch.float32)):
+        _build.check(name, a, shape, dtype, dev)
+    _build.launch("tt_camera_rays_cursor", dev, pix_pad, ok_pad, state,
+                  view, *out, live, n, block)
+    _build.count("camera_rays")
+    return out

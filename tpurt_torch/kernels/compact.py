@@ -108,5 +108,5 @@ def packet_compact(q, rad_out, keep: int, packet_flags=None,
         flags, outs, live_pk = None, (None,) * 8, 0
     _build.launch("tt_packet_compact", dev, *q, flags, rad_out, *outs, n,
                   keep, live_pk)
-    _build.LAUNCHES["packet_compact"] += 1
+    _build.count("packet_compact")
     return out

@@ -6,8 +6,10 @@
 // Russian roulette), which XLA compiles into a few fused kernels on the
 // TPU (plain version: kernels/bounce.py::bounce_shade_plain, eager
 // PyTorch). In: the ray state o, d, atten, rad (N,3) f32, alive (N,) bool,
-// keys (3,N) int64; the bounce index, one int or a per-ray (N,) int64
-// (the persistent pool's); roulette on or off and its first depth; the
+// keys (3,N) int64; the bounce index: one int, or one int64 on the device
+// (the frame graph's bounce counter, kernels/frame_graph.py, which a
+// captured launch must read when it runs), or a per-ray (N,) int64 (the
+// persistent pool's); roulette on or off and its first depth; the
 // primitives' hit (prims_nearest: t, n, mat) and the triangle search's (t,
 // n, mat, hit, and the winner's gid, or its slot with tri_src to map it);
 // the scene's tri_shn rows (or null), mat_packed (M,16) and sky. Out: the
@@ -17,6 +19,14 @@
 // (the wavefront queue's shrink reads both at once), and packet_flags, if
 // not null, gets one byte a packet, 1 where it holds one (the order of
 // the shrink's packet_compact).
+//
+// The outputs o, d, atten, rad and alive may be the inputs themselves
+// (the frame graph updates its ray state in place: a captured body that
+// runs many times has fixed pointers). That is safe because a thread
+// touches only its own ray i, and reads all of ray i's inputs (o, d,
+// atten, rad into registers, alive[i] and the keys as arguments of
+// bounce_ray) before its first store; those pointers carry no
+// __restrict__, so the compiler keeps every load ahead of the stores.
 //
 // tt_hit_shade is the same kernel stopped after the merge: trace.intersect
 // on a card (the Hit's t, n, front, mat, ok), for mode primary.
@@ -89,15 +99,14 @@ __global__ void hit_shade_kernel(const float* __restrict__ o,
 }
 
 __global__ void bounce_shade_kernel(
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ atten, const float* __restrict__ rad,
-    const bool* __restrict__ alive, const long long* __restrict__ keys,
-    const long long* __restrict__ depth_v, long long depth, bool rr,
+    const float* o, const float* d, const float* atten, const float* rad,
+    const bool* alive, const long long* __restrict__ keys,
+    const long long* __restrict__ depth_v,
+    const long long* __restrict__ depth_p, long long depth, bool rr,
     long long rr_start, Hits h, const float* __restrict__ mat_packed,
     const float* __restrict__ sky_a, const float* __restrict__ sky_b,
-    float* __restrict__ o_out, float* __restrict__ d_out,
-    float* __restrict__ atten_out, float* __restrict__ rad_out,
-    bool* __restrict__ alive_out, bool* __restrict__ live_hit_out,
+    float* o_out, float* d_out, float* atten_out, float* rad_out,
+    bool* alive_out, bool* __restrict__ live_hit_out,
     int* __restrict__ survivors, int* __restrict__ live_packets,
     bool* __restrict__ packet_flags, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -115,7 +124,10 @@ __global__ void bounce_shade_kernel(
         ro, rd, ra, rr_, alive[i], t, nrm, front, mat, ok, mat_packed,
         tt::load3(sky_a), tt::load3(sky_b), (uint32_t)keys[i],
         (uint32_t)keys[(size_t)n + i], (uint32_t)keys[2 * (size_t)n + i],
-        depth_v != nullptr ? depth_v[i] : depth, rr, rr_start, live_hit);
+        depth_v != nullptr   ? depth_v[i]
+        : depth_p != nullptr ? *depth_p
+                             : depth,
+        rr, rr_start, live_hit);
     tt::store3(o_out + k, ro);
     tt::store3(d_out + k, rd);
     tt::store3(atten_out + k, ra);
@@ -179,13 +191,16 @@ extern "C" int tt_hit_shade(const void* o, const void* d, const void* t_p,
   return (int)cudaGetLastError();
 }
 
-// depth_v (per-ray int64 depths), tri_src, tri_shn, survivors,
-// live_packets and packet_flags ((n + 127) / 128 bytes) may be null; with
-// depth_v null every ray is at bounce `depth`. rr: 0 for no roulette,
+// depth_v (per-ray int64 depths), depth_p (one int64 depth on the
+// device), tri_src, tri_shn, survivors, live_packets and packet_flags
+// ((n + 127) / 128 bytes) may be null; with both depths null every ray is
+// at bounce `depth`. o_out, d_out, atten_out, rad_out and alive_out may
+// be o, d, atten, rad and alive (in place). rr: 0 for no roulette,
 // else roulette from depth rr_start on.
 extern "C" int tt_bounce_shade(
     const void* o, const void* d, const void* atten, const void* rad,
-    const void* alive, const void* keys, const void* depth_v, int depth,
+    const void* alive, const void* keys, const void* depth_v,
+    const void* depth_p, int depth,
     int rr, int rr_start, const void* t_p, const void* n_p, const void* m_p,
     const void* t_t, const void* n_t, const void* m_t, const void* h_t,
     const void* idx, const void* tri_src, const void* tri_shn,
@@ -198,7 +213,8 @@ extern "C" int tt_bounce_shade(
                           (cudaStream_t)stream>>>(
         (const float*)o, (const float*)d, (const float*)atten,
         (const float*)rad, (const bool*)alive, (const long long*)keys,
-        (const long long*)depth_v, depth, rr != 0, rr_start,
+        (const long long*)depth_v, (const long long*)depth_p, depth, rr != 0,
+        rr_start,
         make_hits(t_p, n_p, m_p, t_t, n_t, m_t, h_t, idx, tri_src, tri_shn),
         (const float*)mat_packed, (const float*)sky_a, (const float*)sky_b,
         (float*)o_out, (float*)d_out, (float*)atten_out, (float*)rad_out,

@@ -15,6 +15,19 @@
 // below the card's operation/byte balance for these pipes). Design: one
 // thread per ray, no shared memory; the per-ray math is primary_ray in
 // shade_common.cuh (draw_pair from threefry.cuh, then camera_ray).
+//
+// tt_camera_rays_cursor is the frame graph's entry point (replaces the
+// batch indexing of tpurt/render.py:144-162, dynamic_slice at :151-152,
+// tile / repeat at :153-155): it reads the batch's first pixel row p0
+// and first sample s0 from the frame's device state (kernels/
+// frame_graph.py: state[0] = p0, state[1] = s0), and the seed, the
+// frame's size and the camera from a view array on the device (the frame
+// graph's, written before each call), so one captured launch serves every
+// batch, camera and seed. Ray i = j * block + b (sample-major) takes pixel
+// pix_pad[p0 + b], sample s0 + j and alive = ok_pad[p0 + b]; it also
+// starts the bounce state (atten 1, rad 0) and adds the batch's live rays
+// into a count (per block by __syncthreads_count, one atomicAdd), which
+// the loop's first condition reads (trace.py's live[0]).
 #include <cuda_runtime.h>
 
 #include "shade_common.cuh"
@@ -39,6 +52,40 @@ __global__ void camera_rays_kernel(const long long* __restrict__ pix,
   keys[2 * (size_t)n + i] = seed;
 }
 
+__global__ void camera_rays_cursor_kernel(
+    const long long* __restrict__ pix_pad, const bool* __restrict__ ok_pad,
+    const long long* __restrict__ state, const int* __restrict__ params,
+    float* __restrict__ o, float* __restrict__ d,
+    long long* __restrict__ keys, bool* __restrict__ alive,
+    float* __restrict__ atten, float* __restrict__ rad,
+    int* __restrict__ live, int n, int block) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool ok = false;
+  if (i < n) {
+    const uint32_t seed = (uint32_t)params[0];
+    const int width = params[1], height = params[2];
+    const tt::Cam cam = tt::cam_from_bits(params + 3);
+    const int b = i % block;
+    const long long row = state[0] + b;
+    const long long pix = pix_pad[row];
+    const long long smp = state[1] + i / block;
+    ok = ok_pad[row];
+    tt::V3 ro, rd;
+    tt::primary_ray(cam, width, height, seed, pix, smp, ro, rd);
+    const size_t k = 3 * (size_t)i;
+    tt::store3(o + k, ro);
+    tt::store3(d + k, rd);
+    tt::store3(atten + k, tt::v3(1.0f, 1.0f, 1.0f));
+    tt::store3(rad + k, tt::v3(0.0f, 0.0f, 0.0f));
+    alive[i] = ok;
+    keys[i] = (uint32_t)(unsigned long long)pix;
+    keys[(size_t)n + i] = (uint32_t)(unsigned long long)smp;
+    keys[2 * (size_t)n + i] = seed;
+  }
+  const int c = __syncthreads_count(ok);
+  if (threadIdx.x == 0 && c > 0) atomicAdd(live, c);
+}
+
 }  // namespace
 
 // cam: the float32 bit patterns of origin, lower_left, horizontal,
@@ -59,6 +106,28 @@ extern "C" int tt_camera_rays(const void* pix, const void* smp, void* o,
                          (cudaStream_t)stream>>>(
         (const long long*)pix, (const long long*)smp, (float*)o, (float*)d,
         (long long*)keys, n, (uint32_t)seed, width, height, cam);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The frame graph's camera: n = c * block rays of the batch at the cursor
+// in state (int64: p0, s0); pix_pad (int64) and ok_pad (bool) hold the
+// padded pixel list, at least p0 + block rows; params (int32) the view:
+// seed, width, height and the camera's 18 float32 bit patterns. Writes o,
+// d, keys, alive, atten = 1 and rad = 0, and adds the live rays into
+// *live (int32).
+extern "C" int tt_camera_rays_cursor(
+    const void* pix_pad, const void* ok_pad, const void* state,
+    const void* params, void* o, void* d, void* keys, void* alive,
+    void* atten, void* rad, void* live, int n, int block, void* stream) {
+  if (n > 0 && block > 0) {
+    const int threads = 256;
+    camera_rays_cursor_kernel<<<(n + threads - 1) / threads, threads, 0,
+                                (cudaStream_t)stream>>>(
+        (const long long*)pix_pad, (const bool*)ok_pad,
+        (const long long*)state, (const int*)params, (float*)o, (float*)d,
+        (long long*)keys, (bool*)alive, (float*)atten, (float*)rad,
+        (int*)live, n, block);
   }
   return (int)cudaGetLastError();
 }

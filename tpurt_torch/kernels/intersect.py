@@ -23,13 +23,15 @@ def nearest_tri_small_plain(o, d, v0, e1, e2, mat, t_max):
     return geometry.hit_triangles_brute(o, d, v0, e1, e2, mat, t_max)
 
 
-def nearest_tri_small(o, d, v0, e1, e2, mat, t_max):
+def nearest_tri_small(o, d, v0, e1, e2, mat, t_max, out=None):
     """Nearest triangle hit on o's device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (or an error). o, d (N,3)
     f32; v0, e1, e2 (T,3) f32 and mat (T,) i32 with T >= 1; t_max (N,)
-    f32, 0 marking a dead lane."""
+    f32, 0 marking a dead lane. ``out``, if given, is the five outputs
+    to write."""
     if o.device.type == "cpu":
-        return nearest_tri_small_plain(o, d, v0, e1, e2, mat, t_max)
+        got = nearest_tri_small_plain(o, d, v0, e1, e2, mat, t_max)
+        return got if out is None else _build.copy_into(out, got)
     dev = _build.cuda_device("nearest_tri_small", o)
     n, n_tri = o.shape[0], v0.shape[0]
     if n_tri < 1:
@@ -40,12 +42,19 @@ def nearest_tri_small(o, d, v0, e1, e2, mat, t_max):
         _build.check(name, a, (n_tri, 3), torch.float32, dev)
     _build.check("mat", mat, (n_tri,), torch.int32, dev)
     _build.check("t_max", t_max, (n,), torch.float32, dev)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    nrm = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    mat_o = torch.empty(n, dtype=torch.int32, device=dev)
-    hit = torch.empty(n, dtype=torch.bool, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty((n, 3), dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.bool, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev))
+    for name, a, shape, dtype in zip(
+            ("t out", "n out", "mat out", "hit out", "tri out"), out,
+            ((n,), (n, 3), (n,), (n,), (n,)),
+            (torch.float32, torch.float32, torch.int32, torch.bool,
+             torch.int32)):
+        _build.check(name, a, shape, dtype, dev)
     _build.launch("tt_nearest_tri_small", dev, o, d, v0, e1, e2, mat, n_tri,
-                  t_max, t, nrm, mat_o, hit, tri, n)
-    _build.LAUNCHES["nearest_tri_small"] += 1
-    return t, nrm, mat_o, hit, tri
+                  t_max, *out, n)
+    _build.count("nearest_tri_small")
+    return out

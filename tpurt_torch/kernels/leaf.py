@@ -110,5 +110,5 @@ def leaf_phase(tri_rows, ox, oy, oz, dx, dy, dz, t_in, pending):
               for _ in range(2)]
     _build.launch("tt_leaf_phase", dev, tri_rows, *rays, pending,
                   *f_outs, *i_outs, p)
-    _build.LAUNCHES["leaf_phase"] += 1
+    _build.count("leaf_phase")
     return (*f_outs, *i_outs)

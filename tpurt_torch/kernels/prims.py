@@ -49,12 +49,14 @@ def prims_nearest_plain(scene, o, d, alive=None, t_cap=None):
     return t_best, n_best, m_best
 
 
-def prims_nearest(scene, o, d, alive=None, t_cap=None):
+def prims_nearest(scene, o, d, alive=None, t_cap=None, out=None):
     """Sphere and plane nearest hit on o's device: the plain version for
     CPU tensors, the CUDA kernel for CUDA tensors (or an error). o, d
-    (N,3) f32; alive (N,) bool or t_cap (N,) f32, at most one."""
+    (N,3) f32; alive (N,) bool or t_cap (N,) f32, at most one. ``out``,
+    if given, is the three outputs to write."""
     if o.device.type == "cpu":
-        return prims_nearest_plain(scene, o, d, alive, t_cap)
+        got = prims_nearest_plain(scene, o, d, alive, t_cap)
+        return got if out is None else _build.copy_into(out, got)
     dev = _build.cuda_device("prims_nearest", o)
     if alive is not None and t_cap is not None:
         raise ValueError("prims_nearest: give alive or t_cap, not both")
@@ -73,11 +75,16 @@ def prims_nearest(scene, o, d, alive=None, t_cap=None):
     _build.check("pln_n", scene.pln_n, (n_pln, 3), torch.float32, dev)
     _build.check("pln_k", scene.pln_k, (n_pln,), torch.float32, dev)
     _build.check("pln_mat", scene.pln_mat, (n_pln,), torch.int32, dev)
-    t_best = torch.empty(n, dtype=torch.float32, device=dev)
-    n_best = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    m_best = torch.empty(n, dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty((n, 3), dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev))
+    t_best, n_best, m_best = out
+    _build.check("t out", t_best, (n,), torch.float32, dev)
+    _build.check("n out", n_best, (n, 3), torch.float32, dev)
+    _build.check("mat out", m_best, (n,), torch.int32, dev)
     _build.launch("tt_prims_nearest", dev, o, d, alive, t_cap, scene.sph_c,
                   scene.sph_r, scene.sph_mat, n_sph, scene.pln_n, scene.pln_k,
                   scene.pln_mat, n_pln, t_best, n_best, m_best, n)
-    _build.LAUNCHES["prims_nearest"] += 1
-    return t_best, n_best, m_best
+    _build.count("prims_nearest")
+    return out

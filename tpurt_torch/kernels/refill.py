@@ -125,7 +125,7 @@ def persist_refill(frame: Frame, film, o, d, atten, rad, alive, live_hit,
                   frame.sample_lo, camera_k.as_i32(frame.seed), frame.width,
                   frame.height, frame.max_depth, 0,
                   *camera_k.cam_bits(frame.cam))
-    _build.LAUNCHES["persist_refill"] += 1
+    _build.count("persist_refill")
 
 
 def persist_commit(film, pix, rad):
@@ -143,4 +143,4 @@ def persist_commit(film, pix, rad):
     _build.launch("tt_persist_refill", dev, None, None, None, None, None,
                   None, rad, pix, None, film, None, None, None, None,
                   cap, 1, 0, 0, 0, 0, 0, 0, 1, *([0] * 18))
-    _build.LAUNCHES["persist_refill"] += 1
+    _build.count("persist_refill")

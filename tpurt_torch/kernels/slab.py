@@ -60,5 +60,5 @@ def slab_step(rows, ox, oy, oz, ix, iy, iz, t_best):
         _build.check(name, t, (p, R), torch.float32, dev)
     outs = [torch.empty(p, dtype=torch.int32, device=dev) for _ in range(4)]
     _build.launch("tt_slab_step", dev, rows, *rays, *outs, p)
-    _build.LAUNCHES["slab_step"] += 1
+    _build.count("slab_step")
     return tuple(outs)

@@ -112,11 +112,13 @@ def nearest_tri_plain(scene, o, d, t_max, counts=None):
     return t_best, nrm, mat, found, gid
 
 
-def nearest_tri(scene, o, d, t_max):
+def nearest_tri(scene, o, d, t_max, out=None):
     """Nearest triangle hit on o's device: the plain walk for CPU tensors,
-    the CUDA kernel for CUDA tensors (or an error)."""
+    the CUDA kernel for CUDA tensors (or an error). ``out``, if given, is
+    the five outputs to write and the kernel's (1,) int32 ray counter."""
     if o.device.type == "cpu":
-        return nearest_tri_plain(scene, o, d, t_max)
+        got = nearest_tri_plain(scene, o, d, t_max)
+        return got if out is None else _build.copy_into(out, got)[:5]
     dev = _build.cuda_device("nearest_tri", o)
     n = o.shape[0]
     nodes, mi, n_oct = _tables(scene)
@@ -129,15 +131,22 @@ def nearest_tri(scene, o, d, t_max):
     _build.check("o", o, (n, 3), torch.float32, dev)
     _build.check("d", d, (n, 3), torch.float32, dev)
     _build.check("t_max", t_max, (n,), torch.float32, dev)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    nrm = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    mat = torch.empty(n, dtype=torch.int32, device=dev)
-    found = torch.empty(n, dtype=torch.bool, device=dev)
-    gid = torch.empty(n, dtype=torch.int32, device=dev)
-    # the kernel's warps take ray ids from this counter (the entry point
+    # the kernel's warps take ray ids from next_ray (the entry point
     # zeroes it)
-    next_ray = torch.empty(1, dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty((n, 3), dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.bool, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(1, dtype=torch.int32, device=dev))
+    for name, a, shape, dtype in zip(
+            ("t", "normal", "mat", "found", "gid", "next_ray"), out,
+            ((n,), (n, 3), (n,), (n,), (n,), (1,)),
+            (torch.float32, torch.float32, torch.int32, torch.bool,
+             torch.int32, torch.int32)):
+        _build.check(name, a, shape, dtype, dev)
     _build.launch("tt_traverse_nearest", dev, nodes, mi, n_oct, leaves,
-                  o, d, t_max, t, nrm, mat, found, gid, next_ray, n)
-    _build.LAUNCHES["traverse_nearest"] += 1
-    return t, nrm, mat, found, gid
+                  o, d, t_max, *out, n)
+    _build.count("traverse_nearest")
+    return out[:5]

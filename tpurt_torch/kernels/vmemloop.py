@@ -139,5 +139,5 @@ def node_step_loop(nodes, ox, oy, oz, ix, iy, iz, seeds, steps: int):
     _build.launch("tt_vmemloop", dev, nodes, *rays, seeds, out, m, p, steps,
                   magic - (1 << 32) if magic >= 1 << 31 else magic, l, bias,
                   cluster_size(dev, m, p))
-    _build.LAUNCHES["vmemloop"] += 1
+    _build.count("vmemloop")
     return out

@@ -40,6 +40,7 @@ from . import film as film_mod
 from . import metrics
 from . import render as render_mod
 from .config import RenderConfig, build_scene
+from .kernels import frame_graph
 from .scene import Scene, to_device
 
 SHARDS = ("tiles", "spp")
@@ -96,12 +97,14 @@ def _check(cfg: RenderConfig) -> None:
 def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
                            sample_start: int, sample_stop: int,
                            film_flat: Optional[np.ndarray] = None,
-                           mesh: Optional[Mesh] = None):
+                           mesh: Optional[Mesh] = None,
+                           host_loop: bool = False):
     """Add the radiance sum of samples [sample_start, sample_stop) over
     the mesh to film_flat (npix, 3), a host float32 array, so the result
     is directly checkpointable. Every rank returns (film_flat,
     rays_cast). Modes as tpurt's: primary, wavefront, and the megakernel
-    for every other mode (persist included)."""
+    for every other mode (persist included): render.accumulate's frame
+    graph, or with host_loop its host loop."""
     _check(cfg)
     if mesh is None:
         mesh = make_mesh()
@@ -131,9 +134,9 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
             dist.all_reduce(part, group=mesh.group)
             return part
 
-        nrays = render_mod.accumulate(cfg, scene, cam, pix, valid, lo,
+        tally = render_mod.accumulate(cfg, scene, cam, pix, valid, lo,
                                       lo + per_dev, film_tiled,
-                                      reduce=reduce)
+                                      reduce=reduce, host_loop=host_loop)
         film_flat = film_tiled[inv].cpu().numpy()
     else:  # tiles
         # the tile order padded to a multiple of the world (pad: dead),
@@ -143,9 +146,9 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
         block = gpix.shape[0] // world
         lo = rank * block
         acc = torch.zeros((block, 3), dtype=torch.float32, device=dev)
-        nrays = render_mod.accumulate(cfg, scene, cam, gpix[lo:lo + block],
+        tally = render_mod.accumulate(cfg, scene, cam, gpix[lo:lo + block],
                                       gvalid[lo:lo + block], sample_start,
-                                      sample_stop, acc)
+                                      sample_stop, acc, host_loop=host_loop)
         parts = [torch.empty_like(acc) for _ in range(world)]
         dist.all_gather(parts, acc, group=mesh.group)
         # rows follow the tile order: un-permute, adding the call's sums
@@ -154,17 +157,20 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
         film_d = torch.tensor(film_flat, device=dev)
         film_d += torch.cat(parts)[inv]
         film_flat = film_d.cpu().numpy()
-    # int64: a full c5 frame casts ~2e10 rays
-    count = nrays.reshape(1).to(torch.int64)
-    dist.all_reduce(count, group=mesh.group)
-    return film_flat, int(count.item())
+    # the rays summed over ranks (int64: a full c5 frame casts ~2e10),
+    # the bounces this rank's graphs ran kept as they are
+    rays = tally[:1].clone()
+    dist.all_reduce(rays, group=mesh.group)
+    return film_flat, frame_graph.read_tally(scene,
+                                             torch.cat([rays, tally[1:]]))
 
 
 def render_sharded(cfg: RenderConfig, scene: Optional[Scene] = None,
-                   cam=None, mesh: Optional[Mesh] = None, device="cuda"):
+                   cam=None, mesh: Optional[Mesh] = None, device="cuda",
+                   host_loop: bool = False):
     """Sharded render of a full frame; the contract of render.render.
     Every rank returns (film (H,W,3), stats); stats carry "devices" (the
-    world size) and "shard"."""
+    world size) and "shard". host_loop: render.accumulate's."""
     _check(cfg)
     if scene is None or cam is None:
         scene, cam = build_scene(cfg)
@@ -172,7 +178,8 @@ def render_sharded(cfg: RenderConfig, scene: Optional[Scene] = None,
         mesh = make_mesh(device)
     t0 = time.perf_counter()
     film_flat, total_rays = render_samples_sharded(cfg, scene, cam, 0,
-                                                   cfg.spp, mesh=mesh)
+                                                   cfg.spp, mesh=mesh,
+                                                   host_loop=host_loop)
     film = (film_flat / cfg.spp).reshape(cfg.height, cfg.width, 3)
     wall = time.perf_counter() - t0
     stats = metrics.build_stats(total_rays, wall, cfg.width, cfg.height,

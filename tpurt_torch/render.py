@@ -1,17 +1,22 @@
 """Render loop: pixel blocks x sample chunks (port of tpurt/render.py).
 
-The frame is cut into (pixel-block x sample-chunk) ray batches that the
-host loops over; each batch's radiance is folded into the film in tile
-order on the device (``kernels.film_fold``) and the film is permuted
-back at the end, by order tensors uploaded once per frame size
-(``order_cached``). The block loop (``accumulate``) runs over any
-list of pixel ids, so a rank of a sharded render (``mesh``) traces its
-share through it. Each batch is traced by mode: ``primary``
-(one-bounce shading), ``mega`` (``trace.trace``, dead lanes masked) or
-``wavefront`` (``wavefront.trace_chunk``, the queue shrinking as rays
-die). ``persist`` streams each pixel block's samples through one
-fixed-capacity pool (``wavefront.trace_persistent``) into the film in
-pixel order. RNG streams are keyed by (seed, pixel, sample), so the
+The frame is cut into (pixel-block x sample-chunk) ray batches,
+chunk-major (``batch_schedule``: full chunks, then the ragged tail, as
+tpurt's ``render_samples`` dispatches them); each batch's radiance is
+folded into the film in tile order on the device (``kernels.film_fold``)
+and the film is permuted back at the end, by order tensors uploaded
+once per frame size (``order_cached``). The block loop (``accumulate``)
+runs over any list of pixel ids, so a rank of a sharded render
+(``mesh``) traces its share through it. Each batch is traced by mode:
+``primary`` (one-bounce shading), ``wavefront``
+(``wavefront.trace_chunk``, the queue shrinking as rays die), or the
+megakernel for the rest: a ``kernels.frame_graph.FrameGraph`` launch a
+batch, which on a card is one CUDA graph with its bounce loop on the
+device (no host read until the ray count and the film; tpurt's
+one-dispatch ``_accum_frame``), or, when a caller asks for the host
+loop, ``trace.trace`` (one host read a bounce). ``persist`` streams
+each pixel block's samples through one fixed-capacity pool
+(``wavefront.trace_persistent``) into the film in pixel order. RNG streams are keyed by (seed, pixel, sample), so the
 image does not depend on the batching or the mode.
 """
 
@@ -25,6 +30,7 @@ import torch
 
 from . import metrics, trace, wavefront
 from .config import RenderConfig, build_scene
+from .kernels import frame_graph
 from .kernels import camera as camera_k
 from .kernels import film_fold as fold_k
 from .scene import Scene, to_device
@@ -94,9 +100,21 @@ def block_size(n_pix: int, ray_batch: int) -> int:
     return block + (-block) % trace.PACKET_R
 
 
+def batch_schedule(sample_start: int, sample_stop: int,
+                   spp_chunk: int) -> list:
+    """The sample range as (s0, c, n_chunks) runs of equal chunks: the
+    full chunks of spp_chunk samples, then the ragged tail (tpurt's
+    render_samples dispatches each run as one _accum_frame)."""
+    n_samples = sample_stop - sample_start
+    n_full = n_samples // spp_chunk
+    runs = ((sample_start, spp_chunk, n_full),
+            (sample_start + n_full * spp_chunk, n_samples % spp_chunk, 1))
+    return [(s0, c, k) for s0, c, k in runs if k > 0 and c > 0]
+
+
 def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
                sample_start: int, sample_stop: int, acc, reduce=None,
-               live_hist=None):
+               live_hist=None, host_loop: bool = False):
     """Add the radiance sums of samples [sample_start, sample_stop) at
     the pixel ids ``pix`` (n,) into rows of ``acc`` (n, 3), in place.
 
@@ -110,9 +128,13 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     per-pixel sum before it is added (the sample-sharded render sums it
     over ranks there).
     Modes: primary, wavefront (the shrinking ``wavefront.trace_chunk``),
-    and the megakernel ``trace.trace`` for every other mode. live_hist
-    (np int64 (max_depth,)), if given, gains the wavefront's live counts.
-    Returns rays_cast as a 0-dim int64 tensor."""
+    and the megakernel for every other mode: the frame graph
+    (``kernels.frame_graph``), or with ``host_loop`` the host's batch
+    loop over ``trace.trace`` (a host read a bounce; the per-call path
+    the smoke checks kernels on). live_hist (np int64 (max_depth,)), if
+    given, gains the wavefront's live counts. Returns a tally on the
+    device, (2,) int64: rays cast, and the bounces the frame graphs ran
+    (0 on the other paths); ``frame_graph.read_tally`` reads it."""
     dev = acc.device
     n = pix.shape[0]
     ray_batch = effective_ray_batch(cfg, scene)
@@ -124,55 +146,91 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     ok = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
           else valid)
     pix = pix.long()
+    if cfg.mode not in ("primary", "wavefront") and not host_loop:
+        return _accumulate_graph(cfg, scene, cam, pix, ok, block,
+                                 sample_start, sample_stop, spp_chunk, acc,
+                                 reduce)
     if n_pad > n:
         pix = torch.cat([pix, pix[-1:].expand(n_pad - n)])
         ok = torch.cat([ok, torch.zeros(n_pad - n, dtype=torch.bool,
                                         device=dev)])
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
-    for s0 in range(sample_start, sample_stop, spp_chunk):
-        c = min(spp_chunk, sample_stop - s0)
-        sample_ids = torch.arange(s0, s0 + c, device=dev)
-        for p0 in range(0, n_pad, block):
-            pixf = pix[p0:p0 + block].repeat(c)          # sample-major
-            validf = ok[p0:p0 + block].repeat(c)
-            smp = sample_ids.repeat_interleave(block)
-            o, d, keys = camera_k.camera_rays(cam, cfg.width, cfg.height,
-                                              cfg.seed, pixf, smp)
-            if cfg.mode == "primary":
-                rad, _ = trace.shade_primary(scene, o, d)
-                rad = torch.where(validf[:, None], rad, 0.0)
-                nrays = nrays + validf.sum()
-            elif cfg.mode == "wavefront":
-                q = wavefront.make_queue(o, d, pixf, keys, alive=validf)
-                rad, cast, hist = wavefront.trace_chunk(
-                    scene, q, cfg.max_depth, cfg.rr_start)
-                nrays = nrays + cast
-                if live_hist is not None:
-                    live_hist += hist
-            else:
-                rad, cast = trace.trace(scene, o, d, keys, cfg.max_depth,
-                                        cfg.rr_start, valid=validf)
-                nrays = nrays + cast
-            m = min(block, n - p0)
-            if reduce is None:
-                fold_k.film_fold(acc[p0:p0 + m], rad, c, block)
-            else:
-                part = torch.zeros((block, 3), dtype=torch.float32,
-                                   device=dev)
-                part = reduce(fold_k.film_fold(part, rad, c, block))
-                acc[p0:p0 + m] += part[:m]
-    return nrays
+    for first, c, n_chunks in batch_schedule(sample_start, sample_stop,
+                                             spp_chunk):
+        for s0 in range(first, first + c * n_chunks, c):
+            sample_ids = torch.arange(s0, s0 + c, device=dev)
+            for p0 in range(0, n_pad, block):
+                pixf = pix[p0:p0 + block].repeat(c)          # sample-major
+                validf = ok[p0:p0 + block].repeat(c)
+                smp = sample_ids.repeat_interleave(block)
+                o, d, keys = camera_k.camera_rays(
+                    cam, cfg.width, cfg.height, cfg.seed, pixf, smp)
+                if cfg.mode == "primary":
+                    rad, _ = trace.shade_primary(scene, o, d)
+                    rad = torch.where(validf[:, None], rad, 0.0)
+                    nrays = nrays + validf.sum()
+                elif cfg.mode == "wavefront":
+                    q = wavefront.make_queue(o, d, pixf, keys,
+                                             alive=validf)
+                    rad, cast, hist = wavefront.trace_chunk(
+                        scene, q, cfg.max_depth, cfg.rr_start)
+                    nrays = nrays + cast
+                    if live_hist is not None:
+                        live_hist += hist
+                else:
+                    rad, cast = trace.trace(scene, o, d, keys,
+                                            cfg.max_depth, cfg.rr_start,
+                                            valid=validf)
+                    nrays = nrays + cast
+                m = min(block, n - p0)
+                if reduce is None:
+                    fold_k.film_fold(acc[p0:p0 + m], rad, c, block)
+                else:
+                    part = torch.zeros((block, 3), dtype=torch.float32,
+                                       device=dev)
+                    part = reduce(fold_k.film_fold(part, rad, c, block))
+                    acc[p0:p0 + m] += part[:m]
+    return torch.cat([nrays.reshape(1), nrays.new_zeros(1)])
+
+
+def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
+                      sample_stop, spp_chunk, acc, reduce):
+    """accumulate's megakernel path: per run of equal chunks, one
+    FrameGraph launched once a batch (the cursor steps on the device),
+    the film rows loaded into it before and copied back after; with
+    ``reduce``, each batch's part is summed over ranks and added to acc
+    between launches. Nothing is read back to the host. Returns the
+    tally (rays cast, bounces run)."""
+    n = pix.shape[0]
+    n_pad = -(-n // block) * block
+    tally = torch.zeros(2, dtype=torch.int64, device=acc.device)
+    for s0, c, n_chunks in batch_schedule(sample_start, sample_stop,
+                                          spp_chunk):
+        fg = frame_graph.get(scene, n, block, c, cfg.max_depth,
+                             cfg.rr_start, reduce is not None, acc.device)
+        fg.begin(cam, cfg.width, cfg.height, cfg.seed, pix, ok, acc, s0)
+        for _ in range(n_chunks):
+            for p0 in range(0, n_pad, block):
+                fg.launch(scene)
+                if reduce is not None:
+                    m = min(block, n - p0)
+                    acc[p0:p0 + m] += reduce(fg.film)[:m]
+        if reduce is None:
+            fg.end(acc)
+        tally += fg.state[frame_graph.RAYS:frame_graph.ITERS + 1]
+    return tally
 
 
 def render_samples(cfg: RenderConfig, scene: Scene, cam,
                    sample_start: int, sample_stop: int, film_flat=None,
-                   stats_sink: Optional[dict] = None):
+                   stats_sink: Optional[dict] = None,
+                   host_loop: bool = False):
     """Add the radiance sum of samples [sample_start, sample_stop) to
     film_flat (npix, 3) on the scene's device. Returns (film_flat,
     rays_cast). stats_sink (dict, optional) receives the wavefront's
     "queue_capacity" and "live_history" (live rays after each bounce,
     summed over batches), or the persistent pool's "persist_occupancy"
-    (one entry per pixel block)."""
+    (one entry per pixel block). host_loop: accumulate's."""
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}")
     dev = scene.sph_c.device
@@ -192,15 +250,16 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
     # the padded tail's rows are traced dead and never read back
     film_tiled = film_flat[pix]
     live_hist = np.zeros(cfg.max_depth, np.int64)
-    nrays = accumulate(cfg, scene, cam, pix, valid, sample_start,
-                       sample_stop, film_tiled, live_hist=live_hist)
+    tally = accumulate(cfg, scene, cam, pix, valid, sample_start,
+                       sample_stop, film_tiled, live_hist=live_hist,
+                       host_loop=host_loop)
     if cfg.mode == "wavefront" and stats_sink is not None:
         # live counts are summed over every batch, so the capacity is the
         # queue rows issued per bounce over all of them
         stats_sink["queue_capacity"] = -(-npix // block) * block * n_samples
         stats_sink.setdefault("live_history", []).extend(
             int(x) for x in live_hist)
-    return film_tiled[inv], int(nrays)
+    return film_tiled[inv], frame_graph.read_tally(scene, tally)
 
 
 def _render_persist(cfg, scene, cam, film_flat, pix, block, ray_batch,
@@ -227,17 +286,19 @@ def _render_persist(cfg, scene, cam, film_flat, pix, block, ray_batch,
 
 
 def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,
-           device="cuda"):
+           device="cuda", host_loop: bool = False):
     """Render a full frame on ``device``. Returns (film (H,W,3) linear f32
     ndarray, the per-pixel mean over cfg.spp, and a stats dict; the
-    wavefront and persistent modes add "occupancy")."""
+    wavefront and persistent modes add "occupancy"). host_loop:
+    accumulate's."""
     if scene is None or cam is None:
         scene, cam = build_scene(cfg)
     scene = to_device(scene, device)
     sink: dict = {}
     t0 = time.perf_counter()
     film_flat, total_rays = render_samples(cfg, scene, cam, 0, cfg.spp,
-                                           stats_sink=sink)
+                                           stats_sink=sink,
+                                           host_loop=host_loop)
     film = (film_flat / cfg.spp).cpu().numpy().reshape(
         cfg.height, cfg.width, 3)
     wall = time.perf_counter() - t0

@@ -27,8 +27,7 @@ import torch
 
 from . import linalg
 from .kernels import bounce as bounce_k
-from .kernels import intersect as intersect_k
-from .kernels import compact, prims, traverse
+from .kernels import compact, frame_graph, prims
 from .kernels.bounce import RR_CLAMP_HI, RR_CLAMP_LO, sky  # noqa: F401
 
 # rays per traversal packet (compact.PACKET_R); batches are whole packets
@@ -47,15 +46,9 @@ class Hit(NamedTuple):
     ok: torch.Tensor      # (N,) bool
 
 
-def search(scene, o, d, t_best):
-    """The nearest triangle inside the window t_best (N,): the BVH search
-    when the scene has one, else the brute test. Returns (t, n, mat, hit,
-    idx), idx the winner's gid (BVH) or its slot (brute)."""
-    if scene.pk_nodes is not None:
-        return traverse.nearest_tri(scene, o, d, t_best)
-    return intersect_k.nearest_tri_small(
-        o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_mat,
-        t_best)
+# the nearest triangle inside a window: the BVH search when the scene has
+# one, else the brute test
+search = frame_graph.search
 
 
 def intersect(scene, o, d, t_cap=None) -> Hit:
