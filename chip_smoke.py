@@ -48,7 +48,13 @@ exits non-zero and prints no result):
                  three timed on the c3 render's own inputs as the frame
                  graph runs them, each with its bound: the camera at the
                  cursor (array-equal to the per-call entry's rays), the
-                 bounce in place with its depth on the card
+                 bounce in place with its depth on the card; the camera
+                 and the bounce also given the loop (the condition in
+                 the last block, outside a graph: two calls in a row on
+                 that traffic, with every ray dead, and at max_depth,
+                 states equal to the plain composition, the done and
+                 search counters 0 after each) and timed with it and
+                 without it on the same inputs (loop_step)
   6. frame     — (mega through the host loop) every film_fold,
                  packet_compact and persist_refill call
                  (and persist_commit, the refill kernel's commit-only
@@ -78,9 +84,14 @@ exits non-zero and prints no result):
                  checkpoints unsharded and by tiles): films array-equal,
                  rays PHASE_RAYS and the goldens', launches counted by
                  execution equal to the host loop's, capture and
-                 instantiate seconds apart from the walls; then
-                 frame_graph.cu's kernels against their plain versions,
-                 the condition timed with its bound
+                 instantiate seconds apart from the walls; every cached
+                 graph's nodes as instantiated (check_node_counts: a
+                 WHILE body of three kernel nodes and no memset, BVH and
+                 brute; a parent of the camera, the WHILE node, the fold
+                 and the advance, and a memset only sharded by spp);
+                 then frame_graph.cu's kernels against their plain
+                 versions, the condition (on no render path) timed with
+                 its bound
   9. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
  10. c1-primary — 640x480 at 1 spp (its own size and spp), then through
@@ -117,11 +128,12 @@ exits non-zero and prints no result):
                  (cudaLaunchKernel, cudaGraphLaunch) per spp, the port's
                  kernels as the profiler saw them beside the counted
                  launches, the search kernel's device time per launch;
-                 c3 must stay under 300 CUDA launches per spp, c4 in mode
-                 wavefront under 263 and in mode persist under 171
-                 (MAX_LAUNCHES_PER_SPP), and c3's and c2's mega renders
-                 may copy to the host at most twice a render call, the ray
-                 count and the film (MAX_DTOH_PER_RENDER)
+                 c3 must stay under 64 CUDA launches per spp, c2 under
+                 66, c4 in mode wavefront under 263 and in mode persist
+                 under 171 (MAX_LAUNCHES_PER_SPP), and c3's and c2's
+                 mega renders may copy to the host at most twice a
+                 render call, the ray count and the film
+                 (MAX_DTOH_PER_RENDER)
 The probe (in phase 4) and phases 9-17 are the main paths, each with the
 launch counts reset just before it and read just after (a mega render's
 kernels run as frame-graph nodes, counted by execution); every render
@@ -171,12 +183,15 @@ L2_FLUSH_BYTES = 1 << 27   # read before each timed call: over twice the
 PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
               "c4-wavefront": 9_571_880, "c4-persist": 9_571_880,
               "c5-tiles": 19_143_284, "c5-spp": 19_143_284}
-# CUDA launches per spp, under: c3's (per batch: the camera kernel,
-# three kernels a bounce, the film fold), and c4's in modes wavefront and
-# persist (also: one compaction kernel a shrink, one refill kernel a pool
-# iteration; the two-kernel versions of both made 263 and 171)
-MAX_LAUNCHES_PER_SPP = {"c3-mesh": 300, "c4-wavefront": 263,
-                        "c4-persist": 171}
+# CUDA launches per spp, under: c3's and c2's in mode mega (per batch:
+# the camera, three kernels a bounce, the fold and the cursor step, the
+# loop's condition inside the camera and the bounce, no memset kernel;
+# with the condition and the counter's memset as kernels of their own
+# they made 98 and 82), and c4's in modes wavefront and persist (also:
+# one compaction kernel a shrink, one refill kernel a pool iteration;
+# the two-kernel versions of both made 263 and 171)
+MAX_LAUNCHES_PER_SPP = {"c3-mesh": 64, "c2-cornell": 66,
+                        "c4-wavefront": 263, "c4-persist": 171}
 # copies to the host in one mega render call through the CLI, at most:
 # the ray count and the film (the frame graph reads nothing between)
 MAX_DTOH_PER_RENDER = {"c3-mesh": 2, "c2-cornell": 2}
@@ -1222,6 +1237,7 @@ def phase_fused(dev):
     from tpurt_torch import config, render
     from tpurt_torch.kernels import _build, bounce, camera, prims
     keep = {"camera_rays": 0, "prims_nearest": 1, "bounce_shade": 1}
+    max_depth = config.PRESETS["c3-mesh"].max_depth
     cases, kept, scenes = {}, {}, {}
     for label, cfg in fused_cases().items():
         key = (cfg.scene, cfg.width, cfg.height, cfg.smooth, cfg.aperture)
@@ -1259,9 +1275,10 @@ def phase_fused(dev):
                 lambda: camera.camera_rays_plain(cam, w, h, seed, pix, smp),
                 50, 10)}
     rows["camera_rays"] = {
-        "shape": f"c3 batch 0 at the cursor, N={n}",
+        "shape": f"c3 batch 0 at the cursor, N={n}, given the loop (the "
+                 "first condition in its last block)",
         "checked_calls": totals("camera_rays"),
-        **check_camera_cursor(cam, w, h, seed, pix, smp, outs),
+        **check_camera_cursor(cam, w, h, seed, pix, smp, outs, max_depth),
         "per_call": {k: per_call[k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "bytes")}}
 
@@ -1292,17 +1309,27 @@ def phase_fused(dev):
                   lambda: bounce.bounce_shade_plain(*args), 50, 10)
     rows["bounce_shade"] = {
         "shape": f"c3 batch 0 bounce {depth}, N={o.shape[0]}, live {live}, "
-                 "in place, depth on the device",
+                 "in place, given the loop (its step in the last block)",
         "checked_calls": totals("bounce_shade", "hit_shade"),
         **bound(nbytes(o, d, atten, rad, alive, keys, *prim, *tri,
                        scene.mat_packed, scene.sky_a, scene.sky_b, *outs),
                 work((o.shape[0], MERGE_OPS), (live, BOUNCE_LIVE_OPS))),
-        **check_bounce_in_place(args, outs),
+        **check_bounce_in_place(args, outs, max_depth),
         "fresh_outputs": {k: fresh[k] for k in ("ms", "plain_ms")}}
+    loop_step = {
+        "shape": rows["bounce_shade"]["shape"],
+        "bounce_shade_with_loop_ms": rows["bounce_shade"]["ms"],
+        "bounce_shade_without_loop_ms":
+            rows["bounce_shade"]["without_loop_ms"],
+        "loop_step_ms": rows["bounce_shade"]["loop_step_ms"],
+        "camera_rays_cursor_with_loop_ms": rows["camera_rays"]["ms"],
+        "camera_rays_cursor_without_loop_ms":
+            rows["camera_rays"]["without_loop_ms"]}
     for name, row in rows.items():
         names = (name, "hit_shade") if name == "bounce_shade" else (name,)
-        extra = {k: row.pop(k) for k in ("per_call", "fresh_outputs")
-                 if k in row}
+        extra = {k: row.pop(k) for k in (
+            "per_call", "fresh_outputs", "without_loop_ms", "loop_step_ms",
+            "loop_states") if k in row}
         row.update(max_abs_err=0.0, check="array_equal, NaN equal to NaN",
                    row_extra={"checked_calls": row.pop("checked_calls"),
                               "bit_diffs": sum(
@@ -1310,29 +1337,86 @@ def phase_fused(dev):
                                   for st in cases.values() for k in names),
                               **extra})
         emit("kernel", name=name, **row)
-    return rows
+    emit("loop_step", **loop_step)
+    return {**rows, "loop_step": loop_step}
 
 
-def check_camera_cursor(cam, w, h, seed, pix, smp, outs) -> dict:
+DIRTY_COUNTER = 99   # a search's ray counter as a search leaves it
+
+
+def check_loop_calls(label, kernel_call, plain_call, state0, max_depth,
+                     calls=2) -> list:
+    """The loop step in a kernel's last block, outside a graph (no
+    handle): kernel_call(loop) and plain_call(loop) (the plain version,
+    which runs frame_cond_plain at its end) on copies of the frame state
+    state0, ``calls`` times in a row, each with a dirty search counter.
+    After each call the outputs must be array-equal, the states equal,
+    and the done counter and the search counter 0. Returns the states
+    after each call (lists)."""
+    import torch
+    from tpurt_torch.kernels import loop_ctl
+    dev = state0.device
+    st_k, st_p = state0.clone(), state0.clone()
+    ctr_k, ctr_p = (torch.empty(1, dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    states = []
+    for call in range(calls):
+        ctr_k.fill_(DIRTY_COUNTER)
+        ctr_p.fill_(DIRTY_COUNTER)
+        got = kernel_call(loop_ctl.Loop(st_k, max_depth, None, ctr_k))
+        want = plain_call(loop_ctl.Loop(st_p, max_depth, None, ctr_p))
+        torch.cuda.synchronize()
+        for k, (g, ref) in enumerate(zip(got, want)):
+            ok, _, err = same_values(g, ref)
+            if not ok:
+                raise AssertionError(f"{label} with the loop, call {call}: "
+                                     f"output {k} differs (max |diff| "
+                                     f"{err})")
+        if not torch.equal(st_k, st_p) or int(st_k[loop_ctl.DONE]) != 0 \
+                or int(ctr_k) != 0:
+            raise AssertionError(f"{label} with the loop, call {call}: "
+                                 f"state {st_k.tolist()}, the plain "
+                                 f"version's {st_p.tolist()}, search "
+                                 f"counter {int(ctr_k)}")
+        states.append(st_k.tolist())
+    return states
+
+
+def loop_state(dev, k, depth, p0=0, s0=0):
+    """A frame state mid-batch (tallies from earlier batches; k bounces
+    run, bounce index depth, live word 0)."""
+    import torch
+    from tpurt_torch.kernels import loop_ctl
+    st = torch.zeros(loop_ctl.STATE_SLOTS, dtype=torch.int64, device=dev)
+    st[loop_ctl.P0], st[loop_ctl.S0] = p0, s0
+    st[loop_ctl.RAYS], st[loop_ctl.ITERS] = 1_000_003, 29
+    st[loop_ctl.K], st[loop_ctl.DEPTH] = k, depth
+    return st
+
+
+def check_camera_cursor(cam, w, h, seed, pix, smp, outs,
+                        max_depth) -> dict:
     """The frame graph's camera (camera_rays_cursor) on c3's first batch
     at the cursor (p0 0, s0 0, c 1, the whole block): o, d and keys
     array-equal to camera_rays' outs on the same pixels and samples, and
-    all six outputs and the live count to its plain version; then timed
-    with its bound (pixel and live rows read, 73 bytes a ray written).
-    Returns the row's numbers."""
+    all six outputs and the live count to its plain version. Then as the
+    graph runs it, given the loop (check_loop_calls): the first
+    condition in its last block, on the batch and on an all-dead one.
+    Timed with its bound (pixel and live rows read, 73 bytes a ray
+    written) with the loop and without. Returns the row's numbers."""
     import torch
     from tpurt_torch import render
-    from tpurt_torch.kernels import camera, frame_graph
+    from tpurt_torch.kernels import camera
     n = pix.shape[0]
-    pix_pad, ok_pad, _ = render.order_cached(w, h, n, pix.device)
+    dev = pix.device
+    pix_pad, ok_pad, _ = render.order_cached(w, h, n, dev)
     if not torch.equal(pix_pad[:n], pix) or int(smp.max()) != 0:
         raise AssertionError("camera cursor: kept batch is not c3's first")
-    state = torch.zeros(frame_graph.STATE_SLOTS, dtype=torch.int64,
-                        device=pix.device)
-    live, live_p = (torch.zeros(1, dtype=torch.int32, device=pix.device)
+    state = loop_state(dev, 0, 0)
+    live, live_p = (torch.zeros(1, dtype=torch.int32, device=dev)
                     for _ in range(2))
     view = torch.tensor(camera.view_words(cam, w, h, seed),
-                        dtype=torch.int32, device=pix.device)
+                        dtype=torch.int32, device=dev)
     got = camera.camera_rays_cursor(view, pix_pad, ok_pad, state, 1, n, live)
     want = camera.camera_rays_cursor_plain(view, pix_pad, ok_pad, state, 1,
                                            n, live_p)
@@ -1342,37 +1426,75 @@ def check_camera_cursor(cam, w, h, seed, pix, smp, outs) -> dict:
         if not ok:
             raise AssertionError(f"camera cursor: output {k} differs "
                                  f"(max |diff| {err})")
+    dead = torch.zeros_like(ok_pad)
+    loop_states = {}
+    for case, rows in (("batch", ok_pad), ("all_dead", dead)):
+        loop_states[case] = check_loop_calls(
+            f"camera cursor ({case})",
+            lambda loop, rows=rows: camera.camera_rays_cursor(
+                view, pix_pad, rows, loop.state, 1, n, out=got, loop=loop),
+            lambda loop, rows=rows: camera.camera_rays_cursor_plain(
+                view, pix_pad, rows, loop.state, 1, n, loop=loop),
+            state, max_depth)
+    from tpurt_torch.kernels import loop_ctl
+    st_l = state.clone()
+    loop = loop_ctl.Loop(st_l, max_depth, None,
+                         torch.zeros(1, dtype=torch.int32, device=dev))
+    with_loop = timed(
+        lambda: camera.camera_rays_cursor(view, pix_pad, ok_pad, st_l, 1, n,
+                                          out=got, loop=loop),
+        lambda: camera.camera_rays_cursor_plain(view, pix_pad, ok_pad, st_l,
+                                                1, n, loop=loop), 50, 10)
+    without = time_ms(lambda: camera.camera_rays_cursor(
+        view, pix_pad, ok_pad, state, 1, n, live, out=got), 50)
     return {**bound(nbytes(pix_pad[:n], ok_pad[:n], *got),
                     work((n, CAMERA_RAY_OPS))),
-            **timed(lambda: camera.camera_rays_cursor(
-                        view, pix_pad, ok_pad, state, 1, n, live, out=got),
-                    lambda: camera.camera_rays_cursor_plain(
-                        view, pix_pad, ok_pad, state, 1, n, live_p), 50, 10)}
+            **with_loop,
+            "without_loop_ms": without["device"]
+            if without["device"] is not None else without["wall"],
+            "loop_states": loop_states}
 
 
-def check_bounce_in_place(args, outs) -> dict:
+def check_bounce_in_place(args, outs, max_depth) -> dict:
     """bounce_shade as the frame graph runs it (outputs aliased to its
-    inputs, the bounce index read from an int64 on the card) on the kept
-    c3 bounce: every output array-equal to the plain version's and to
-    the fresh-output call's outs; then timed, the state restored before
-    each call. Returns the row's numbers."""
+    inputs, given the loop: the bounce index from the frame state, the
+    survivors into its live word, the next condition in its last block)
+    on the kept c3 bounce: every output array-equal to the plain
+    version's and to the fresh-output call's outs; then through
+    check_loop_calls (two bounces in a row) on that traffic, with every
+    ray dead, and on the bounce that reaches max_depth. Timed in place,
+    the state restored before each call, with the loop and without it
+    (the depth from an int64 on the card, no survivor count) on the same
+    inputs: the loop step's cost. Returns the row's numbers."""
     import torch
-    from tpurt_torch.kernels import bounce
+    from tpurt_torch.kernels import _build, bounce, loop_ctl
     (scene, o, d, atten, rad, alive, keys, depth, rr_start, prim,
      tri) = args
-    depth_d = torch.tensor(depth, dtype=torch.int64, device=o.device)
+    dev = o.device
+    depth_d = torch.tensor(depth, dtype=torch.int64, device=dev)
     start = (o, d, atten, rad, alive)
     state = [t.clone() for t in start]
     live_hit = torch.empty_like(alive)
+    st0 = loop_state(dev, depth + 1, depth)
+    st = st0.clone()
+    loop = loop_ctl.Loop(st, max_depth, None,
+                         torch.zeros(1, dtype=torch.int32, device=dev))
 
     def restore():
         for dst, src in zip(state, start):
             dst.copy_(src)
+        st.copy_(st0)
 
     def in_place():
+        return bounce.bounce_shade(scene, *state, keys, None, rr_start,
+                                   prim, tri, out=(*state, live_hit),
+                                   loop=loop)
+
+    def without_loop():
         return bounce.bounce_shade(scene, *state, keys, depth_d, rr_start,
                                    prim, tri, out=(*state, live_hit))
 
+    restore()
     got = in_place()
     want = bounce.bounce_shade_plain(*args)
     for k, (g, ref, fresh) in enumerate(zip(got, want, outs)):
@@ -1381,18 +1503,46 @@ def check_bounce_in_place(args, outs) -> dict:
             if not ok:
                 raise AssertionError(f"bounce in place: output {k} differs "
                                      f"from the {what} (max |diff| {err})")
+    loop_states = {}
+    for case, k, rays_alive in (
+            ("traffic", depth + 1, alive),
+            ("all_dead", depth + 1, torch.zeros_like(alive)),
+            ("max_depth", max_depth, alive)):
+        bufs_k = [t.clone() for t in (o, d, atten, rad, rays_alive)]
+        bufs_p = [t.clone() for t in bufs_k]
+        hit_k = torch.empty_like(alive)
+
+        def kernel_call(lp, b=bufs_k, h=hit_k):
+            return bounce.bounce_shade(scene, *b, keys, None, rr_start, prim,
+                                       tri, out=(*b, h), loop=lp)
+
+        def plain_call(lp, b=bufs_p):
+            got = bounce.bounce_shade_plain(scene, *b, keys, None, rr_start,
+                                            prim, tri, loop=lp)
+            _build.copy_into(b, got)    # in place, as the kernel updates
+            return got
+
+        loop_states[case] = check_loop_calls(
+            f"bounce ({case})", kernel_call, plain_call,
+            loop_state(dev, k, k - 1), max_depth)
     kernel = time_ms(in_place, 50, keep=lambda k: "bounce_shade_kernel" in k,
                      setup=restore)
+    bare = time_ms(without_loop, 50,
+                   keep=lambda k: "bounce_shade_kernel" in k, setup=restore)
     plain = time_ms(lambda: bounce.bounce_shade_plain(*args), 10)
-    return {"ms": kernel["device"] if kernel["device"] is not None
-            else kernel["wall"],
-            "plain_ms": plain["device"] if plain["device"] is not None
-            else plain["wall"],
+
+    def ms(t):
+        return t["device"] if t["device"] is not None else t["wall"]
+
+    return {"ms": ms(kernel), "plain_ms": ms(plain),
             "wall_ms": kernel["wall"], "plain_wall_ms": plain["wall"],
             "by_kernel_ms": kernel["by_kernel"],
             "launches_per_call": kernel["launches_per_call"],
             "timer": "profiler" if kernel["device"] is not None
-            else "events"}
+            else "events",
+            "without_loop_ms": ms(bare),
+            "loop_step_ms": ms(kernel) - ms(bare),
+            "loop_states": loop_states}
 
 
 FRAME = ("film_fold", "packet_compact", "persist_refill")
@@ -2180,7 +2330,7 @@ def phase_oracle(golden_rays):
                                  f"card cast {golden_rays[name]}")
 
 
-FRAME_STATE_BYTES = 80   # frame_cond: 4 slots read, 6 written (int64)
+FRAME_STATE_BYTES = 56   # frame_advance: 2 slots read, 5 written (int64)
 # rays_cast of tpurt_torch.entry's batch: tpurt's entry forward casts as
 # many (tests/test_torch_entry.py holds the port's against it on the CPU)
 ENTRY_RAYS = 3403
@@ -2190,23 +2340,28 @@ def check_frame_kernels(dev) -> dict:
     """frame_graph.cu's two kernels launched alone (no graph) against
     their plain versions, array-equal state: the condition going on,
     stopping at a live count of 0 and stopping at max_depth; the cursor
-    stepping inside the pixel list and wrapping to the next chunk. Then
-    the condition timed (its state restored before each call), with its
-    bound (FRAME_STATE_BYTES; a few integer operations). Returns the
-    kernel's row."""
+    stepping inside the pixel list and wrapping to the next chunk, and
+    zeroing the batch slots. Then both timed (the state restored before
+    each call): the row's time, with its bound (FRAME_STATE_BYTES; a few
+    integer operations), is the cursor step's, the graph's last node; no
+    render launches the condition kernel, since the graph runs
+    the same step in the last block of camera_rays_cursor and
+    bounce_shade (the fused phase's loop_step). Returns the kernel's
+    row."""
     import torch
     from tpurt_torch.kernels import frame_graph as fg
     slots = fg.STATE_SLOTS
 
     def state(p0=0, s0=0, k=0, live=0):
         st = torch.zeros(slots, dtype=torch.int64, device=dev)
-        st[fg.P0], st[fg.S0], st[fg.K] = p0, s0, k
+        st[fg.P0], st[fg.S0], st[fg.K], st[fg.DEPTH] = p0, s0, k, k
         fg.live_word(st).fill_(live)
         return st
 
     cases = [("cond", state(k=2, live=5)), ("cond", state(k=2)),
              ("cond", state(k=8, live=3)), ("advance", state(p0=0, s0=4)),
-             ("advance", state(p0=2048, s0=4))]
+             ("advance", state(p0=2048, s0=4)),
+             ("advance", state(p0=1024, s0=4, k=3, live=9))]
     for kind, st in cases:
         got, want = st.clone(), st.clone()
         if kind == "cond":
@@ -2221,24 +2376,26 @@ def check_frame_kernels(dev) -> dict:
                                  f"{want.tolist()}")
     start = state(k=2, live=5)
     st, st_p = start.clone(), start.clone()
-    row = {"shape": "one state of 8 int64 slots, max_depth 8",
+    row = {"shape": f"one state of {slots} int64 slots: the cursor step "
+                    "(the graph's last node); the condition alone in "
+                    "row_extra (on no render path)",
            **bound(FRAME_STATE_BYTES, {"cmp_minmax": 8}),
            "max_abs_err": 0.0, "check": "array_equal"}
     k = time_ms(lambda: fg.frame_cond(st, 8), 50,
                 keep=lambda key: "frame_cond_kernel" in key,
                 setup=lambda: st.copy_(start))
-    p = time_ms(lambda: fg.frame_cond_plain(st_p, 8), 10,
-                setup=lambda: st_p.copy_(start), profiled=False)
     a = time_ms(lambda: fg.frame_advance(st, 1024, 3072, 3), 50,
                 keep=lambda key: "frame_advance_kernel" in key,
                 setup=lambda: st.copy_(start))
-    row.update(ms=k["device"] if k["device"] is not None else k["wall"],
-               plain_ms=p["wall"], wall_ms=k["wall"],
-               by_kernel_ms=k["by_kernel"],
-               launches_per_call=k["launches_per_call"],
-               timer="profiler" if k["device"] is not None else "events",
-               row_extra={"advance_ms": a["device"] if a["device"]
-                          is not None else a["wall"],
+    p = time_ms(lambda: fg.frame_advance_plain(st_p, 1024, 3072, 3), 10,
+                setup=lambda: st_p.copy_(start), profiled=False)
+    row.update(ms=a["device"] if a["device"] is not None else a["wall"],
+               plain_ms=p["wall"], wall_ms=a["wall"],
+               by_kernel_ms=a["by_kernel"],
+               launches_per_call=a["launches_per_call"],
+               timer="profiler" if a["device"] is not None else "events",
+               row_extra={"cond_ms": k["device"] if k["device"]
+                          is not None else k["wall"],
                           "checked_states": len(cases)})
     emit("kernel", name="frame_graph", **row)
     return row
@@ -2286,7 +2443,9 @@ def phase_graph(dev, golden_rays):
     case's rays; the graph's launches, counted by execution (the fixed
     nodes at each launch, the bounces from the device counter), must
     equal the host loop's for every kernel both run, and frame_graph's
-    must be two a batch and one a bounce. Capture and instantiate
+    must be one a batch (the advance: the loop's condition runs inside
+    the camera and the bounce), and every cached graph's nodes must be
+    the graph's shape (check_node_counts). Capture and instantiate
     seconds are reported apart from the walls. Then one scene's graphs
     under another camera and seed (check_graph_views), the entry point's
     twin (tpurt_torch.entry) on the card: its radiance array-equal to the
@@ -2300,7 +2459,7 @@ def phase_graph(dev, golden_rays):
     from tpurt_torch import scene as scene_mod
     from tpurt_torch.kernels import _build, frame_graph
     m = mesh.make_mesh(dev)
-    scenes, total = {}, {}
+    scenes, total, nodes = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, (cfg, how, want) in graph_cases(golden_rays).items():
             key = (cfg.scene, cfg.mesh_subdiv, cfg.width, cfg.height)
@@ -2349,15 +2508,18 @@ def phase_graph(dev, golden_rays):
                 raise AssertionError(f"graph ({label}): rays {rays}, "
                                      f"expected {want}")
             shared = [k for k, v in lh.items() if v and k != "frame_graph"]
-            if any(lg[k] != lh[k] for k in shared) or lg["frame_graph"] != \
-                    2 * lg["camera_rays"] + lg["bounce_shade"]:
+            if any(lg[k] != lh[k] for k in shared) or \
+                    lg["frame_graph"] != lg["camera_rays"]:
                 raise AssertionError(f"graph ({label}): launches by "
                                      f"execution {lg} against the host "
                                      f"loop's {lh}")
             for k, v in lg.items():
                 total[k] = total.get(k, 0) + v
+            check_node_counts(label, nodes)
     emit("graph", case="all", launches_by_execution=total,
-         build=dict(frame_graph.BUILD_STATS))
+         build=dict(frame_graph.BUILD_STATS), node_counts=nodes)
+    if set(nodes) != {"traverse_nearest", "nearest_tri_small"}:
+        raise AssertionError(f"graph: node counts checked on {set(nodes)}")
     check_graph_views(dev, scenes)
     fn, (dscene, cam, pix, smp, seed) = entry.entry(dev)
     rad, nrays = fn(dscene, cam, pix, smp, seed)
@@ -2376,6 +2538,33 @@ def phase_graph(dev, golden_rays):
         raise AssertionError(f"graph (entry): {rays} rays, the host loop's "
                              f"{want_rays}, array-equal {same}")
     return {"frame_graph": check_frame_kernels(dev)}
+
+
+def check_node_counts(label, seen) -> None:
+    """Every captured frame graph now cached, by its nodes as
+    instantiated (FrameGraph.node_counts): the parent holds the camera,
+    the fold and the advance as kernel nodes, the WHILE node, and a
+    memset only when it folds into a part (sharded by spp); the WHILE
+    body holds three kernel nodes (prims_nearest, the search,
+    bounce_shade) and no memset. seen (search kernel -> graphs checked)
+    gains the graphs checked."""
+    from tpurt_torch.kernels import frame_graph
+    graphs = [fg for fg in frame_graph._CACHE.values() if fg.exec is not None]
+    if not graphs:
+        raise AssertionError(f"graph ({label}): no captured graph cached")
+    for fg in graphs:
+        got = fg.node_counts()
+        want = {"parent": {"kernel": 3, "memset": int(fg.reduce),
+                           "conditional": 1, "other": 0},
+                "body": {"kernel": 3, "memset": 0, "conditional": 0,
+                         "other": 0}}
+        kernel = "traverse_nearest" if fg.counter is not None \
+            else "nearest_tri_small"
+        if got != want:
+            raise AssertionError(f"graph ({label}, {kernel}, reduce "
+                                 f"{fg.reduce}): nodes {got}, expected "
+                                 f"{want}")
+        seen[kernel] = seen.get(kernel, 0) + 1
 
 
 def check_graph_views(dev, scenes) -> None:
@@ -2425,6 +2614,43 @@ def check_graph_views(dev, scenes) -> None:
             not np.array_equal(images[0], images[2]):
         raise AssertionError("graph (views): the moved camera's film is not "
                              "its own")
+
+
+WALL_REPS = 20   # warm renders a config in graph_walls
+
+
+def graph_walls(reps: int = WALL_REPS) -> dict:
+    """Warm walls of mode mega's frame graph with the scene on the card:
+    c3-mesh at C3_SPP and c2-cornell at C2_SPP, each rendered once (it
+    captures its graphs), then reps times through render.render, whose
+    wall ends with the film on the host. One line per config with every
+    wall, their median and quartiles. It uses only the package's render
+    API, so an A/B runs it in two checkouts in turns on one card."""
+    import statistics
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch import scene as scene_mod
+    dev = torch.device("cuda", 0)
+    out = {}
+    for label, spp in (("c3-mesh", C3_SPP), ("c2-cornell", C2_SPP)):
+        cfg = config.PRESETS[label].replace(spp=spp)
+        scene, cam = config.build_scene(cfg)
+        dscene = scene_mod.to_device(scene, dev)
+        _, first = render.render(cfg, dscene, cam, device=dev)
+        runs = [render.render(cfg, dscene, cam, device=dev)[1]
+                for _ in range(reps)]
+        walls = [st["wall_s"] for st in runs]
+        q1, median, q3 = statistics.quantiles(walls, n=4)
+        out[label] = {"walls_s": walls, "median_s": median,
+                      "quartiles_s": [q1, q3],
+                      "first_wall_s": first["wall_s"],
+                      "rays": [st["rays"] for st in runs]}
+        emit("graph_walls", preset=label, spp=spp, device=smi_line(),
+             **out[label])
+        if any(st["rays"] != PHASE_RAYS[label] for st in runs):
+            raise AssertionError(f"graph_walls ({label}): rays "
+                                 f"{out[label]['rays']}")
+    return out
 
 
 def top_device_items(prof, n=6) -> list:
@@ -2713,6 +2939,10 @@ def main() -> int:
                                  "kernels a call")
     golden_rays = phase_goldens(dev)
     results.update(phase_child("phase_graph", args=[golden_rays]))
+    # the loop step runs inside bounce_shade and the cursor camera: its
+    # cost is theirs with it against without it (phase_fused)
+    results["frame_graph"].setdefault("row_extra", {})[
+        "loop_step_in_last_block"] = results.pop("loop_step")
     world = torch.cuda.device_count()
     # the main paths, each read on its own
     paths = {
@@ -2767,7 +2997,9 @@ def main() -> int:
     # above); vmemloop runs on the probe's path; camera_rays,
     # prims_nearest, bounce_shade and film_fold on every render path (in
     # mode mega as nodes of the frame graph, counted by execution);
-    # frame_graph on the mega paths; packet_compact on c4-wavefront (and
+    # frame_graph (the cursor's step, one a batch; the loop's condition
+    # runs inside camera_rays and bounce_shade) on the mega paths;
+    # packet_compact on c4-wavefront (and
     # a wavefront rank of c5 would), persist_refill on c4-persist.
     print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

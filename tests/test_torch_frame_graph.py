@@ -8,6 +8,11 @@ tpurt's one-dispatch frame pass.
     with c > 1, with alive and the live count;
   * bounce_shade_plain with the bounce index as a 0-dim tensor (the
     graph's device counter): bit-equal to the same call with an int;
+  * the loop control in the last block (loop_ctl.Loop): the cursor
+    camera and bounce_shade given a loop leave the ray outputs and the
+    state that the call without it followed by frame_cond_plain leaves
+    (live rays, every ray dead, the batch at max_depth), and zero the
+    search's ray counter;
   * the fold at the cursor (film_fold_plain with the state): array-equal
     to the host loop's fold of acc[p0:p0 + m], m = min(block, n - p0);
   * the loop condition and the cursor's step: the bounces and rays the
@@ -42,7 +47,7 @@ from tpurt_torch.kernels import bounce as bounce_k  # noqa: E402
 from tpurt_torch.kernels import camera as camera_k  # noqa: E402
 from tpurt_torch.kernels import film_fold as fold_k  # noqa: E402
 from tpurt_torch.kernels import frame_graph as fg_k  # noqa: E402
-from tpurt_torch.kernels import prims  # noqa: E402
+from tpurt_torch.kernels import loop_ctl, prims  # noqa: E402
 
 SMALL = tconfig.RenderConfig(width=40, height=30, spp=3, seed=7,
                              scene="spheres_plane", max_depth=6, rr_start=2)
@@ -159,6 +164,134 @@ def test_bounce_in_place_equals_fresh_outputs(small):
                                 prim, tri, out=(*state, live_hit))
     assert got[0] is state[0] and got[5] is live_hit
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _loop_state(k, depth, live=0):
+    """A frame state mid-batch: cursor (512, 3), tallies from earlier
+    batches, k bounces run, bounce index depth, live count live."""
+    st = _state(512, 3)
+    st[fg_k.RAYS], st[fg_k.ITERS] = 12345, 17
+    st[fg_k.K], st[fg_k.DEPTH] = k, depth
+    fg_k.live_word(st).fill_(live)
+    return st
+
+
+def _counter():
+    """A search's (1,) int32 ray counter, left dirty by a search."""
+    return torch.full((1,), 99, dtype=torch.int32)
+
+
+# (case, rays alive, k, max_depth): live rays; every ray dead; the
+# bounce that reaches max_depth (k == max_depth after it); the first
+# bounce of a batch
+LOOP_BOUNCES = [("live", True, 3, 6), ("all_dead", False, 3, 6),
+                ("max_depth", True, 6, 6), ("first", True, 1, 8)]
+
+
+@pytest.mark.parametrize("case,alive_any,k,max_depth", LOOP_BOUNCES)
+def test_bounce_with_loop_equals_bounce_then_condition(small, case,
+                                                       alive_any, k,
+                                                       max_depth):
+    """bounce_shade given a loop (the depth from the state, the survivors
+    into its live word, the next condition at its end) leaves the ray
+    outputs and the state of the bounce at that depth with a survivor
+    count, then frame_cond_plain; the search's ray counter ends at 0.
+    The wrapper, in place on out buffers, leaves the same."""
+    scene, cam = small
+    o, d, atten, rad, alive, keys, prim, tri = _bounce_inputs(scene, cam)
+    if not alive_any:
+        alive = torch.zeros_like(alive)
+    want_st = _loop_state(k, k - 1)
+    want = bounce_k.bounce_shade_plain(
+        scene, o, d, atten, rad, alive, keys, k - 1, 2, prim, tri,
+        fg_k.live_word(want_st))
+    fg_k.frame_cond_plain(want_st, max_depth)
+    go = bool(want[4].any()) and k < max_depth
+    assert int(want_st[fg_k.GO]) == go
+    st, counter = _loop_state(k, k - 1), _counter()
+    got = bounce_k.bounce_shade_plain(
+        scene, o, d, atten, rad, alive, keys, None, 2, prim, tri,
+        loop=loop_ctl.Loop(st, max_depth, None, counter))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(st, want_st) and int(counter) == 0
+    # the wrapper in place, as the frame graph calls it
+    st, counter = _loop_state(k, k - 1), _counter()
+    bufs = [t.clone() for t in (o, d, atten, rad, alive)]
+    live_hit = torch.empty_like(alive)
+    out = bounce_k.bounce_shade(
+        scene, *bufs, keys, None, 2, prim, tri, out=(*bufs, live_hit),
+        loop=loop_ctl.Loop(st, max_depth, None, counter))
+    assert all(torch.equal(g, w) for g, w in zip(out, want))
+    assert torch.equal(st, want_st) and int(counter) == 0
+
+
+# (case, rows alive, max_depth): live rows; every row dead; max_depth 0
+LOOP_CAMERAS = [("live", True, 8), ("all_dead", False, 8),
+                ("max_depth_0", True, 0)]
+
+
+@pytest.mark.parametrize("case,rows_alive,max_depth", LOOP_CAMERAS)
+def test_cursor_camera_with_loop_runs_the_first_condition(small, case,
+                                                          rows_alive,
+                                                          max_depth):
+    """camera_rays_cursor given a loop adds the live rays into the
+    state's live word and runs the first condition at its end: the ray
+    outputs and the state are the camera's with a live count, then
+    frame_cond_plain; the search's ray counter ends at 0."""
+    _, cam = small
+    n, block, c = 1000, 256, 2
+    pix, ok = _padded(n, 1024, seed=5)
+    if not rows_alive:
+        ok = torch.zeros_like(ok)
+    view = _view(cam)
+    want_st = _state(512, 3)
+    want = camera_k.camera_rays_cursor_plain(view, pix, ok, want_st, c,
+                                             block, fg_k.live_word(want_st))
+    fg_k.frame_cond_plain(want_st, max_depth)
+    assert int(want_st[fg_k.GO]) == (rows_alive and max_depth > 0)
+    for plain in (True, False):
+        st, counter = _state(512, 3), _counter()
+        loop = loop_ctl.Loop(st, max_depth, None, counter)
+        if plain:
+            got = camera_k.camera_rays_cursor_plain(view, pix, ok, st, c,
+                                                    block, loop=loop)
+        else:
+            got = camera_k.camera_rays_cursor(
+                view, pix, ok, st, c, block,
+                out=tuple(torch.empty_like(t) for t in want), loop=loop)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(st, want_st) and int(counter) == 0
+
+
+def test_loop_takes_the_place_of_depth_and_live(small):
+    """A loop gives the bounce its depth and takes its survivors, and
+    gives the cursor camera its live count: a call that also passes
+    those, or neither, raises; so does a loop on another state."""
+    scene, cam = small
+    o, d, atten, rad, alive, keys, prim, tri = _bounce_inputs(scene, cam,
+                                                              n=64)
+    st = _state()
+    loop = loop_ctl.Loop(st, 4)
+    with pytest.raises(ValueError):
+        bounce_k.bounce_shade(scene, o, d, atten, rad, alive, keys, 0, 2,
+                              prim, tri, loop=loop)
+    with pytest.raises(ValueError):
+        bounce_k.bounce_shade(scene, o, d, atten, rad, alive, keys, None,
+                              2, prim, tri, survivors=fg_k.live_word(st),
+                              loop=loop)
+    with pytest.raises(ValueError):
+        bounce_k.bounce_shade(scene, o, d, atten, rad, alive, keys, None,
+                              2, prim, tri)
+    pix, ok = _padded(200, 256, seed=1)
+    view = _view(cam)
+    with pytest.raises(ValueError):
+        camera_k.camera_rays_cursor(view, pix, ok, st, 1, 256,
+                                    fg_k.live_word(st), loop=loop)
+    with pytest.raises(ValueError):
+        camera_k.camera_rays_cursor(view, pix, ok, st, 1, 256)
+    with pytest.raises(ValueError):
+        camera_k.camera_rays_cursor(view, pix, ok, _state(), 1, 256,
+                                    loop=loop)
 
 
 @pytest.mark.parametrize("n,block,c,p0", [(1000, 256, 1, 0),
@@ -331,7 +464,8 @@ def test_batch_schedule_equals_tpurt(monkeypatch, start, stop, chunk):
                                   min(chunk, max(1, stop - start))) == runs
 
 
-@pytest.mark.parametrize("fn", ["camera", "fold", "cond", "advance"])
+@pytest.mark.parametrize("fn", ["camera", "camera_loop", "fold", "cond",
+                                "advance"])
 def test_graph_wrappers_raise_off_the_cpu(small, fn):
     """A wrapper runs its plain version only for CPU tensors; tensors on
     another device (here meta) must launch a kernel or raise."""
@@ -343,6 +477,10 @@ def test_graph_wrappers_raise_off_the_cpu(small, fn):
             camera_k.camera_rays_cursor(
                 _view(cam).to("meta"), pix, pix.bool(), st, 1, 256,
                 torch.zeros(1, dtype=torch.int32, device="meta"))
+        elif fn == "camera_loop":
+            camera_k.camera_rays_cursor(
+                _view(cam).to("meta"), pix, pix.bool(), st, 1, 256,
+                loop=loop_ctl.Loop(st, 4))
         elif fn == "fold":
             fold_k.film_fold(torch.zeros((256, 3), device="meta"),
                              torch.zeros((256, 3), device="meta"), 1, 256,

@@ -1,14 +1,17 @@
 """The fused bounce path of tpurt_torch on the CPU: the plain versions of
 ``camera_rays``, ``prims_nearest`` and ``bounce_shade`` against the
 eager bounce and camera code they replaced, and the kernels' per-ray
-headers (``csrc/threefry.cuh``, ``csrc/shade_common.cuh``) compiled with
-g++ against the plain versions.
+headers (``csrc/threefry.cuh``, ``csrc/shade_common.cuh``) and the frame
+graph's loop control (``csrc/loop_ctl.cuh``) compiled with g++ against
+the plain versions.
 
 Tolerances:
   * composed plain versions against the replaced code: torch.equal (the
     same torch operations in the same order);
   * threefry words, uniforms and draws from the headers: bit-equal;
   * roulette: bit-equal (no transcendental function in it);
+  * the loop step and the cursor step: the whole state bit-equal
+    (integer arithmetic only);
   * scatter, camera rays and a whole bounce from the headers: glibc's
     cosf / sinf / sqrtf against torch's CPU cos / sin / sqrt (torch's are
     not correctly rounded everywhere), so values agree within ULP_BOUND
@@ -38,7 +41,7 @@ from tpurt_torch.geometry import INF
 from tpurt_torch.kernels import _build, bounce as bounce_k
 from tpurt_torch.kernels import camera as camera_k
 from tpurt_torch.kernels import intersect as intersect_k
-from tpurt_torch.kernels import prims, traverse
+from tpurt_torch.kernels import loop_ctl, prims, traverse
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures"
 ULP_BOUND = 64          # units of 2**-24, on values of magnitude <= ~4
@@ -307,6 +310,7 @@ def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
 
 SHIM = r"""
 #include "shade_common.cuh"
+#include "loop_ctl.cuh"
 
 using namespace tt;
 
@@ -433,6 +437,15 @@ void sh_bounce(int n, float* o, float* d, float* atten, float* rad,
   }
 }
 
+// the loop control on one frame state (loop_ctl.cuh's STATE_SLOTS int64)
+int lc_cond(long long* st, int max_depth) {
+  return loop_cond(st, max_depth) ? 1 : 0;
+}
+
+void lc_advance(long long* st, int block, int n_pad, int c) {
+  cursor_step(st, block, n_pad, c);
+}
+
 }
 """
 
@@ -491,6 +504,56 @@ def test_camera_and_bounce_draws_bit_equal(shim, seed, depth0):
     np.testing.assert_array_equal(cam, rng.camera_draws(keys).numpy())
     np.testing.assert_array_equal(
         bnc, rng.bounce_draws(keys, torch.from_numpy(depth)).numpy())
+
+
+def _frame_state(slots, live):
+    """A frame state (loop_ctl.STATE_SLOTS int64) of the given slot
+    values, with the int32 live count in slot LIVE's low word."""
+    st = torch.tensor(slots, dtype=torch.int64)
+    loop_ctl.live_word(st).fill_(live)
+    return st
+
+
+_SLOT = st.integers(0, 2**40)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(0, 16), st.integers(0, 2**31 - 1),
+       st.integers(0, 3), st.integers(-2, 2), st.lists(
+           _SLOT, min_size=loop_ctl.STATE_SLOTS,
+           max_size=loop_ctl.STATE_SLOTS))
+def test_loop_step_bit_equal(shim, max_depth, live, zero_live, k_off,
+                             slots):
+    """loop_ctl.cuh's loop_cond on a state (max_depth 0-16, live 0 to
+    2**31 - 1 and often 0, k below, at and past max_depth) leaves the
+    state frame_cond_plain leaves, bit for bit, and returns its GO."""
+    slots[loop_ctl.K] = max(0, max_depth + k_off)
+    want = _frame_state(slots, 0 if zero_live == 0 else live)
+    got = want.numpy().copy()
+    go = shim.lc_cond(_p(got), max_depth)
+    loop_ctl.frame_cond_plain(want, max_depth)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert go == int(want[loop_ctl.GO])
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(1, 2**20), st.integers(1, 8), st.integers(1, 64),
+       st.integers(0, 2**31 - 1), st.lists(
+           _SLOT, min_size=loop_ctl.STATE_SLOTS,
+           max_size=loop_ctl.STATE_SLOTS))
+def test_cursor_step_bit_equal(shim, block, blocks, c, live, slots):
+    """loop_ctl.cuh's cursor_step leaves the state frame_advance_plain
+    leaves, bit for bit: inside the padded list, at its last block, and
+    with the batch slots (DEPTH, K, LIVE) set."""
+    n_pad = block * blocks
+    slots[loop_ctl.P0] = block * (slots[loop_ctl.P0] % blocks)
+    want = _frame_state(slots, live)
+    got = want.numpy().copy()
+    shim.lc_advance(_p(got), block, n_pad, c)
+    loop_ctl.frame_advance_plain(want, block, n_pad, c)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert int(want[loop_ctl.DEPTH]) == int(want[loop_ctl.K]) == \
+        int(want[loop_ctl.LIVE]) == 0
 
 
 def _ulps(a, b):

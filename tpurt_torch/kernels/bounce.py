@@ -15,7 +15,11 @@ tensor, if given, gains the rays alive after the bounce; a (1,) int32
 ``live_packets`` tensor, if given, the 128-ray packets (rays 128p to
 128p + 127) that hold one; a (ceil(N / 128),) bool ``packet_flags``
 tensor, if given, is set to which packets hold one (the shrink's
-packet order, ``compact.packet_compact``).
+packet order, ``compact.packet_compact``). Given ``loop``
+(``loop_ctl.Loop``, the frame graph's loop control), the bounce index is
+the loop state's DEPTH slot, the survivors count into its live count, and
+the kernel's last block runs the next condition (``loop_ctl.loop_end_plain``
+in the plain version).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from .. import linalg, materials, rng
 from ..geometry import INF
 from . import _build
 from .compact import PACKET_R
+from .loop_ctl import DEPTH, live_word, loop_args, loop_end_plain
 from .prims import closer
 
 
@@ -87,8 +92,12 @@ RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95
 
 def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
                        rr_start, prim, tri, survivors=None,
-                       live_packets=None, packet_flags=None):
-    """Plain PyTorch version: the bounce body of trace.bounce."""
+                       live_packets=None, packet_flags=None, loop=None):
+    """Plain PyTorch version: the bounce body of trace.bounce. With
+    ``loop`` (depth and survivors None) the depth is the loop state's and
+    the loop's condition runs at the end."""
+    if loop is not None:
+        depth, survivors = loop.state[DEPTH], live_word(loop.state)
     t, n, front, mat, ok = hit_shade_plain(scene, o, d, prim, tri)
     live_hit = alive & ok
     live_miss = alive & ~ok
@@ -129,6 +138,8 @@ def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
             live_packets.add_(live_pk.sum(dtype=torch.int32))
         if packet_flags is not None:
             packet_flags.copy_(live_pk)
+    if loop is not None:
+        loop_end_plain(loop)
     return o, d, atten, rad, alive, live_hit
 
 
@@ -186,7 +197,7 @@ def hit_shade(scene, o, d, prim, tri):
 
 def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                  prim, tri, survivors=None, live_packets=None,
-                 packet_flags=None, out=None):
+                 packet_flags=None, out=None, loop=None):
     """trace.bounce after its searches on o's device: the plain version
     for CPU tensors, the CUDA kernel for CUDA tensors (or an error).
     depth: the bounce index, an int, a 0-dim int64 tensor on the device
@@ -194,11 +205,17 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
     (N,) integer tensor of per-ray depths; rr_start: None or the first
     bounce with roulette. ``out``, if given, is the six outputs to write,
     and may be (o, d, atten, rad, alive, live_hit) themselves: the
-    update is then in place."""
+    update is then in place. ``loop`` (``loop_ctl.Loop``), if given, takes
+    the place of depth and survivors (both None): the kernel's last block
+    runs the loop's next condition."""
+    if (loop is None) == (depth is None) or (loop is not None
+                                             and survivors is not None):
+        raise ValueError("bounce_shade: give a depth, or a loop, which "
+                         "gives the depth and takes the survivors")
     if o.device.type == "cpu":
         got = bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
                                  depth, rr_start, prim, tri, survivors,
-                                 live_packets, packet_flags)
+                                 live_packets, packet_flags, loop)
         return got if out is None else _build.copy_into(out, got)
     dev = _build.cuda_device("bounce_shade", o)
     n = o.shape[0]
@@ -212,7 +229,9 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
     _build.check("sky_a", scene.sky_a, (3,), torch.float32, dev)
     _build.check("sky_b", scene.sky_b, (3,), torch.float32, dev)
     depth_v = depth_p = None
-    if torch.is_tensor(depth) and depth.dim() == 0:
+    if loop is not None:
+        depth = 0
+    elif torch.is_tensor(depth) and depth.dim() == 0:
         depth_p, depth = depth, 0
         _build.check("depth", depth_p, (), torch.int64, dev)
     elif torch.is_tensor(depth):
@@ -242,6 +261,7 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                   0 if rr_start is None else int(rr_start),
                   *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
                   scene.mat_packed, scene.sky_a, scene.sky_b, *outs,
-                  survivors, live_packets, packet_flags, n)
+                  survivors, live_packets, packet_flags,
+                  *loop_args(loop, dev), n)
     _build.count("bounce_shade")
     return outs

@@ -13,7 +13,10 @@ from s0 = state[1] on, sample-major (tpurt/render.py:151-155), with the
 camera, frame size and seed read from a view array on the device (so a
 captured graph serves any camera and seed); it also writes each ray's
 alive flag and its start state (atten 1, rad 0) and adds the live rays
-into a count on the device.
+into a count on the device. Given ``loop`` (``loop_ctl.Loop``, the frame
+graph's loop control) that count is the loop state's live count, and the
+kernel's last block runs the loop's first condition
+(``loop_ctl.loop_end_plain`` in the plain version).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from .. import camera as camera_mod
 from .. import rng
 from . import _build
+from .loop_ctl import live_word, loop_args, loop_end_plain
 
 
 def camera_rays_plain(cam, width: int, height: int, seed: int, pixel_ids,
@@ -93,12 +97,16 @@ def view_unpack(view):
 
 
 def camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c: int,
-                             block: int, live):
+                             block: int, live=None, loop=None):
     """Plain PyTorch version of the cursor camera: the explicit repeats
     of render.accumulate's host loop at p0 = state[0], s0 = state[1],
     with the camera, frame size and seed of ``view`` (view_words).
     Returns (o, d, keys, alive, atten, rad); live (1,) int32 gains the
-    live rays."""
+    live rays. With ``loop`` (live None, state its state) the live rays
+    go into the loop state's live word and the loop's first condition
+    runs at the end."""
+    if loop is not None:
+        live = live_word(loop.state)
     cam, width, height, seed = view_unpack(view)
     p0, s0 = int(state[0]), int(state[1])
     rows = slice(p0, p0 + block)
@@ -108,23 +116,31 @@ def camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c: int,
     o, d, keys = camera_rays_plain(cam, width, height, seed, pixf, smp)
     alive = ok_pad[rows].repeat(c)
     live.add_(alive.sum(dtype=torch.int32))
+    if loop is not None:
+        loop_end_plain(loop)
     return (o, d, keys, alive, torch.ones_like(o), torch.zeros_like(o))
 
 
 def camera_rays_cursor(view, pix_pad, ok_pad, state, c: int, block: int,
-                       live, out=None):
+                       live=None, out=None, loop=None):
     """The batch at the cursor on pix_pad's device: the plain version for
     CPU tensors, the CUDA kernel for CUDA tensors (or an error). view
     (VIEW_WORDS,) int32: the camera, frame size and seed (view_words);
     pix_pad (n_pad,) int64 and ok_pad (n_pad,) bool: the padded pixel
     list and its live rows; state (>= 2,) int64 holds p0, s0; live (1,)
     int32. ``out``, if given, is (o, d, keys, alive, atten, rad) to write
-    (the frame graph's fixed buffers), else they are allocated. Returns
-    them."""
+    (the frame graph's fixed buffers), else they are allocated. ``loop``
+    (``loop_ctl.Loop``), if given, takes the place of live (None) and
+    its state must be ``state``: the kernel's last block runs the loop's
+    first condition. Returns the outputs."""
     n = c * block
+    if (live is None) == (loop is None) or (loop is not None
+                                            and loop.state is not state):
+        raise ValueError("camera_rays_cursor: give a live count, or a "
+                         "loop on the cursor's state")
     if pix_pad.device.type == "cpu":
         got = camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c,
-                                       block, live)
+                                       block, live, loop)
         return got if out is None else _build.copy_into(out, got)
     dev = _build.cuda_device("camera_rays", pix_pad)
     n_pad = pix_pad.shape[0]
@@ -132,7 +148,8 @@ def camera_rays_cursor(view, pix_pad, ok_pad, state, c: int, block: int,
     _build.check("pix_pad", pix_pad, (n_pad,), torch.int64, dev)
     _build.check("ok_pad", ok_pad, (n_pad,), torch.bool, dev)
     _build.check("state", state, (state.shape[0],), torch.int64, dev)
-    _build.check("live", live, (1,), torch.int32, dev)
+    if live is not None:
+        _build.check("live", live, (1,), torch.int32, dev)
     if out is None:
         out = (torch.empty((n, 3), dtype=torch.float32, device=dev),
                torch.empty((n, 3), dtype=torch.float32, device=dev),
@@ -147,6 +164,6 @@ def camera_rays_cursor(view, pix_pad, ok_pad, state, c: int, block: int,
              torch.float32, torch.float32)):
         _build.check(name, a, shape, dtype, dev)
     _build.launch("tt_camera_rays_cursor", dev, pix_pad, ok_pad, state,
-                  view, *out, live, n, block)
+                  view, *out, live, *loop_args(loop, dev), n, block)
     _build.count("camera_rays")
     return out

@@ -28,6 +28,19 @@
 // bounce_ray) before its first store; those pointers carry no
 // __restrict__, so the compiler keeps every load ahead of the stores.
 //
+// In the frame graph the loop control runs in the kernel's last block
+// (loop_ctl.cuh's loop_tail): the bounce index comes from the frame
+// state's DEPTH slot, each block's survivors go with its ticket into the
+// state's done counter, and the block that finishes last takes the live
+// count, runs the next condition (rays_cast, the bounce index, k),
+// zeroes the search's ray counter and sets the WHILE node's condition.
+// So the depth pointer points into the state the last block writes, and
+// carries no __restrict__. A block that is not last reads DEPTH (every
+// thread, inside bounce_ray) before its barrier in __syncthreads_count,
+// and the survivor count its ticket carries depends on those reads; the
+// last block writes DEPTH only after its own ticket, which returns after
+// every other block's.
+//
 // tt_hit_shade is the same kernel stopped after the merge: trace.intersect
 // on a card (the Hit's t, n, front, mat, ok), for mode primary.
 //
@@ -41,6 +54,7 @@
 // The per-ray math is merge_hit and bounce_ray in shade_common.cuh.
 #include <cuda_runtime.h>
 
+#include "loop_ctl.cuh"
 #include "shade_common.cuh"
 
 namespace {
@@ -101,14 +115,14 @@ __global__ void hit_shade_kernel(const float* __restrict__ o,
 __global__ void bounce_shade_kernel(
     const float* o, const float* d, const float* atten, const float* rad,
     const bool* alive, const long long* __restrict__ keys,
-    const long long* __restrict__ depth_v,
-    const long long* __restrict__ depth_p, long long depth, bool rr,
-    long long rr_start, Hits h, const float* __restrict__ mat_packed,
-    const float* __restrict__ sky_a, const float* __restrict__ sky_b,
-    float* o_out, float* d_out, float* atten_out, float* rad_out,
-    bool* alive_out, bool* __restrict__ live_hit_out,
-    int* __restrict__ survivors, int* __restrict__ live_packets,
-    bool* __restrict__ packet_flags, int n) {
+    const long long* __restrict__ depth_v, const long long* depth_p,
+    long long depth, bool rr, long long rr_start, Hits h,
+    const float* __restrict__ mat_packed, const float* __restrict__ sky_a,
+    const float* __restrict__ sky_b, float* o_out, float* d_out,
+    float* atten_out, float* rad_out, bool* alive_out,
+    bool* __restrict__ live_hit_out, int* __restrict__ survivors,
+    int* __restrict__ live_packets, bool* __restrict__ packet_flags, int n,
+    tt::LoopCtl lc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool alive_new = false;
   if (i < n) {
@@ -135,9 +149,14 @@ __global__ void bounce_shade_kernel(
     alive_out[i] = alive_new;
     live_hit_out[i] = live_hit;
   }
-  if (survivors != nullptr) {
+  if (survivors != nullptr || lc.state != nullptr) {
     const int c = __syncthreads_count(alive_new);
-    if (threadIdx.x == 0 && c > 0) atomicAdd(survivors, c);
+    if (threadIdx.x == 0) {
+      if (lc.state != nullptr)
+        tt::loop_tail(lc, c);
+      else if (c > 0)
+        atomicAdd(survivors, c);
+    }
   }
   if (live_packets != nullptr || packet_flags != nullptr) {
     __shared__ int packet_live[THREADS / PACKET_R];
@@ -196,7 +215,12 @@ extern "C" int tt_hit_shade(const void* o, const void* d, const void* t_p,
 // ((n + 127) / 128 bytes) may be null; with both depths null every ray is
 // at bounce `depth`. o_out, d_out, atten_out, rad_out and alive_out may
 // be o, d, atten, rad and alive (in place). rr: 0 for no roulette,
-// else roulette from depth rr_start on.
+// else roulette from depth rr_start on. loop_state: null, or the frame's
+// state (loop_ctl.cuh), and then depth_v, depth_p and survivors must be
+// null: the depth is its DEPTH slot, the survivors count into its live
+// count, and the last block runs the next condition with max_depth,
+// zeroes search_counter (int32, may be null) and, if in_graph, sets the
+// WHILE node's condition through handle.
 extern "C" int tt_bounce_shade(
     const void* o, const void* d, const void* atten, const void* rad,
     const void* alive, const void* keys, const void* depth_v,
@@ -207,7 +231,14 @@ extern "C" int tt_bounce_shade(
     const void* mat_packed, const void* sky_a, const void* sky_b, void* o_out,
     void* d_out, void* atten_out, void* rad_out, void* alive_out,
     void* live_hit_out, void* survivors, void* live_packets,
-    void* packet_flags, int n, void* stream) {
+    void* packet_flags, void* loop_state, int max_depth, const void* handle,
+    int in_graph, void* search_counter, int n, void* stream) {
+  if (loop_state != nullptr) {
+    if (depth_v != nullptr || depth_p != nullptr || survivors != nullptr ||
+        n <= 0)
+      return (int)cudaErrorInvalidValue;
+    depth_p = (long long*)loop_state + tt::DEPTH;
+  }
   if (n > 0) {
     bounce_shade_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
                           (cudaStream_t)stream>>>(
@@ -219,7 +250,9 @@ extern "C" int tt_bounce_shade(
         (const float*)mat_packed, (const float*)sky_a, (const float*)sky_b,
         (float*)o_out, (float*)d_out, (float*)atten_out, (float*)rad_out,
         (bool*)alive_out, (bool*)live_hit_out, (int*)survivors,
-        (int*)live_packets, (bool*)packet_flags, n);
+        (int*)live_packets, (bool*)packet_flags, n,
+        tt::loop_ctl(loop_state, max_depth, handle, in_graph,
+                     search_counter));
   }
   return (int)cudaGetLastError();
 }

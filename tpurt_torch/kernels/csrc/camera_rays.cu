@@ -27,9 +27,17 @@
 // pix_pad[p0 + b], sample s0 + j and alive = ok_pad[p0 + b]; it also
 // starts the bounce state (atten 1, rad 0) and adds the batch's live rays
 // into a count (per block by __syncthreads_count, one atomicAdd), which
-// the loop's first condition reads (trace.py's live[0]).
+// the loop's first condition reads (trace.py's live[0]). In the graph the
+// kernel's last block runs that condition (loop_ctl.cuh's loop_tail:
+// each block's count goes with its ticket into the frame state's done
+// counter): rays_cast gains the live rays, the search's ray counter is
+// zeroed and the WHILE node's condition set. The cursor state is then
+// the loop's state, which the last block writes: the other blocks read
+// p0 and s0 (slots 0 and 1, which the condition leaves alone) before
+// their tickets, and the state pointer carries no __restrict__.
 #include <cuda_runtime.h>
 
+#include "loop_ctl.cuh"
 #include "shade_common.cuh"
 
 namespace {
@@ -54,11 +62,11 @@ __global__ void camera_rays_kernel(const long long* __restrict__ pix,
 
 __global__ void camera_rays_cursor_kernel(
     const long long* __restrict__ pix_pad, const bool* __restrict__ ok_pad,
-    const long long* __restrict__ state, const int* __restrict__ params,
+    const long long* state, const int* __restrict__ params,
     float* __restrict__ o, float* __restrict__ d,
     long long* __restrict__ keys, bool* __restrict__ alive,
     float* __restrict__ atten, float* __restrict__ rad,
-    int* __restrict__ live, int n, int block) {
+    int* __restrict__ live, int n, int block, tt::LoopCtl lc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool ok = false;
   if (i < n) {
@@ -83,7 +91,12 @@ __global__ void camera_rays_cursor_kernel(
     keys[2 * (size_t)n + i] = seed;
   }
   const int c = __syncthreads_count(ok);
-  if (threadIdx.x == 0 && c > 0) atomicAdd(live, c);
+  if (threadIdx.x == 0) {
+    if (lc.state != nullptr)
+      tt::loop_tail(lc, c);
+    else if (c > 0)
+      atomicAdd(live, c);
+  }
 }
 
 }  // namespace
@@ -115,11 +128,21 @@ extern "C" int tt_camera_rays(const void* pix, const void* smp, void* o,
 // padded pixel list, at least p0 + block rows; params (int32) the view:
 // seed, width, height and the camera's 18 float32 bit patterns. Writes o,
 // d, keys, alive, atten = 1 and rad = 0, and adds the live rays into
-// *live (int32).
+// *live (int32). loop_state null: nothing else. Else the frame's state
+// (loop_ctl.cuh), which must be `state`, and live must be null: the live
+// rays count into its live count and the last block runs the first
+// condition with max_depth, zeroes search_counter (int32, may be null)
+// and, if in_graph, sets the WHILE node's condition through handle.
 extern "C" int tt_camera_rays_cursor(
     const void* pix_pad, const void* ok_pad, const void* state,
     const void* params, void* o, void* d, void* keys, void* alive,
-    void* atten, void* rad, void* live, int n, int block, void* stream) {
+    void* atten, void* rad, void* live, void* loop_state, int max_depth,
+    const void* handle, int in_graph, void* search_counter, int n,
+    int block, void* stream) {
+  if (loop_state != nullptr) {
+    if (loop_state != state || live != nullptr || n <= 0 || block <= 0)
+      return (int)cudaErrorInvalidValue;
+  }
   if (n > 0 && block > 0) {
     const int threads = 256;
     camera_rays_cursor_kernel<<<(n + threads - 1) / threads, threads, 0,
@@ -127,7 +150,9 @@ extern "C" int tt_camera_rays_cursor(
         (const long long*)pix_pad, (const bool*)ok_pad,
         (const long long*)state, (const int*)params, (float*)o, (float*)d,
         (long long*)keys, (bool*)alive, (float*)atten, (float*)rad,
-        (int*)live, n, block);
+        (int*)live, n, block,
+        tt::loop_ctl(loop_state, max_depth, handle, in_graph,
+                     search_counter));
   }
   return (int)cudaGetLastError();
 }

@@ -1,81 +1,55 @@
-// frame_graph: the loop control of the megakernel frame pass, and the C
-// entry points that capture it as one CUDA graph.
+// frame_graph: the C entry points that capture the megakernel frame pass
+// as one CUDA graph, and the loop control as standalone one-thread
+// kernels.
 //
 // Replaces what keeps tpurt's frame pass one device dispatch: the bounce
-// lax.while_loop's cond, (bounce < max_depth) & any(alive)
-// (tpurt/trace.py:267-269), its ray counter (nrays + sum(alive), :272),
+// lax.while_loop's cond (tpurt/trace.py:267-269), its ray counter (:272)
 // and the fori_loop indices over sample chunks and pixel blocks
-// (tpurt/render.py:144-176), which XLA keeps on the TPU. The plain
-// versions are kernels/frame_graph.py::frame_cond_plain and
+// (tpurt/render.py:144-176). The loop control's arithmetic and the
+// state's layout (STATE_SLOTS int64 slots) are in loop_ctl.cuh; the
+// plain versions are kernels/loop_ctl.py::frame_cond_plain and
 // frame_advance_plain.
-//
-// The frame's state is one int64 array of STATE_SLOTS slots (the layout
-// of kernels/frame_graph.py): 0 p0 (first pixel row of the batch), 1 s0
-// (first sample), 2 rays_cast, 3 bounces run (both summed over batches),
-// 4 the bounce index the body reads, 5 the bounces run in this batch, 6
-// the live count (an int32 in the slot's low word: the camera adds the
-// batch's live rays into it, each bounce its survivors), 7 the last
-// condition.
-//
-// tt_frame_graph, one thread, before each bounce: takes the live count v
-// and zeroes it for the next bounce's survivors; the loop goes on while
-// v > 0 and k < max_depth, k the bounces run in this batch (trace.py's
-// host loop stops at the same bounce); if it goes on, rays_cast gains v,
-// the bounce index becomes k and k steps. It sets the WHILE node's
-// condition with cudaGraphSetConditional when launched in the graph.
-// tt_frame_advance, one thread, after the fold: p0 += block, and at the
-// end of the padded pixel list p0 = 0, s0 += c (chunk-major, then block,
-// render.py's order).
 //
 // The graph of a batch (kernels/frame_graph.py::FrameGraph captures it
 // through these entry points on a side stream; the WHILE node needs CUDA
 // 12.3 or later, its body captured by cudaStreamBeginCaptureToGraph on a
 // second stream):
-//   memset(state[4:7]) -> camera_rays_cursor -> frame_graph
-//   -> WHILE { prims_nearest -> search (traverse with its counter's
-//              memset, or nearest_tri_small) -> bounce_shade (depth from
-//              state[4], in place) -> frame_graph }
+//   camera_rays_cursor (its last block: the first condition)
+//   -> WHILE { prims_nearest -> search (traverse, its ray counter zeroed
+//              by the last block before, or nearest_tri_small)
+//              -> bounce_shade (depth from the state, in place; its last
+//                 block: the next condition) }
 //   -> [memset(part)] -> film_fold (at the cursor) -> frame_advance
+// A bounce is three kernel nodes; tt_graph_node_counts counts the nodes
+// of the parent graph and of the WHILE body.
+//
+// tt_frame_graph (the condition, loop_cond) runs on no render path: it
+// is the loop control alone, which chip_smoke.py holds against the plain
+// version and times. tt_frame_advance is the graph's last node
+// (cursor_step: the cursor's step and the batch slots' reset).
 //
 // Bound on the H100: the two kernels move under 100 bytes and are bound
 // by a launch's latency, not by bytes or operations. Design: one thread,
 // no atomics (nothing else runs beside them in the graph).
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-namespace {
+#include "loop_ctl.cuh"
 
-constexpr int P0 = 0, S0 = 1, RAYS = 2, ITERS = 3, DEPTH = 4, K = 5,
-              LIVE = 6, GO = 7;
+namespace {
 
 __global__ void frame_cond_kernel(long long* st,
                                   cudaGraphConditionalHandle handle,
                                   int max_depth, bool in_graph) {
-  int* live = reinterpret_cast<int*>(st + LIVE);
-  const long long v = *live;
-  *live = 0;
-  const long long k = st[K];
-  const bool go = v > 0 && k < max_depth;
-  if (go) {
-    st[RAYS] += v;
-    st[ITERS] += 1;
-    st[DEPTH] = k;
-    st[K] = k + 1;
-  }
-  st[GO] = go;
+  const bool go = tt::loop_cond(st, max_depth);
   if (in_graph) cudaGraphSetConditional(handle, go ? 1u : 0u);
 }
 
 __global__ void frame_advance_kernel(long long* st, long long block,
                                      long long n_pad, long long c) {
-  const long long p0 = st[P0] + block;
-  if (p0 >= n_pad) {
-    st[P0] = 0;
-    st[S0] += c;
-  } else {
-    st[P0] = p0;
-  }
+  tt::cursor_step(st, block, n_pad, c);
 }
 
 // The graph a stream is capturing into, and the nodes its next capture
@@ -98,7 +72,7 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
 
 }  // namespace
 
-// The loop condition: state (int64, the slots above), the WHILE node's
+// The loop condition: state (int64, loop_ctl.cuh's slots), the WHILE node's
 // handle (an unsigned 64-bit value passed as a pointer), max_depth;
 // in_graph 0 leaves the handle alone (a launch outside a graph).
 extern "C" int tt_frame_graph(void* state, const void* handle, int max_depth,
@@ -109,7 +83,8 @@ extern "C" int tt_frame_graph(void* state, const void* handle, int max_depth,
   return (int)cudaGetLastError();
 }
 
-// The cursor's step to the next batch of a frame of n_pad padded rows.
+// The cursor's step to the next batch of a frame of n_pad padded rows,
+// with the batch slots' reset.
 extern "C" int tt_frame_advance(void* state, int block, int n_pad, int c,
                                 void* stream) {
   frame_advance_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
@@ -139,9 +114,10 @@ extern "C" int tt_graph_begin(void* handle_out, void* stream) {
 
 // Adds a WHILE node on `handle` after what the stream captured so far,
 // makes it the stream's next dependency, and starts capturing body_stream
-// into the node's body graph.
+// into the node's body graph, which it writes to *body_out (host memory,
+// 8 bytes; the parent graph owns it).
 extern "C" int tt_graph_while(const void* handle, void* body_stream,
-                              void* stream) {
+                              void* body_out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaGraph_t graph;
   const cudaGraphNode_t* deps;
@@ -166,6 +142,7 @@ extern "C" int tt_graph_while(const void* handle, void* body_stream,
         s, &node, 1, cudaStreamSetCaptureDependencies);
 #endif
   if (err != cudaSuccess) return (int)err;
+  *(cudaGraph_t*)body_out = params.conditional.phGraph_out[0];
   return (int)cudaStreamBeginCaptureToGraph(
       (cudaStream_t)body_stream, params.conditional.phGraph_out[0], nullptr,
       nullptr, 0, cudaStreamCaptureModeThreadLocal);
@@ -178,16 +155,20 @@ extern "C" int tt_graph_while_end(void* stream) {
 }
 
 // Ends the stream's capture and instantiates the graph; writes the
-// executable graph to *exec_out (host memory, 8 bytes).
-extern "C" int tt_graph_end(void* exec_out, void* stream) {
+// executable graph to out[0] and the graph it was made from to out[1]
+// (host memory, 16 bytes), which is kept for tt_graph_node_counts.
+extern "C" int tt_graph_end(void* out, void* stream) {
   cudaGraph_t graph = nullptr;
   cudaError_t err = cudaStreamEndCapture((cudaStream_t)stream, &graph);
   if (err != cudaSuccess) return (int)err;
   cudaGraphExec_t exec = nullptr;
   err = cudaGraphInstantiate(&exec, graph, 0);
-  cudaGraphDestroy(graph);
-  if (err != cudaSuccess) return (int)err;
-  *(cudaGraphExec_t*)exec_out = exec;
+  if (err != cudaSuccess) {
+    cudaGraphDestroy(graph);
+    return (int)err;
+  }
+  ((cudaGraphExec_t*)out)[0] = exec;
+  ((cudaGraph_t*)out)[1] = graph;
   return (int)cudaSuccess;
 }
 
@@ -212,10 +193,82 @@ extern "C" int tt_graph_launch(const void* exec, void* stream) {
   return (int)cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
 }
 
-// A launch still in flight finishes; CUDA frees the graph after it.
-extern "C" int tt_graph_destroy(const void* exec, void* stream) {
+// Frees the executable graph and the graph it was made from. A launch
+// still in flight finishes; CUDA frees the executable graph after it.
+extern "C" int tt_graph_destroy(const void* exec, const void* graph,
+                                void* stream) {
   (void)stream;
-  return (int)cudaGraphExecDestroy((cudaGraphExec_t)exec);
+  const cudaError_t err = cudaGraphExecDestroy((cudaGraphExec_t)exec);
+  const cudaError_t err_g = cudaGraphDestroy((cudaGraph_t)graph);
+  return (int)(err != cudaSuccess ? err : err_g);
+}
+
+namespace {
+
+// libcuda's cuGraphNodeGetType. The runtime's cudaGraphNodeGetType
+// fails with cudaErrorUnknown on a conditional node (the CUDA 12.8
+// runtime on the H100 machine), so the type is asked of libcuda, through
+// its entry point (no link against it).
+using NodeGetType = CUresult (*)(CUgraphNode, CUgraphNodeType*);
+
+cudaError_t node_get_type(NodeGetType* fn) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuGraphNodeGetType", &p, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err = cudaGetDriverEntryPoint("cuGraphNodeGetType", &p,
+                                            cudaEnableDefault, &found);
+#endif
+  if (err == cudaSuccess && (found != cudaDriverEntryPointSuccess || !p))
+    err = cudaErrorSymbolNotFound;
+  *fn = (NodeGetType)p;
+  return err;
+}
+
+// Nodes of `graph` by type into out[0..3]: kernel, memset, conditional,
+// any other.
+cudaError_t count_nodes(cudaGraph_t graph, NodeGetType get_type,
+                        long long* out) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(graph, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  err = cudaGraphGetNodes(graph, nodes, &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    CUgraphNodeType type;
+    if (get_type((CUgraphNode)nodes[i], &type) != CUDA_SUCCESS) {
+      err = cudaErrorInvalidValue;
+      break;
+    }
+    out[type == CU_GRAPH_NODE_TYPE_KERNEL        ? 0
+        : type == CU_GRAPH_NODE_TYPE_MEMSET      ? 1
+        : type == CU_GRAPH_NODE_TYPE_CONDITIONAL ? 2
+                                                 : 3] += 1;
+  }
+  delete[] nodes;
+  return err;
+}
+
+}  // namespace
+
+// The nodes of a frame graph (tt_graph_end's out[1]) and of its WHILE
+// body (tt_graph_while's body_out), by type, into out (host memory, 8
+// int64): the parent's kernel, memset, conditional and other nodes, then
+// the body's.
+extern "C" int tt_graph_node_counts(const void* graph, const void* body,
+                                    void* out, void* stream) {
+  (void)stream;
+  long long* counts = (long long*)out;
+  for (int k = 0; k < 8; ++k) counts[k] = 0;
+  NodeGetType get_type;
+  cudaError_t err = node_get_type(&get_type);
+  if (err == cudaSuccess)
+    err = count_nodes((cudaGraph_t)graph, get_type, counts);
+  if (err == cudaSuccess)
+    err = count_nodes((cudaGraph_t)body, get_type, counts + 4);
+  return (int)err;
 }
 
 // A memset node when the stream is capturing.

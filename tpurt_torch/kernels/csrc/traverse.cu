@@ -6,7 +6,9 @@
 // tables, or 1 for the base table); leaves (L, 12*32) f32 component-major
 // leaf rows; o, d (N,3) f32; t_max (N,) f32 with 0 marking a dead ray;
 // next_ray, one int32 of scratch for the ray counter (the entry point
-// zeroes it on the stream before the launch).
+// zeroes it on the stream before the launch, unless counter_zeroed says
+// the caller left it at 0: the frame graph, whose kernel before the
+// search zeroes it in its last block).
 // Outputs per ray: t (t_max when nothing is nearer), unit geometric
 // normal (0 when not found), mat (0 when not found), found, gid (-1).
 //
@@ -207,7 +209,8 @@ extern "C" int tt_traverse_nearest(const void* nodes, int mi, int n_oct,
                                    const void* d, const void* t_max,
                                    void* t_out, void* n_out, void* mat_out,
                                    void* found_out, void* gid_out,
-                                   void* next_ray, int n, void* stream) {
+                                   void* next_ray, int counter_zeroed, int n,
+                                   void* stream) {
   if (n > 0) {
     int resident = 0;
     cudaError_t err = resident_grid(&resident);
@@ -217,8 +220,12 @@ extern "C" int tt_traverse_nearest(const void* nodes, int mi, int n_oct,
     // next_ray ends at most one fetch per warp past n
     if ((long long)n + (long long)grid * BLOCK > INT_MAX)
       return (int)cudaErrorInvalidValue;
-    err = cudaMemsetAsync(next_ray, 0, sizeof(int), (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
+    // counter_zeroed: the caller guarantees next_ray is 0 (the frame
+    // graph's last block of the kernel before zeroes it), so no memset
+    if (!counter_zeroed) {
+      err = cudaMemsetAsync(next_ray, 0, sizeof(int), (cudaStream_t)stream);
+      if (err != cudaSuccess) return (int)err;
+    }
     traverse_nearest_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
         (const float*)nodes, mi, n_oct, (const float*)leaves,
         (const float*)o, (const float*)d, (const float*)t_max,

@@ -1,8 +1,9 @@
 """The megakernel frame pass as one CUDA graph a batch: ``FrameGraph``
 (port of tpurt's one-dispatch frame pass, tpurt/render.py:107-180
 ``_accum_frame`` with the bounce ``lax.while_loop`` of
-tpurt/trace.py:267-269), and its loop control ``frame_cond`` /
-``frame_advance`` (``csrc/frame_graph.cu``).
+tpurt/trace.py:267-269), and the loop control as standalone kernels,
+``frame_cond`` / ``frame_advance`` (``csrc/frame_graph.cu``; the state's
+layout and the plain versions are in ``loop_ctl``).
 
 tpurt traces a whole sample range as one device dispatch: the sample
 chunks and pixel blocks are ``fori_loop``s and each batch's bounce loop
@@ -10,27 +11,24 @@ tests ``bounce < max_depth & any(alive)`` on the device, so the host
 reads nothing until the film. Here a batch is one CUDA graph, captured
 once and launched once per batch:
 
-    memset(state[DEPTH:GO]) -> camera_rays_cursor -> frame_cond
-    -> WHILE { prims_nearest -> search -> bounce_shade -> frame_cond }
-    -> [memset(part)] -> film_fold (at the cursor) -> frame_advance
+    camera_rays_cursor (+ first condition)
+    -> WHILE { prims_nearest -> search -> bounce_shade (+ condition) }
+    -> [memset(part), sample-sharded only] -> film_fold (at the cursor)
+    -> frame_advance (+ reset of the batch slots)
 
-Every node is one of the port's own kernels or a memset. The graph
-reads its batch from a cursor in the frame's device state (p0, s0: the
-indices of tpurt's ``dynamic_slice``) and the camera, frame size and
-seed from a view array on the device, counts rays_cast and the bounces
-run on the device, and steps the cursor itself, so launching it
+Every node is one of the port's own kernels or a memset, and a bounce is
+three kernel nodes: the loop's condition runs in the last block to
+finish of the kernel that makes the live count (``loop_ctl.Loop``, which
+also zeroes the BVH search's ray counter, so the search adds no memset).
+The graph reads its batch from a cursor in the frame's device state (p0,
+s0: the indices of tpurt's ``dynamic_slice``) and the camera, frame size
+and seed from a view array on the device, counts rays_cast and the
+bounces run on the device, and steps the cursor itself, so launching it
 n_chunks * n_blocks times renders the range with no host read between
 launches (``render.accumulate``). The batch loop stays on the host as
 graph launches: a launch costs the host a few microseconds and no read,
 while a loop node around the batch would need a conditional node nested
 in another's body for no fewer host reads.
-
-The state (``STATE_SLOTS`` int64): P0, S0 (the cursor), RAYS, ITERS
-(rays_cast and bounces run, summed over the graph's launches), DEPTH
-(the bounce index bounce_shade reads), K (bounces run in this batch),
-LIVE (an int32 in the slot's low word: the camera adds the batch's live
-rays, each bounce its survivors), GO (the last condition, which the
-plain loop reads as the WHILE node reads its handle).
 
 A ``FrameGraph`` owns every buffer the graph touches, allocated with
 torch before the capture (nothing may allocate while a stream captures):
@@ -45,6 +43,7 @@ shapes only, since the view and the cursor are loaded for each call, so
 a scene rendered from camera after camera keeps the graphs it has. An
 entry is dropped when any of its scene's tensors is freed. A capture or
 a launch that fails raises: nothing falls back to the host loop.
+``node_counts`` reads the captured graph's nodes by type.
 
 ``render.accumulate`` returns a tally ((2,) int64 on the device: rays
 cast, bounces the graphs ran); ``read_tally`` reads both in one copy and
@@ -64,28 +63,26 @@ from . import bounce as bounce_k
 from . import camera as camera_k
 from . import film_fold as fold_k
 from . import intersect, prims, traverse
-
-STATE_SLOTS = 8
-P0, S0, RAYS, ITERS, DEPTH, K, LIVE, GO = range(STATE_SLOTS)
+# the state's layout and the plain versions, re-exported: the frame
+# graph's callers and tests read them here
+from .loop_ctl import (  # noqa: F401
+    DEPTH, DONE, GO, ITERS, K, LIVE, P0, RAYS, S0, STATE_SLOTS, Loop,
+    frame_advance_plain, frame_cond_plain, live_word)
 
 # capture and instantiate seconds of the graphs built so far, on a card
 BUILD_STATS = {"graphs": 0, "capture_s": 0.0, "instantiate_s": 0.0}
 
 
-def live_word(state):
-    """The (1,) int32 live count inside ``state`` (the low word of slot
-    LIVE; both the host and the card are little-endian)."""
-    return state.view(torch.int32)[2 * LIVE:2 * LIVE + 1]
-
-
-def search(scene, o, d, t_max, out=None):
+def search(scene, o, d, t_max, out=None, counter_zeroed=False):
     """The nearest triangle inside the window t_max (N,): the BVH search
     when the scene has one, else the brute test. Returns (t, n, mat, hit,
     idx), idx the winner's gid (BVH) or its slot (brute). ``out``, if
     given, is the five outputs to write, and for the BVH search the
-    kernel's (1,) int32 ray counter after them."""
+    kernel's (1,) int32 ray counter after them; counter_zeroed: that
+    counter is 0 already (traverse.nearest_tri)."""
     if scene.pk_nodes is not None:
-        return traverse.nearest_tri(scene, o, d, t_max, out=out)
+        return traverse.nearest_tri(scene, o, d, t_max, out=out,
+                                    counter_zeroed=counter_zeroed)
     return intersect.nearest_tri_small(
         o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, scene.tri_mat,
         t_max, out=out)
@@ -98,8 +95,7 @@ def search_kernel(scene) -> str:
 
 def bounce_kernels(scene) -> dict:
     """The kernels one bounce of a frame graph runs, one launch each."""
-    return {"prims_nearest": 1, search_kernel(scene): 1, "bounce_shade": 1,
-            "frame_graph": 1}
+    return {"prims_nearest": 1, search_kernel(scene): 1, "bounce_shade": 1}
 
 
 def read_tally(scene, tally) -> int:
@@ -114,30 +110,12 @@ def read_tally(scene, tally) -> int:
     return rays
 
 
-def frame_cond_plain(state, max_depth: int):
-    """Plain PyTorch version of the loop condition, in place on state:
-    takes the live count v (and zeroes it), goes on while v > 0 and the
-    batch has run fewer than max_depth bounces; going on, rays_cast
-    gains v, the bounce index becomes k and k steps. GO holds the
-    condition."""
-    live = live_word(state)
-    v = int(live)
-    live.zero_()
-    k = int(state[K])
-    go = v > 0 and k < max_depth
-    if go:
-        state[RAYS] += v
-        state[ITERS] += 1
-        state[DEPTH] = k
-        state[K] = k + 1
-    state[GO] = int(go)
-    return state
-
-
 def frame_cond(state, max_depth: int, handle=None):
     """The loop condition on state's device: the plain version for a CPU
-    tensor, the CUDA kernel for a CUDA tensor (or an error). handle: the
-    WHILE node's condition handle while capturing the graph, else None.
+    tensor, the CUDA kernel for a CUDA tensor (or an error). handle: a
+    WHILE node's condition handle while capturing a graph, else None.
+    No render runs it: in the frame graph the condition runs in the last
+    block of camera_rays_cursor and bounce_shade (``loop_ctl.Loop``).
     Returns state."""
     if state.device.type == "cpu":
         return frame_cond_plain(state, max_depth)
@@ -150,22 +128,10 @@ def frame_cond(state, max_depth: int, handle=None):
     return state
 
 
-def frame_advance_plain(state, block: int, n_pad: int, c: int):
-    """Plain PyTorch version of the cursor's step, in place on state:
-    p0 += block; past the padded list, p0 = 0 and s0 += c."""
-    p0 = int(state[P0]) + block
-    if p0 >= n_pad:
-        state[P0] = 0
-        state[S0] += c
-    else:
-        state[P0] = p0
-    return state
-
-
 def frame_advance(state, block: int, n_pad: int, c: int):
-    """The cursor's step on state's device: the plain version for a CPU
-    tensor, the CUDA kernel for a CUDA tensor (or an error). Returns
-    state."""
+    """The cursor's step and the batch slots' reset on state's device:
+    the plain version for a CPU tensor, the CUDA kernel for a CUDA tensor
+    (or an error). Returns state."""
     if state.device.type == "cpu":
         return frame_advance_plain(state, block, n_pad, c)
     dev = _build.cuda_device("frame_graph", state)
@@ -207,8 +173,9 @@ class FrameGraph:
         def empty(*shape, dtype=f32):
             return torch.empty(shape, dtype=dtype, device=dev)
 
-        self.state = torch.zeros(STATE_SLOTS, dtype=torch.int64, device=dev)
-        self.live = live_word(self.state)
+        # the state and traverse's ray counter, zeroed in one allocation
+        scalars = torch.zeros(STATE_SLOTS + 1, dtype=torch.int64, device=dev)
+        self.state = scalars[:STATE_SLOTS]
         self.view = empty(camera_k.VIEW_WORDS, dtype=i32)
         self.pix = empty(self.n_pad, dtype=torch.int64)
         self.ok = empty(self.n_pad, dtype=torch.bool)
@@ -224,34 +191,37 @@ class FrameGraph:
         self.prim = (empty(rays), empty(rays, 3), empty(rays, dtype=i32))
         self.tri = (empty(rays), empty(rays, 3), empty(rays, dtype=i32),
                     empty(rays, dtype=torch.bool), empty(rays, dtype=i32))
+        # traverse's ray counter: zero here, then zeroed by the last
+        # block of the kernel before each search
+        self.counter = None
         if scene.pk_nodes is not None:
-            self.tri += (empty(1, dtype=i32),)      # traverse's counter
-        # launches a replay makes besides its bounces (camera, fold, the
-        # first condition and the advance)
+            self.counter = scalars[STATE_SLOTS:].view(i32)[:1]
+            self.tri += (self.counter,)
+        # launches a replay makes besides its bounces (camera, fold and
+        # the advance)
         self.per_launch = {"camera_rays": 1, "film_fold": 1,
-                           "frame_graph": 2}
-        self.exec = None
+                           "frame_graph": 1}
+        # the executable graph, the graph it was made from and its WHILE
+        # body (CUDA handles; node_counts reads the last two)
+        self.exec = self.graph = self.body = None
         if dev.type == "cuda":
             self._capture(scene)
 
     # -- the schedule, shared by the capture and the plain loop ---------
 
-    def _prologue(self, handle):
-        graph_memset(self.state[DEPTH:GO])
+    def _prologue(self, loop):
         camera_k.camera_rays_cursor(
             self.view, self.pix, self.ok, self.state, self.c, self.block,
-            self.live, out=self.rays)
-        frame_cond(self.state, self.max_depth, handle)
+            out=self.rays, loop=loop)
 
-    def _body(self, scene, handle):
+    def _body(self, scene, loop):
         o, d, keys, alive, atten, rad = self.rays
         prims.prims_nearest(scene, o, d, alive=alive, out=self.prim)
-        search(scene, o, d, self.prim[0], out=self.tri)
+        search(scene, o, d, self.prim[0], out=self.tri, counter_zeroed=True)
         bounce_k.bounce_shade(
-            scene, o, d, atten, rad, alive, keys, self.state[DEPTH],
-            self.rr_start, self.prim, self.tri[:5], survivors=self.live,
-            out=(o, d, atten, rad, alive, self.live_hit))
-        frame_cond(self.state, self.max_depth, handle)
+            scene, o, d, atten, rad, alive, keys, None, self.rr_start,
+            self.prim, self.tri[:5], out=(o, d, atten, rad, alive,
+                                          self.live_hit), loop=loop)
 
     def _epilogue(self):
         if self.reduce:
@@ -260,25 +230,31 @@ class FrameGraph:
                          None if self.reduce else self.state)
         frame_advance(self.state, self.block, self.n_pad, self.c)
 
+    def loop(self, handle=None) -> Loop:
+        """The loop control the camera's and each bounce's last block run
+        (handle: the WHILE node's, while capturing)."""
+        return Loop(self.state, self.max_depth, handle, self.counter)
+
     def _capture(self, scene):
         dev = self.device
         side, body = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
-        words = torch.zeros(2, dtype=torch.int64)   # host: handle, exec
+        # host words: the WHILE handle, exec, graph, body
+        words = torch.zeros(4, dtype=torch.int64)
         t0 = time.perf_counter()
         _build.CAPTURING[0] = True
         try:
             with torch.cuda.stream(side):
                 _build.launch("tt_graph_begin", dev, words[0:1])
-                handle = int(words[0]) & 0xFFFFFFFFFFFFFFFF
-                self._prologue(handle)
-                _build.launch("tt_graph_while", dev, handle,
-                              body.cuda_stream)
+                loop = self.loop(int(words[0]) & 0xFFFFFFFFFFFFFFFF)
+                self._prologue(loop)
+                _build.launch("tt_graph_while", dev, loop.handle,
+                              body.cuda_stream, words[3:4])
                 with torch.cuda.stream(body):
-                    self._body(scene, handle)
+                    self._body(scene, loop)
                     _build.launch("tt_graph_while_end", dev)
                 self._epilogue()
                 t1 = time.perf_counter()
-                _build.launch("tt_graph_end", dev, words[1:2])
+                _build.launch("tt_graph_end", dev, words[1:3])
         except BaseException:
             with torch.cuda.stream(side):
                 _build.launch("tt_graph_abort", dev, body.cuda_stream)
@@ -286,13 +262,25 @@ class FrameGraph:
         finally:
             _build.CAPTURING[0] = False
         t2 = time.perf_counter()
-        self.exec = int(words[1])
+        self.exec, self.graph, self.body = (int(w) for w in words[1:])
         BUILD_STATS["graphs"] += 1
         BUILD_STATS["capture_s"] += t1 - t0
         BUILD_STATS["instantiate_s"] += t2 - t1
         fin = weakref.finalize(self, _build.launch, "tt_graph_destroy", dev,
-                               self.exec)
+                               self.exec, self.graph)
         fin.atexit = False
+
+    def node_counts(self) -> dict:
+        """The captured graph's nodes by type, as instantiated: {"parent":
+        {"kernel", "memset", "conditional", "other"}, "body": the same for
+        the WHILE node's body}."""
+        out = torch.zeros(8, dtype=torch.int64)
+        _build.launch("tt_graph_node_counts", self.device, self.graph,
+                      self.body, out)
+        kinds = ("kernel", "memset", "conditional", "other")
+        vals = out.tolist()
+        return {"parent": dict(zip(kinds, vals[:4])),
+                "body": dict(zip(kinds, vals[4:]))}
 
     # -- one call of render.accumulate -----------------------------------
 
@@ -330,9 +318,10 @@ class FrameGraph:
         scene: the scene the graph was made for (the plain schedule reads
         it; a captured graph holds its tensors' addresses)."""
         if self.exec is None:
-            self._prologue(None)
+            loop = self.loop()
+            self._prologue(loop)
             while int(self.state[GO]):
-                self._body(scene, None)
+                self._body(scene, loop)
             self._epilogue()
             return
         _build.launch("tt_graph_launch", self.device, self.exec)

@@ -112,10 +112,13 @@ def nearest_tri_plain(scene, o, d, t_max, counts=None):
     return t_best, nrm, mat, found, gid
 
 
-def nearest_tri(scene, o, d, t_max, out=None):
+def nearest_tri(scene, o, d, t_max, out=None, counter_zeroed=False):
     """Nearest triangle hit on o's device: the plain walk for CPU tensors,
     the CUDA kernel for CUDA tensors (or an error). ``out``, if given, is
-    the five outputs to write and the kernel's (1,) int32 ray counter."""
+    the five outputs to write and the kernel's (1,) int32 ray counter.
+    counter_zeroed: the caller guarantees that counter is 0 (the frame
+    graph, where the kernel before the search zeroes it), so the launch
+    adds no memset."""
     if o.device.type == "cpu":
         got = nearest_tri_plain(scene, o, d, t_max)
         return got if out is None else _build.copy_into(out, got)[:5]
@@ -132,7 +135,7 @@ def nearest_tri(scene, o, d, t_max, out=None):
     _build.check("d", d, (n, 3), torch.float32, dev)
     _build.check("t_max", t_max, (n,), torch.float32, dev)
     # the kernel's warps take ray ids from next_ray (the entry point
-    # zeroes it)
+    # zeroes it unless counter_zeroed)
     if out is None:
         out = (torch.empty(n, dtype=torch.float32, device=dev),
                torch.empty((n, 3), dtype=torch.float32, device=dev),
@@ -147,6 +150,6 @@ def nearest_tri(scene, o, d, t_max, out=None):
              torch.int32, torch.int32)):
         _build.check(name, a, shape, dtype, dev)
     _build.launch("tt_traverse_nearest", dev, nodes, mi, n_oct, leaves,
-                  o, d, t_max, *out, n)
+                  o, d, t_max, *out, int(counter_zeroed), n)
     _build.count("traverse_nearest")
     return out[:5]
