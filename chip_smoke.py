@@ -73,7 +73,16 @@ exits non-zero and prints no result):
                  by kernel and one CUDA kernel a call (film_fold at the
                  cursor, as the frame graph folds, checked also at a
                  ragged last block and into a part), and film_fold
-                 beside the library call FOLD_LIBRARY
+                 beside the library call FOLD_LIBRARY; then the entries
+                 the wave graph runs, on c4's own traffic, given its
+                 staged loop (check_wave_entries): the cursor camera
+                 with the queue's pix, slot and packet flags,
+                 bounce_shade in place with its flags and the live
+                 history, packet_compact with the live packets from the
+                 state and the kept queue's flags (also keeping fewer
+                 packets than are live, at max_depth), each array-equal
+                 to its plain version with equal states, and timed (the
+                 compaction's row times this entry)
   7. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
                  1, none by more than 8), and g2..g5 again in modes
@@ -81,14 +90,19 @@ exits non-zero and prints no result):
   8. graph     — every mega render path through the frame graph and
                  through the host loop (c3 at 4 spp, c2 at 8, c5 by tiles
                  and by spp, g2..g5 unsharded and sharded, c3 through
-                 checkpoints unsharded and by tiles): films array-equal,
+                 checkpoints unsharded and by tiles), and mode wavefront
+                 through the wave graph and the host loop (c4 at full
+                 width and 2 spp, g3 and g5, g5 by tiles and by spp):
+                 films array-equal, occupancy (the live history) equal,
                  rays PHASE_RAYS and the goldens', launches counted by
                  execution equal to the host loop's, capture and
                  instantiate seconds apart from the walls; every cached
-                 graph's nodes as instantiated (check_node_counts: a
+                 graph's nodes as instantiated (check_node_counts: each
                  WHILE body of three kernel nodes and no memset, BVH and
                  brute; a parent of the camera, the WHILE node, the fold
-                 and the advance, and a memset only sharded by spp);
+                 and the advance, and a memset only sharded by spp; a
+                 wave graph's parent also one WHILE node and one
+                 compaction a stage, six for c4);
                  then frame_graph.cu's kernels against their plain
                  versions, the condition (on no render path) timed with
                  its bound
@@ -100,7 +114,8 @@ exits non-zero and prints no result):
  11. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
                  cut from 64 to 8
  12. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
-                 from bounce 3, spp cut from 256 to 2; occupancy
+                 from bounce 3, spp cut from 256 to 2, through the wave
+                 graph; occupancy
  13. c4-persist — the c4 scene and size in mode persist at PERSIST_SPP (2:
                  each block's pool regenerates)
  14. c5-tiles  — c5-multichip at full size (3840x2160, 81,920 triangles,
@@ -129,18 +144,19 @@ exits non-zero and prints no result):
                  kernels as the profiler saw them beside the counted
                  launches, the search kernel's device time per launch;
                  c3 must stay under 64 CUDA launches per spp, c2 under
-                 66, c4 in mode wavefront under 263 and in mode persist
+                 66, c4 in mode wavefront under 194 and in mode persist
                  under 171 (MAX_LAUNCHES_PER_SPP), and c3's and c2's
-                 mega renders may copy to the host at most twice a
-                 render call, the ray count and the film
-                 (MAX_DTOH_PER_RENDER)
+                 mega renders and c4's wavefront render may copy to the
+                 host at most twice a render call, the tally and the
+                 film (MAX_DTOH_PER_RENDER)
 The probe (in phase 4) and phases 9-17 are the main paths, each with the
 launch counts reset just before it and read just after (a mega render's
 kernels run as frame-graph nodes, counted by execution); every render
 path must launch its search kernel, the three fused kernels and its
 mode's kernels (the film fold and frame_graph in mode mega;
-packet_compact in mode wavefront, persist_refill in mode persist), and
-the renders of phases 9 and 11-15 must cast PHASE_RAYS exactly. Then
+packet_compact and frame_graph in mode wavefront, persist_refill in
+mode persist), and the renders of phases 9 and 11-15 must cast
+PHASE_RAYS exactly. Then
 the card's nvidia-smi line, the kernel table as one JSON object (all
 twelve kernels, each with its launches by path, its bound and its
 operations by class), and as the last line {"ok": true, "device":
@@ -187,14 +203,17 @@ PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
 # the camera, three kernels a bounce, the fold and the cursor step, the
 # loop's condition inside the camera and the bounce, no memset kernel;
 # with the condition and the counter's memset as kernels of their own
-# they made 98 and 82), and c4's in modes wavefront and persist (also:
-# one compaction kernel a shrink, one refill kernel a pool iteration;
-# the two-kernel versions of both made 263 and 171)
+# they made 98 and 82), c4's in mode wavefront (the wave graph: per
+# batch the camera, three kernels a bounce, one compaction a stage of
+# six, the fold and the cursor step; the host loop made 240) and in mode
+# persist (also one refill kernel a pool iteration; the two-kernel
+# version made 171)
 MAX_LAUNCHES_PER_SPP = {"c3-mesh": 64, "c2-cornell": 66,
-                        "c4-wavefront": 263, "c4-persist": 171}
-# copies to the host in one mega render call through the CLI, at most:
-# the ray count and the film (the frame graph reads nothing between)
-MAX_DTOH_PER_RENDER = {"c3-mesh": 2, "c2-cornell": 2}
+                        "c4-wavefront": 194, "c4-persist": 171}
+# copies to the host in one render call through the CLI, at most: the
+# tally (rays, bounces, the wavefront's live history) and the film (the
+# frame graph and the wave graph read nothing between)
+MAX_DTOH_PER_RENDER = {"c3-mesh": 2, "c2-cornell": 2, "c4-wavefront": 2}
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -1345,26 +1364,32 @@ DIRTY_COUNTER = 99   # a search's ray counter as a search leaves it
 
 
 def check_loop_calls(label, kernel_call, plain_call, state0, max_depth,
-                     calls=2) -> list:
+                     calls=2, cap=None, hist=False) -> list:
     """The loop step in a kernel's last block, outside a graph (no
     handle): kernel_call(loop) and plain_call(loop) (the plain version,
-    which runs frame_cond_plain at its end) on copies of the frame state
-    state0, ``calls`` times in a row, each with a dirty search counter.
-    After each call the outputs must be array-equal, the states equal,
-    and the done counter and the search counter 0. Returns the states
-    after each call (lists)."""
+    which runs the loop's condition at its end) on copies of the frame
+    state state0, ``calls`` times in a row, each with a dirty search
+    counter; cap: the loop's (None: mode mega's condition, an int: the
+    wave graph's staged one); hist: the loop carries a live history.
+    After each call the outputs must be array-equal, the states (and
+    histories) equal, and the done counter and the search counter 0.
+    Returns the states after each call (lists)."""
     import torch
     from tpurt_torch.kernels import loop_ctl
     dev = state0.device
     st_k, st_p = state0.clone(), state0.clone()
     ctr_k, ctr_p = (torch.empty(1, dtype=torch.int32, device=dev)
                     for _ in range(2))
+    h_k, h_p = ((torch.zeros(max_depth, dtype=torch.int64, device=dev)
+                 if hist else None) for _ in range(2))
     states = []
     for call in range(calls):
         ctr_k.fill_(DIRTY_COUNTER)
         ctr_p.fill_(DIRTY_COUNTER)
-        got = kernel_call(loop_ctl.Loop(st_k, max_depth, None, ctr_k))
-        want = plain_call(loop_ctl.Loop(st_p, max_depth, None, ctr_p))
+        got = kernel_call(loop_ctl.Loop(st_k, max_depth, None, ctr_k, cap,
+                                        h_k))
+        want = plain_call(loop_ctl.Loop(st_p, max_depth, None, ctr_p, cap,
+                                        h_p))
         torch.cuda.synchronize()
         for k, (g, ref) in enumerate(zip(got, want)):
             ok, _, err = same_values(g, ref)
@@ -1373,7 +1398,7 @@ def check_loop_calls(label, kernel_call, plain_call, state0, max_depth,
                                      f"output {k} differs (max |diff| "
                                      f"{err})")
         if not torch.equal(st_k, st_p) or int(st_k[loop_ctl.DONE]) != 0 \
-                or int(ctr_k) != 0:
+                or int(ctr_k) != 0 or (hist and not torch.equal(h_k, h_p)):
             raise AssertionError(f"{label} with the loop, call {call}: "
                                  f"state {st_k.tolist()}, the plain "
                                  f"version's {st_p.tolist()}, search "
@@ -1828,10 +1853,14 @@ def phase_frame(dev):
     from tpurt_torch import config, render
     from tpurt_torch.kernels import _build, compact, film_fold as fold_k
     kept, cases = {}, {}
+    wave_keep = {"camera_rays": 0, "bounce_shade": 1}
     for label, cfg in frame_cases().items():
         _build.reset_launches()
-        with FusedCheck(label) as fused, FrameCheck(label) as chk:
+        with FusedCheck(label, wave_keep if label == "c4-wavefront"
+                        else None) as fused, FrameCheck(label) as chk:
             _, stats = render.render(cfg, device=dev, host_loop=True)
+        if label == "c4-wavefront":
+            kept_fused = fused.kept
         launches = dict(_build.LAUNCHES)
         need = [k for k in mode_kernels(cfg.mode) if k in FRAME]
         flag_calls = fused.stats.get("bounce_shade", {}).get("flag_calls", 0)
@@ -1867,6 +1896,10 @@ def phase_frame(dev):
     pools = check_refill_pools(dev)
     emit("frame", case="refill_pools", check="array_equal (film: "
          "film_bound)", pools=pools)
+    wave = check_wave_entries(
+        kept_fused["camera_rays"][0], kept_fused["bounce_shade"][0],
+        kept["packet_compact"], config.PRESETS["c4-wavefront"].max_depth)
+    emit("frame", case="wave_entries", check="array_equal", **wave)
     _build.reset_launches()
 
     def checked(name):
@@ -1899,16 +1932,24 @@ def phase_frame(dev):
     permuted = check_permuted_slot(q, rad_out, keep, flags)
     # every row's alive byte; a kept row's other 84 bytes, read and
     # written; a dropped row's slot and radiance read, its radiance written
+    host_int = timed(lambda: compact.packet_compact(q, rad_out, keep,
+                                                    *flags),
+                     lambda: compact.packet_compact_plain(q, ro_p, keep), 50,
+                     20)
+    staged = {k: v for k, v in wave["packet_compact"].items()
+              if k != "states"}
+    # the row times the entry the wave graph runs (the live packets from
+    # the state, the kept queue's flags written: keep bytes more)
     rows["packet_compact"] = {
-        "shape": f"c4 first shrink, {n // compact.PACKET_R} -> {keep} "
-                 "packets",
-        **bound(n + kr * (84 + 85) + (n - kr) * (8 + 12 + 12), {}),
-        **timed(lambda: compact.packet_compact(q, rad_out, keep, *flags),
-                lambda: compact.packet_compact_plain(q, ro_p, keep), 50, 20),
+        **staged,
+        **bound(n + kr * (84 + 85) + keep + (n - kr) * (8 + 12 + 12), {}),
         "row_extra": {"checked_calls": checked("packet_compact"),
                       "live_packets": int(q.alive.reshape(
                           -1, compact.PACKET_R).any(dim=1).sum()),
-                      "permuted_slot": permuted}}
+                      "permuted_slot": permuted,
+                      "staged_states": wave["packet_compact"]["states"],
+                      "host_int_call": {k: host_int[k] for k in
+                                        ("ms", "plain_ms", "wall_ms")}}}
 
     frame, before, refills, scan = kept["persist_refill"]
     refill_times = time_refill(frame, before, scan)
@@ -1947,6 +1988,8 @@ def phase_frame(dev):
             st.get(name, {}).get("bit_diffs", 0) for st in cases.values())
         emit("kernel", name=name, **row)
     torch.cuda.synchronize()
+    rows["wave_entries"] = {k: wave[k] for k in ("camera_rays",
+                                                 "bounce_shade")}
     return rows
 
 
@@ -2007,6 +2050,229 @@ def check_permuted_slot(q, rad_out, keep, flags) -> dict:
         out[f"keep_{k}"] = {"bit_diffs": bits,
                             "rows_home": int(q.slot.shape[0]
                                              - k * compact.PACKET_R)}
+    return out
+
+
+def staged_state(dev, k, v, lpk):
+    """A frame state mid-batch in the wave graph's staged loop (loop_state
+    with k bounces run, the bounce index k - 1) holding v live rays and
+    lpk live packets in its live words."""
+    from tpurt_torch.kernels import loop_ctl
+    st = loop_state(dev, k, max(k - 1, 0))
+    loop_ctl.live_word(st).fill_(v)
+    loop_ctl.packets_word(st).fill_(lpk)
+    return st
+
+
+def check_wave_entries(cam_args, bounce_args, compact_args,
+                       max_depth) -> dict:
+    """The extended entries the wave graph runs, on c4's own traffic (its
+    first camera batch, bounce 1 of its first batch, its first shrink),
+    each given the staged loop and held against its plain version by
+    check_loop_calls: the cursor camera with the queue's pix, slot and packet
+    flags (stage 0's first condition: going on, stopping on its cap,
+    every ray dead); bounce_shade in place with its packet flags and the
+    live history (going on, stopping on a cap above its live packets,
+    every ray dead, at max_depth); packet_compact out of place with the
+    live packets from the state and the kept queue's flags (the next
+    stage going on; stopping on its cap; keep below the live packets at
+    max_depth, where the live rows past keep go home). Then each timed
+    as the graph runs it, beside the form without the staged loop on the
+    same inputs (the camera and the bounce with mode mega's loop, the
+    compaction given the live count by the host). Returns
+    {"camera_rays", "bounce_shade", "packet_compact": numbers}."""
+    import torch
+    from tpurt_torch import render
+    from tpurt_torch.kernels import _build, bounce, camera, compact, loop_ctl
+    out = {}
+
+    def ms(t):
+        return t["device"] if t["device"] is not None else t["wall"]
+
+    # the cursor camera: c4's first batch, stage 0's cap pk0 / 2
+    cam, w, h, seed, pix, smp = cam_args
+    n = pix.shape[0]
+    dev = pix.device
+    pk0 = n // compact.PACKET_R
+    pix_pad, ok_pad, _ = render.order_cached(w, h, n, dev)
+    if not torch.equal(pix_pad[:n], pix) or int(smp.max()) != 0:
+        raise AssertionError("wave entries: kept batch is not c4's first")
+    view = torch.tensor(camera.view_words(cam, w, h, seed),
+                        dtype=torch.int32, device=dev)
+
+    def cam_bufs():
+        return ((torch.empty((n, 3), device=dev),
+                 torch.empty((n, 3), device=dev),
+                 torch.empty((3, n), dtype=torch.int64, device=dev),
+                 torch.empty(n, dtype=torch.bool, device=dev),
+                 torch.empty((n, 3), device=dev),
+                 torch.empty((n, 3), device=dev)),
+                (torch.empty(n, dtype=torch.int32, device=dev),
+                 torch.empty(n, dtype=torch.int64, device=dev)),
+                torch.empty(pk0, dtype=torch.bool, device=dev))
+
+    def cam_call(rows, plain):
+        def call(loop):
+            bufs, qo, fl = cam_bufs()
+            fn = camera.camera_rays_cursor_plain if plain \
+                else camera.camera_rays_cursor
+            kw = {} if plain else {"out": bufs}
+            got = fn(view, pix_pad, rows, loop.state, 1, n, loop=loop,
+                     queue_out=qo, packet_flags=fl, **kw)
+            return (*got, *qo, fl)
+        return call
+
+    states = {}
+    dead = torch.zeros_like(ok_pad)
+    for case, rows, cap in (("batch", ok_pad, pk0 // 2),
+                            ("stops_on_cap", ok_pad, pk0),
+                            ("all_dead", dead, pk0 // 2)):
+        states[case] = check_loop_calls(
+            f"camera cursor ({case}, staged)", cam_call(rows, False),
+            cam_call(rows, True), loop_state(dev, 0, 0), max_depth,
+            cap=cap)
+    bufs, qo, fl = cam_bufs()
+    st0 = loop_state(dev, 0, 0)
+    st = st0.clone()
+    staged = loop_ctl.Loop(st, max_depth, None, None, pk0 // 2)
+    mega = loop_ctl.Loop(st, max_depth, None, None)
+    t_staged = time_ms(lambda: camera.camera_rays_cursor(
+        view, pix_pad, ok_pad, st, 1, n, out=bufs, loop=staged,
+        queue_out=qo, packet_flags=fl), 50,
+        keep=lambda k: "camera_rays_cursor" in k, setup=lambda: st.copy_(st0))
+    t_mega = time_ms(lambda: camera.camera_rays_cursor(
+        view, pix_pad, ok_pad, st, 1, n, out=bufs, loop=mega), 50,
+        keep=lambda k: "camera_rays_cursor" in k, setup=lambda: st.copy_(st0))
+    out["camera_rays"] = {
+        "shape": f"c4 batch 0 at the cursor, N={n}, staged (cap "
+                 f"{pk0 // 2}), with the queue's pix, slot and flags",
+        "ms": ms(t_staged), "mega_loop_ms": ms(t_mega),
+        **bound(nbytes(pix_pad[:n], ok_pad[:n], *bufs, *qo, fl),
+                work((n, CAMERA_RAY_OPS))),
+        "states": states}
+
+    # bounce_shade in place, c4 bounce 1 of batch 0
+    (scene, o, d, atten, rad, alive, keys, depth, rr_start, prim,
+     tri) = bounce_args[:11]
+    n = o.shape[0]
+    live_pk = int(alive.reshape(-1, compact.PACKET_R).any(dim=1).sum())
+
+    def bounce_call(rays_alive, plain):
+        def call(loop):
+            b = [t.clone() for t in (o, d, atten, rad, rays_alive)]
+            fl = torch.empty(n // compact.PACKET_R, dtype=torch.bool,
+                             device=o.device)
+            if plain:
+                got = bounce.bounce_shade_plain(
+                    scene, *b, keys, None, rr_start, prim, tri,
+                    packet_flags=fl, loop=loop)
+            else:
+                got = bounce.bounce_shade(
+                    scene, *b, keys, None, rr_start, prim, tri,
+                    packet_flags=fl, out=(*b, torch.empty_like(alive)),
+                    loop=loop)
+            return (*got, fl, loop.hist)
+        return call
+
+    states = {}
+    for case, k, rays_alive, cap in (
+            ("traffic", depth + 1, alive, 8),
+            ("stops_on_cap", depth + 1, alive, live_pk),
+            ("all_dead", depth + 1, torch.zeros_like(alive), 8),
+            ("max_depth", max_depth, alive, 8)):
+        states[case] = check_loop_calls(
+            f"bounce ({case}, staged)", bounce_call(rays_alive, False),
+            bounce_call(rays_alive, True), loop_state(o.device, k, k - 1),
+            max_depth, cap=cap, hist=True)
+    start = (o, d, atten, rad, alive)
+    work_state = [t.clone() for t in start]
+    hit = torch.empty_like(alive)
+    fl = torch.empty(n // compact.PACKET_R, dtype=torch.bool,
+                     device=o.device)
+    st0 = loop_state(o.device, depth + 1, depth)
+    st = st0.clone()
+    hist = torch.zeros(max_depth, dtype=torch.int64, device=o.device)
+    staged = loop_ctl.Loop(st, max_depth, None, None, 8, hist)
+    mega = loop_ctl.Loop(st, max_depth, None, None)
+
+    def restore():
+        for dst, src in zip(work_state, start):
+            dst.copy_(src)
+        st.copy_(st0)
+
+    def run(loop, flags):
+        return lambda: bounce.bounce_shade(
+            scene, *work_state, keys, None, rr_start, prim, tri,
+            packet_flags=flags, out=(*work_state, hit), loop=loop)
+
+    key = lambda k: "bounce_shade_kernel" in k  # noqa: E731
+    t_staged = time_ms(run(staged, fl), 50, keep=key, setup=restore)
+    t_mega = time_ms(run(mega, None), 50, keep=key, setup=restore)
+    out["bounce_shade"] = {
+        "shape": f"c4 batch 0 bounce {depth}, N={n}, live "
+                 f"{int(alive.sum())} in {live_pk} packets, in place, "
+                 "staged (packet flags, live history)",
+        "ms": ms(t_staged), "mega_loop_ms": ms(t_mega), "states": states}
+
+    # packet_compact out of place, c4's first shrink
+    q, rad_out, keep, flags, live_pk = compact_args
+    v = int(q.alive.sum())
+
+    def queue_bufs(k):
+        """Fresh contiguous fields of a queue of the first k packets."""
+        return compact.Queue(*(torch.empty(t.shape, dtype=t.dtype,
+                                           device=t.device)
+                               for t in compact._head(q, k * 128)))
+
+    def compact_call(keep_c, plain):
+        def call(loop):
+            ro = rad_out.clone()
+            fl = torch.empty(keep_c, dtype=torch.bool, device=ro.device)
+            if plain:
+                got = compact.packet_compact_plain(
+                    _clone(q), ro, keep_c, flags, out_flags=fl, loop=loop)
+            else:
+                got = compact.packet_compact(q, ro, keep_c, flags,
+                                             out=queue_bufs(keep_c),
+                                             out_flags=fl, loop=loop)
+            return (*(t.contiguous() for t in got), ro, fl)
+        return call
+
+    states = {}
+    for case, keep_c, k, cap in (("first_shrink", keep, 3, keep // 2),
+                                 ("stops_on_cap", keep, 3, live_pk),
+                                 ("max_depth", live_pk // 2, max_depth,
+                                  live_pk // 4)):
+        # one call: a second would find the live packets taken
+        states[case] = check_loop_calls(
+            f"packet_compact ({case}, staged)", compact_call(keep_c, False),
+            compact_call(keep_c, True), staged_state(q.o.device, k, v,
+                                                     live_pk),
+            max_depth, calls=1, cap=cap)
+    ro = rad_out.clone()
+    bufs = queue_bufs(keep)
+    fl = torch.empty(keep, dtype=torch.bool, device=ro.device)
+    st0 = staged_state(q.o.device, 3, v, live_pk)
+    st = st0.clone()
+    staged = loop_ctl.Loop(st, max_depth, None, None, keep // 2)
+    key = lambda k: "packet_compact_kernel" in k  # noqa: E731
+    t_staged = time_ms(lambda: compact.packet_compact(
+        q, ro, keep, flags, out=bufs, out_flags=fl, loop=staged), 50,
+        keep=key, setup=lambda: st.copy_(st0))
+    p_staged = time_ms(lambda: compact.packet_compact_plain(
+        q, rad_out.clone(), keep, flags, out_flags=fl.clone(),
+        loop=loop_ctl.Loop(st0.clone(), max_depth, None, None, keep // 2)),
+        10, profiled=False)
+    out["packet_compact"] = {
+        "shape": f"c4 first shrink, {q.o.shape[0] // compact.PACKET_R} -> "
+                 f"{keep} packets, staged: live packets from the state, "
+                 "the kept queue's flags",
+        "ms": ms(t_staged), "plain_ms": p_staged["wall"],
+        "wall_ms": t_staged["wall"], "by_kernel_ms": t_staged["by_kernel"],
+        "launches_per_call": t_staged["launches_per_call"],
+        "timer": "profiler" if t_staged["device"] is not None else "events",
+        "states": states}
+    _build.reset_launches()
     return out
 
 
@@ -2082,13 +2348,16 @@ def phase_goldens(dev):
 # kernels a render launches besides its search and the fused kernels,
 # by mode: the film fold, and the queue's or the pool's kernel (the pool
 # adds into the film itself), or the frame graph's loop control
-MODE_KERNELS = {"wavefront": ("film_fold", "packet_compact"),
+MODE_KERNELS = {"wavefront": ("film_fold", "packet_compact", "frame_graph"),
                 "persist": ("persist_refill",),
                 "primary": ("film_fold",)}
 
 
 def mode_kernels(mode: str) -> tuple:
-    """The film fold and the frame graph's loop control in mode mega."""
+    """The kernels a render of ``mode`` launches besides its search and
+    the three fused kernels: the film fold and the frame graph's cursor
+    step in mode mega; with them the compaction in mode wavefront (the
+    wave graph)."""
     return MODE_KERNELS.get(mode, ("film_fold", "frame_graph"))
 
 
@@ -2402,9 +2671,10 @@ def check_frame_kernels(dev) -> dict:
 
 
 def graph_cases(golden_rays) -> dict:
-    """The mega renders that run through the frame graph and through the
-    host loop in phase_graph: label -> (config, how it is driven, the
-    rays it must cast)."""
+    """The renders that run through the frame graph (mode mega) or the
+    wave graph (mode wavefront) and through the host loop in
+    phase_graph: label -> (config, how it is driven, the rays it must
+    cast)."""
     from tpurt_torch import config
     presets = config.PRESETS
     cases = {
@@ -2430,6 +2700,18 @@ def graph_cases(golden_rays) -> dict:
         cases[f"checkpoint-{shard}"] = (
             presets["c3-mesh"].replace(spp=CKPT_SPP, shard=shard),
             "checkpoint", PHASE_RAYS["c3-mesh"])
+    # mode wavefront through the wave graph: c4 at full width, two goldens
+    # (Cornell: the brute search), g5 sharded (a wavefront rank)
+    cases["c4-wavefront"] = (presets["c4-wavefront"].replace(spp=C4_SPP),
+                             "render", PHASE_RAYS["c4-wavefront"])
+    for name in ("g3-cornell", "g5-rr"):
+        cfg = config.RenderConfig(**GOLDENS[name]).replace(mode="wavefront")
+        cases[f"{name}-wavefront"] = (cfg, "render", golden_rays[name])
+    for shard in ("tiles", "spp"):
+        cases[f"g5-rr-wavefront-{shard}"] = (
+            config.RenderConfig(**GOLDENS["g5-rr"]).replace(
+                mode="wavefront", shard=shard), "sharded",
+            golden_rays["g5-rr"])
     return cases
 
 
@@ -2437,15 +2719,19 @@ def phase_graph(dev, golden_rays):
     """Every mega render path through the frame graph and through the
     host loop on the card (graph_cases): c3 at C3_SPP, c2 at C2_SPP, c5
     by tiles and by spp (a group of one), g2..g5 unsharded and sharded,
-    and c3 through checkpoints every 2 unsharded and by tiles. The films
-    must be array-equal (the first graph render, which captures, and a
-    second one on the cached graphs) and every render must cast its
-    case's rays; the graph's launches, counted by execution (the fixed
-    nodes at each launch, the bounces from the device counter), must
-    equal the host loop's for every kernel both run, and frame_graph's
-    must be one a batch (the advance: the loop's condition runs inside
-    the camera and the bounce), and every cached graph's nodes must be
-    the graph's shape (check_node_counts). Capture and instantiate
+    and c3 through checkpoints every 2 unsharded and by tiles; and mode
+    wavefront through the wave graph and the host loop: c4 at C4_SPP,
+    g3 and g5, g5 by tiles and by spp. The films must be array-equal
+    (the first graph render, which captures, and a second one on the
+    cached graphs), the occupancy (the live history) equal, and every
+    render must cast its case's rays; the graph's launches, counted by
+    execution (the fixed nodes at each launch, the bounces from the
+    device counter), must equal the host loop's for every kernel both
+    run (but the compaction, which the wave graph runs once a stage of
+    tpurt's ladder: six a batch for c4), and frame_graph's must be one a
+    batch (the advance: the loop's condition runs inside the camera and
+    the bounce), and every cached graph's nodes must be the graph's
+    shape (check_node_counts). Capture and instantiate
     seconds are reported apart from the walls. Then one scene's graphs
     under another camera and seed (check_graph_views), the entry point's
     twin (tpurt_torch.entry) on the card: its radiance array-equal to the
@@ -2493,8 +2779,12 @@ def phase_graph(dev, golden_rays):
             same = bool(np.array_equal(img_g, img_h)
                         and np.array_equal(img_w, img_h))
             rays = [st_g["rays"], st_w["rays"], st_h["rays"]]
-            emit("graph", case=label, how=how, spp=cfg.spp,
+            wave = cfg.mode == "wavefront"
+            # the live history, as occupancy (a render's, not a rank's)
+            occ = [st.get("occupancy") for st in (st_g, st_w, st_h)]
+            emit("graph", case=label, how=how, mode=cfg.mode, spp=cfg.spp,
                  shard=cfg.shard, rays=rays, expected_rays=want,
+                 occupancy_equal=occ[0] == occ[1] == occ[2],
                  films_array_equal=same, graphs_built=built["graphs"],
                  capture_s=built["capture_s"],
                  instantiate_s=built["instantiate_s"],
@@ -2507,9 +2797,17 @@ def phase_graph(dev, golden_rays):
             if rays != [want] * 3:
                 raise AssertionError(f"graph ({label}): rays {rays}, "
                                      f"expected {want}")
-            shared = [k for k, v in lh.items() if v and k != "frame_graph"]
+            if not occ[0] == occ[1] == occ[2]:
+                raise AssertionError(f"graph ({label}): occupancy {occ}")
+            # the wave graph shrinks along tpurt's ladder (one compaction
+            # a stage, c4: six a batch), the host loop by powers of two
+            shared = [k for k, v in lh.items() if v and k != "frame_graph"
+                      and not (wave and k == "packet_compact")]
+            stages = lg["packet_compact"] / max(lg["camera_rays"], 1)
             if any(lg[k] != lh[k] for k in shared) or \
-                    lg["frame_graph"] != lg["camera_rays"]:
+                    lg["frame_graph"] != lg["camera_rays"] or \
+                    (wave and stages < 1) or \
+                    (label == "c4-wavefront" and stages != 6):
                 raise AssertionError(f"graph ({label}): launches by "
                                      f"execution {lg} against the host "
                                      f"loop's {lh}")
@@ -2518,7 +2816,8 @@ def phase_graph(dev, golden_rays):
             check_node_counts(label, nodes)
     emit("graph", case="all", launches_by_execution=total,
          build=dict(frame_graph.BUILD_STATS), node_counts=nodes)
-    if set(nodes) != {"traverse_nearest", "nearest_tri_small"}:
+    if set(nodes) != {f"{cls}/{k}" for cls in ("FrameGraph", "WaveGraph")
+                      for k in ("traverse_nearest", "nearest_tri_small")}:
         raise AssertionError(f"graph: node counts checked on {set(nodes)}")
     check_graph_views(dev, scenes)
     fn, (dscene, cam, pix, smp, seed) = entry.entry(dev)
@@ -2541,30 +2840,38 @@ def phase_graph(dev, golden_rays):
 
 
 def check_node_counts(label, seen) -> None:
-    """Every captured frame graph now cached, by its nodes as
-    instantiated (FrameGraph.node_counts): the parent holds the camera,
+    """Every captured graph now cached, by its nodes as instantiated
+    (FrameGraph.node_counts). A frame graph's parent holds the camera,
     the fold and the advance as kernel nodes, the WHILE node, and a
-    memset only when it folds into a part (sharded by spp); the WHILE
-    body holds three kernel nodes (prims_nearest, the search,
-    bounce_shade) and no memset. seen (search kernel -> graphs checked)
-    gains the graphs checked."""
+    memset only when it folds into a part (sharded by spp); a wave
+    graph's parent holds also one compaction a stage and one WHILE node
+    a stage (c4's, with its 2**19-ray batches: six). Every WHILE body
+    holds three kernel nodes (prims_nearest, the search, bounce_shade)
+    and no memset. seen ("class/search kernel" -> graphs checked) gains
+    the graphs checked."""
     from tpurt_torch.kernels import frame_graph
     graphs = [fg for fg in frame_graph._CACHE.values() if fg.exec is not None]
     if not graphs:
         raise AssertionError(f"graph ({label}): no captured graph cached")
+    body = {"kernel": 3, "memset": 0, "conditional": 0, "other": 0}
     for fg in graphs:
         got = fg.node_counts()
-        want = {"parent": {"kernel": 3, "memset": int(fg.reduce),
-                           "conditional": 1, "other": 0},
-                "body": {"kernel": 3, "memset": 0, "conditional": 0,
-                         "other": 0}}
+        loops = fg.n_loops
+        cls = type(fg).__name__
+        want = {"parent": {"kernel": 3 + (loops if cls == "WaveGraph"
+                                          else 0),
+                           "memset": int(fg.reduce), "conditional": loops,
+                           "other": 0},
+                "bodies": [body] * loops}
         kernel = "traverse_nearest" if fg.counter is not None \
             else "nearest_tri_small"
-        if got != want:
-            raise AssertionError(f"graph ({label}, {kernel}, reduce "
+        if got != want or (cls == "WaveGraph"
+                           and fg.c * fg.block == BOUNCE_BATCH
+                           and loops != 6):
+            raise AssertionError(f"graph ({label}, {cls}, {kernel}, reduce "
                                  f"{fg.reduce}): nodes {got}, expected "
                                  f"{want}")
-        seen[kernel] = seen.get(kernel, 0) + 1
+        seen[f"{cls}/{kernel}"] = seen.get(f"{cls}/{kernel}", 0) + 1
 
 
 def check_graph_views(dev, scenes) -> None:
@@ -2650,6 +2957,42 @@ def graph_walls(reps: int = WALL_REPS) -> dict:
         if any(st["rays"] != PHASE_RAYS[label] for st in runs):
             raise AssertionError(f"graph_walls ({label}): rays "
                                  f"{out[label]['rays']}")
+    return out
+
+
+def wave_walls(reps: int = WALL_REPS) -> dict:
+    """Warm walls of mode wavefront with the scene on the card: c4 at
+    C4_SPP through the wave graph and through the host loop
+    (host_loop=True), each rendered once first (the graph captures),
+    then reps times each, in turns, through render.render, whose wall
+    ends with the film on the host. One line with every wall, the
+    medians and quartiles."""
+    import statistics
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch import scene as scene_mod
+    dev = torch.device("cuda", 0)
+    cfg = config.PRESETS["c4-wavefront"].replace(spp=C4_SPP)
+    scene, cam = config.build_scene(cfg)
+    dscene = scene_mod.to_device(scene, dev)
+    out = {}
+    for host_loop in (False, True):
+        render.render(cfg, dscene, cam, device=dev, host_loop=host_loop)
+    runs = {False: [], True: []}
+    for _ in range(reps):
+        for host_loop in (False, True):
+            runs[host_loop].append(render.render(
+                cfg, dscene, cam, device=dev, host_loop=host_loop)[1])
+    for host_loop, label in ((False, "wave_graph"), (True, "host_loop")):
+        walls = [st["wall_s"] for st in runs[host_loop]]
+        q1, median, q3 = statistics.quantiles(walls, n=4)
+        out[label] = {"walls_s": walls, "median_s": median,
+                      "quartiles_s": [q1, q3]}
+        if any(st["rays"] != PHASE_RAYS["c4-wavefront"]
+               for st in runs[host_loop]):
+            raise AssertionError(f"wave_walls ({label}): rays")
+    emit("wave_walls", preset="c4-wavefront", spp=C4_SPP, device=smi_line(),
+         **out)
     return out
 
 
@@ -2930,6 +3273,10 @@ def main() -> int:
     results["vmemloop"], probe_launches = phase_vmemloop(dev)
     results.update(phase_child("phase_fused"))
     results.update(phase_child("phase_frame"))
+    # the camera's and the bounce's entries as the wave graph runs them
+    # (the staged loop), checked and timed on c4 traffic in phase_frame
+    for k, v in results.pop("wave_entries").items():
+        results[k].setdefault("row_extra", {})["wave_graph_entry"] = v
     for k in FRAME:
         # one CUDA kernel a call, as the profile of its timing saw it
         if results[k]["timer"] == "profiler" and \
@@ -2998,9 +3345,10 @@ def main() -> int:
     # prims_nearest, bounce_shade and film_fold on every render path (in
     # mode mega as nodes of the frame graph, counted by execution);
     # frame_graph (the cursor's step, one a batch; the loop's condition
-    # runs inside camera_rays and bounce_shade) on the mega paths;
-    # packet_compact on c4-wavefront (and
-    # a wavefront rank of c5 would), persist_refill on c4-persist.
+    # runs inside camera_rays, bounce_shade and, in the wave graph,
+    # packet_compact) on the mega paths and c4-wavefront; packet_compact
+    # (one a stage of the wave graph) on c4-wavefront (and a wavefront
+    # rank of c5 would), persist_refill on c4-persist.
     print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

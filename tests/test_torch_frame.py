@@ -317,7 +317,9 @@ def test_smoke_frame_check_on_a_cpu_render(mode):
                refill.persist_refill, refill.persist_commit)
     with chip_smoke.FusedCheck("cpu") as fused, \
             chip_smoke.FrameCheck("cpu") as chk:
-        img, stats = trender.render(cfg, device="cpu")
+        # the host loop, whose wrapper calls the checks see (a graph's
+        # schedule passes fixed out buffers), as the frame phase renders
+        img, stats = trender.render(cfg, device="cpu", host_loop=True)
     assert (fold_k.film_fold, compact.packet_compact, refill.persist_refill,
             refill.persist_commit) == wrapped
     _, mega = trender.render(cfg.replace(mode="mega"), device="cpu")

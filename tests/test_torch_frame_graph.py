@@ -401,7 +401,9 @@ def test_frame_graph_state_after_a_call(small):
     want = torch.zeros_like(acc)
     want_tally = trender.accumulate(cfg, scene, cam, pix, valid, 1, 3, want,
                                     host_loop=True)
-    assert want_tally.tolist() == [int(g.state[fg_k.RAYS]), 0]
+    # rays, no graph bounces, and no live history (mode mega)
+    assert want_tally.tolist() == [int(g.state[fg_k.RAYS]), 0] + \
+        [0] * cfg.max_depth
     assert torch.equal(acc, want)
     assert 0 < int(g.state[fg_k.ITERS]) <= cfg.max_depth
     assert (int(g.state[fg_k.P0]), int(g.state[fg_k.S0])) == (0, 3)
@@ -409,7 +411,7 @@ def test_frame_graph_state_after_a_call(small):
     again = torch.zeros_like(acc)
     tally = trender.accumulate(cfg, scene, cam, pix, valid, 1, 3, again)
     assert tally.tolist() == [int(g.state[fg_k.RAYS]),
-                              int(g.state[fg_k.ITERS])]
+                              int(g.state[fg_k.ITERS])] + [0] * cfg.max_depth
     assert fg_k.read_tally(scene, tally) == int(g.state[fg_k.RAYS])
     assert torch.equal(again, want)
 

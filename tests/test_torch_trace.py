@@ -3,9 +3,11 @@ tpurt's, on the same NumPy inputs.
 
 Two references, two tolerances:
   * tpurt's NumPy oracle (cpu_ref) rounds every product as torch does, so
-    intersection t agrees with it to 1 ulp: torch's CPU sqrt is not
-    correctly rounded (about 0.6% of float32 inputs come out 1 ulp off;
-    NumPy's is, and so is torch's on CUDA), which moves sphere hits;
+    intersection t agrees with it to 1 ulp; the port's square roots are
+    correctly rounded (``linalg.sqrt``: torch's CPU float32 sqrt is 1 ulp
+    off on about 17% of uniform inputs with torch 2.13, which moved
+    sphere hits by 2 ulps after the cancellation in -half_b - sq;
+    NumPy's sqrt is correctly rounded, and so is torch's on CUDA);
   * tpurt's jnp code on XLA's CPU backend contracts a*b + c*d into fused
     multiply-adds, and cos, sin and cbrt are XLA's own approximations, so
     against it t agrees to a relative 1e-5 and directions to 1e-5.
@@ -27,6 +29,7 @@ from tpurt import trace as jtrace
 from tpurt_torch import camera as tcamera
 from tpurt_torch import config as tconfig
 from tpurt_torch import geometry as tgeo
+from tpurt_torch import linalg as tlinalg
 from tpurt_torch import materials as tmat
 from tpurt_torch import rng as trng
 from tpurt_torch import scene as tscene
@@ -204,6 +207,41 @@ def test_intersect_matches_numpy_oracle(kw):
     np.testing.assert_array_equal(h.mat.numpy(), mat)
     np.testing.assert_allclose(h.n.numpy(), n, rtol=0, atol=1e-6)
     assert ok.mean() > 0.2
+
+
+def test_sqrt_is_correctly_rounded():
+    """linalg.sqrt against float64 sqrt rounded once to float32 (NumPy's
+    float32 sqrt, correctly rounded) on four million inputs: uniform on
+    [0, 4), the sphere discriminants' range, and every float32 bit
+    pattern of a random sample of positive floats; bit-equal."""
+    rs = np.random.default_rng(11)
+    xs = [rs.uniform(0.0, 4.0, 1 << 21).astype(np.float32),
+          rs.integers(0, 0x7F800000, 1 << 21, dtype=np.int64).astype(
+              np.int32).view(np.float32)]
+    for x in xs:
+        got = tlinalg.sqrt(_t(x)).numpy()
+        want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      np.sqrt(x).view(np.int32))
+    edge = np.array([0.0, -0.0, np.inf, 1e-45, -1.0, np.nan], np.float32)
+    got = tlinalg.sqrt(_t(edge)).numpy()
+    np.testing.assert_array_equal(got[:4], np.sqrt(edge[:4]))
+    assert np.isnan(got[4:]).all()
+
+
+def test_cornell_ray_1120_is_bit_equal_to_the_oracle(cornell):
+    """The ray of test_intersect_matches_numpy_oracle[cornell] that torch's
+    CPU sqrt put 2 ulps off the oracle (t 0.44242883 against 0.44242877,
+    material 4): bit-equal now, as is every cornell hit."""
+    scene, cam = cornell
+    o, d = _cam_and_bounce_rays(scene, cam)
+    h = ttrace.intersect(tscene.to_device(scene, "cpu"), _t(o), _t(d))
+    t, _, _, mat, ok = cpu_ref._intersect(cpu_ref._np_scene(scene), o, d)
+    assert mat[1120] == 4 and ok[1120]
+    assert h.t.numpy()[1120] == np.float32(0.44242877) == t[1120]
+    np.testing.assert_array_equal(h.t.numpy()[ok].view(np.int32),
+                                  t[ok].view(np.int32))
 
 
 @pytest.mark.parametrize("kw", INTERSECT_SCENES[:2], ids=["spheres",

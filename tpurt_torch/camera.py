@@ -102,7 +102,7 @@ def generate_rays(cam: Camera, width: int, height: int, pixel_ids, jitter):
     y = torch.div(pixel_ids, width, rounding_mode="floor").to(torch.float32)
     s = (x + jitter[0]) / width
     t = (height - (y + jitter[1])) / height
-    lr = torch.sqrt(jitter[2])
+    lr = linalg.sqrt(jitter[2])
     lphi = (2.0 * math.pi) * jitter[3]
     lp = lr * torch.cos(lphi)
     lq = lr * torch.sin(lphi)

@@ -2,8 +2,8 @@
 
 Every expression keeps tpurt's operation order, so on the same inputs
 the hits are bit-equal to tpurt's NumPy oracle wherever each IEEE op is
-correctly rounded (torch's CPU sqrt is 1 ulp off on some inputs, its
-CUDA sqrt is not), and differ from tpurt's jnp code only where XLA
+correctly rounded (``linalg.sqrt`` is, on the CPU too, where torch's
+float32 sqrt is not), and differ from tpurt's jnp code only where XLA
 fuses a multiply-add.
 
 Sphere: half-b quadratic with a = 1 (unit directions), window
@@ -36,7 +36,7 @@ def hit_spheres(o, d, centers, radii, mat_ids, t_max):
     half_b = ocx * dx[None, :] + ocy * dy[None, :] + ocz * dz[None, :]
     c = ocx * ocx + ocy * ocy + ocz * ocz - (radii * radii)[:, None]
     disc = half_b * half_b - c
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = linalg.sqrt(torch.clamp_min(disc, 0.0))
     t0 = -half_b - sq
     t1 = -half_b + sq
     t = torch.where(t0 > T_MIN, t0, t1)

@@ -21,6 +21,10 @@ compact   — the wavefront queue's packet compaction, shrink and commit
             packet-row commit of trace_chunk_staged)
 refill    — the persistent pool's regeneration and last commit (ports
             the regeneration of tpurt/wavefront.py::trace_persistent)
+frame_graph, wave_graph — a batch of mode mega and of mode wavefront as
+            one CUDA graph (port tpurt/render.py's one-dispatch frame
+            passes, _accum_frame and _wavefront_frame); loop_ctl — their
+            loop control, run in the last block of a graph's kernels
 
 The film fold is reached as ``kernels.film_fold.film_fold`` (the module
 shares the function's name). A wrapper runs the plain version only for

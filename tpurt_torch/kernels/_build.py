@@ -51,14 +51,14 @@ SIGNATURES = {
     "tt_vmemloop": "p" * 9 + "i" * 7,
     "tt_vmemloop_clusters": "iip",
     "tt_camera_rays": "p" * 5 + "i" * 22,
-    "tt_camera_rays_cursor": "p" * 12 + "ipip" + "ii",
+    "tt_camera_rays_cursor": "p" * 14 + "pipipip" + "ii",
     "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
     "tt_hit_shade": "p" * 17 + "i",
-    "tt_bounce_shade": "p" * 8 + "iii" + "p" * 23 + "ipip" + "i",
+    "tt_bounce_shade": "p" * 8 + "iii" + "p" * 23 + "ipipip" + "i",
     "tt_film_fold": "ppp" + "iii",
     "tt_frame_graph": "pp" + "ii",
     "tt_frame_advance": "p" + "iii",
-    "tt_graph_begin": "p",
+    "tt_graph_begin": "pi",
     "tt_graph_while": "ppp",
     "tt_graph_while_end": "",
     "tt_graph_end": "p",
@@ -67,7 +67,7 @@ SIGNATURES = {
     "tt_graph_destroy": "pp",
     "tt_graph_node_counts": "ppp",
     "tt_graph_memset": "pi",
-    "tt_packet_compact": "p" * 18 + "iii",
+    "tt_packet_compact": "p" * 19 + "pipipip" + "iii",
     "tt_persist_refill": "p" * 14 + "i" * 9 + "i" * 18,
 }
 

@@ -19,7 +19,10 @@ packet order, ``compact.packet_compact``). Given ``loop``
 (``loop_ctl.Loop``, the frame graph's loop control), the bounce index is
 the loop state's DEPTH slot, the survivors count into its live count, and
 the kernel's last block runs the next condition (``loop_ctl.loop_end_plain``
-in the plain version).
+in the plain version); with a staged loop (``Loop.cap`` set, the
+wavefront's graph) the packets holding a survivor also count into its
+live packet word, and the survivors into the loop's live history at the
+bounce index.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ import torch
 from .. import linalg, materials, rng
 from ..geometry import INF
 from . import _build
+from .camera import packet_live
 from .compact import PACKET_R
-from .loop_ctl import DEPTH, live_word, loop_args, loop_end_plain
+from .loop_ctl import (DEPTH, live_word, loop_args, loop_end_plain,
+                       packets_word)
 from .prims import closer
 
 
@@ -128,12 +133,10 @@ def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
         alive = alive & (~rr_on | survive)
     if survivors is not None:
         survivors.add_(alive.sum(dtype=torch.int32))
+    if loop is not None and loop.cap is not None:
+        live_packets = packets_word(loop.state)
     if live_packets is not None or packet_flags is not None:
-        n = alive.shape[0]
-        padded = torch.zeros(-(-n // PACKET_R) * PACKET_R, dtype=torch.bool,
-                             device=alive.device)
-        padded[:n] = alive
-        live_pk = padded.reshape(-1, PACKET_R).any(dim=1)
+        live_pk = packet_live(alive)
         if live_packets is not None:
             live_packets.add_(live_pk.sum(dtype=torch.int32))
         if packet_flags is not None:
@@ -207,11 +210,16 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
     and may be (o, d, atten, rad, alive, live_hit) themselves: the
     update is then in place. ``loop`` (``loop_ctl.Loop``), if given, takes
     the place of depth and survivors (both None): the kernel's last block
-    runs the loop's next condition."""
+    runs the loop's next condition; a staged loop (its cap set) also
+    takes the place of live_packets (None)."""
     if (loop is None) == (depth is None) or (loop is not None
                                              and survivors is not None):
         raise ValueError("bounce_shade: give a depth, or a loop, which "
                          "gives the depth and takes the survivors")
+    if loop is not None and loop.cap is not None and \
+            live_packets is not None:
+        raise ValueError("bounce_shade: a staged loop takes the live "
+                         "packets")
     if o.device.type == "cpu":
         got = bounce_shade_plain(scene, o, d, atten, rad, alive, keys,
                                  depth, rr_start, prim, tri, survivors,
@@ -262,6 +270,6 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                   *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
                   scene.mat_packed, scene.sky_a, scene.sky_b, *outs,
                   survivors, live_packets, packet_flags,
-                  *loop_args(loop, dev), n)
+                  *loop_args(loop, dev, -(-n // 256)), n)
     _build.count("bounce_shade")
     return outs

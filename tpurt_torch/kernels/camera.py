@@ -16,7 +16,11 @@ alive flag and its start state (atten 1, rad 0) and adds the live rays
 into a count on the device. Given ``loop`` (``loop_ctl.Loop``, the frame
 graph's loop control) that count is the loop state's live count, and the
 kernel's last block runs the loop's first condition
-(``loop_ctl.loop_end_plain`` in the plain version).
+(``loop_ctl.loop_end_plain`` in the plain version). For the wavefront's
+staged graph (kernels/wave_graph.py) it also writes the queue's pixel
+ids (int32) and slots (the ray's row) and the per-packet live flags, and
+with a staged loop (``Loop.cap`` set) counts the packets holding a live
+ray into the loop state's live packet word.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch
 from .. import camera as camera_mod
 from .. import rng
 from . import _build
-from .loop_ctl import live_word, loop_args, loop_end_plain
+from .compact import PACKET_R
+from .loop_ctl import live_word, loop_args, loop_end_plain, packets_word
 
 
 def camera_rays_plain(cam, width: int, height: int, seed: int, pixel_ids,
@@ -96,15 +101,30 @@ def view_unpack(view):
             words[0] & 0xFFFFFFFF)
 
 
+def packet_live(alive):
+    """(ceil(N / 128),) bool: which 128-ray packets of alive (N,) hold a
+    live ray."""
+    n = alive.shape[0]
+    padded = torch.zeros(-(-n // PACKET_R) * PACKET_R, dtype=torch.bool,
+                         device=alive.device)
+    padded[:n] = alive
+    return padded.reshape(-1, PACKET_R).any(dim=1)
+
+
 def camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c: int,
-                             block: int, live=None, loop=None):
+                             block: int, live=None, loop=None,
+                             queue_out=None, packet_flags=None):
     """Plain PyTorch version of the cursor camera: the explicit repeats
     of render.accumulate's host loop at p0 = state[0], s0 = state[1],
     with the camera, frame size and seed of ``view`` (view_words).
     Returns (o, d, keys, alive, atten, rad); live (1,) int32 gains the
     live rays. With ``loop`` (live None, state its state) the live rays
-    go into the loop state's live word and the loop's first condition
-    runs at the end."""
+    go into the loop state's live word (with a staged loop, the packets
+    holding one into its live packet word) and the loop's first
+    condition runs at the end. queue_out, if given, is (pix (N,) int32,
+    slot (N,) int64) to set to each ray's pixel id and row; packet_flags
+    (ceil(N / 128),) bool, if given, is set to which packets hold a live
+    ray."""
     if loop is not None:
         live = live_word(loop.state)
     cam, width, height, seed = view_unpack(view)
@@ -116,13 +136,25 @@ def camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c: int,
     o, d, keys = camera_rays_plain(cam, width, height, seed, pixf, smp)
     alive = ok_pad[rows].repeat(c)
     live.add_(alive.sum(dtype=torch.int32))
+    if queue_out is not None:
+        queue_out[0].copy_(pixf.to(torch.int32))
+        queue_out[1].copy_(torch.arange(alive.shape[0],
+                                        device=alive.device))
+    if packet_flags is not None or (loop is not None
+                                    and loop.cap is not None):
+        flags = packet_live(alive)
+        if packet_flags is not None:
+            packet_flags.copy_(flags)
+        if loop is not None and loop.cap is not None:
+            packets_word(loop.state).add_(flags.sum(dtype=torch.int32))
     if loop is not None:
         loop_end_plain(loop)
     return (o, d, keys, alive, torch.ones_like(o), torch.zeros_like(o))
 
 
 def camera_rays_cursor(view, pix_pad, ok_pad, state, c: int, block: int,
-                       live=None, out=None, loop=None):
+                       live=None, out=None, loop=None, queue_out=None,
+                       packet_flags=None):
     """The batch at the cursor on pix_pad's device: the plain version for
     CPU tensors, the CUDA kernel for CUDA tensors (or an error). view
     (VIEW_WORDS,) int32: the camera, frame size and seed (view_words);
@@ -132,15 +164,22 @@ def camera_rays_cursor(view, pix_pad, ok_pad, state, c: int, block: int,
     (the frame graph's fixed buffers), else they are allocated. ``loop``
     (``loop_ctl.Loop``), if given, takes the place of live (None) and
     its state must be ``state``: the kernel's last block runs the loop's
-    first condition. Returns the outputs."""
+    first condition (a loop's hist must be None: the camera records no
+    live history). queue_out (pix (N,) int32, slot (N,) int64) and
+    packet_flags (ceil(N / 128),) bool, if given, are set as the plain
+    version sets them. Returns the outputs."""
     n = c * block
     if (live is None) == (loop is None) or (loop is not None
                                             and loop.state is not state):
         raise ValueError("camera_rays_cursor: give a live count, or a "
                          "loop on the cursor's state")
+    if loop is not None and loop.hist is not None:
+        raise ValueError("camera_rays_cursor: the camera's loop records no "
+                         "live history")
     if pix_pad.device.type == "cpu":
         got = camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c,
-                                       block, live, loop)
+                                       block, live, loop, queue_out,
+                                       packet_flags)
         return got if out is None else _build.copy_into(out, got)
     dev = _build.cuda_device("camera_rays", pix_pad)
     n_pad = pix_pad.shape[0]
@@ -163,7 +202,16 @@ def camera_rays_cursor(view, pix_pad, ok_pad, state, c: int, block: int,
             (torch.float32, torch.float32, torch.int64, torch.bool,
              torch.float32, torch.float32)):
         _build.check(name, a, shape, dtype, dev)
+    pix_out = slot_out = None
+    if queue_out is not None:
+        pix_out, slot_out = queue_out
+        _build.check("pix out", pix_out, (n,), torch.int32, dev)
+        _build.check("slot out", slot_out, (n,), torch.int64, dev)
+    if packet_flags is not None:
+        _build.check("packet_flags", packet_flags, (-(-n // PACKET_R),),
+                     torch.bool, dev)
     _build.launch("tt_camera_rays_cursor", dev, pix_pad, ok_pad, state,
-                  view, *out, live, *loop_args(loop, dev), n, block)
+                  view, *out, live, pix_out, slot_out, packet_flags,
+                  *loop_args(loop, dev, -(-n // 256)), n, block)
     _build.count("camera_rays")
     return out

@@ -34,6 +34,11 @@
 // state's done counter, and the block that finishes last takes the live
 // count, runs the next condition (rays_cast, the bounce index, k),
 // zeroes the search's ray counter and sets the WHILE node's condition.
+// In the wavefront's staged loop (kernels/wave_graph.py, the loop's cap
+// >= 0) each block's live packets go with its ticket too, the packet
+// flags are written for the stage's compaction, and the last block adds
+// the survivors into the live history at the bounce index and runs the
+// stage's condition (live packets > cap).
 // So the depth pointer points into the state the last block writes, and
 // carries no __restrict__. A block that is not last reads DEPTH (every
 // thread, inside bounce_ray) before its barrier in __syncthreads_count,
@@ -149,16 +154,12 @@ __global__ void bounce_shade_kernel(
     alive_out[i] = alive_new;
     live_hit_out[i] = live_hit;
   }
-  if (survivors != nullptr || lc.state != nullptr) {
-    const int c = __syncthreads_count(alive_new);
-    if (threadIdx.x == 0) {
-      if (lc.state != nullptr)
-        tt::loop_tail(lc, c);
-      else if (c > 0)
-        atomicAdd(survivors, c);
-    }
-  }
-  if (live_packets != nullptr || packet_flags != nullptr) {
+  const bool staged = lc.state != nullptr && lc.cap >= 0;
+  const int c = (survivors != nullptr || lc.state != nullptr)
+                    ? __syncthreads_count(alive_new)
+                    : 0;
+  int pk = 0;  // the block's live packets (thread 0)
+  if (live_packets != nullptr || packet_flags != nullptr || staged) {
     __shared__ int packet_live[THREADS / PACKET_R];
     if (threadIdx.x < THREADS / PACKET_R) packet_live[threadIdx.x] = 0;
     __syncthreads();
@@ -166,15 +167,20 @@ __global__ void bounce_shade_kernel(
     if ((threadIdx.x & 31) == 0 && any != 0u)
       packet_live[threadIdx.x / PACKET_R] = 1;
     __syncthreads();
-    if (live_packets != nullptr && threadIdx.x == 0) {
-      int c = 0;
-      for (int k = 0; k < THREADS / PACKET_R; ++k) c += packet_live[k];
-      if (c > 0) atomicAdd(live_packets, c);
-    }
+    if (threadIdx.x == 0)
+      for (int k = 0; k < THREADS / PACKET_R; ++k) pk += packet_live[k];
     const int p = blockIdx.x * (THREADS / PACKET_R) + threadIdx.x;
     if (packet_flags != nullptr && threadIdx.x < THREADS / PACKET_R &&
         p < (n + PACKET_R - 1) / PACKET_R)
       packet_flags[p] = packet_live[threadIdx.x] != 0;
+  }
+  if (threadIdx.x == 0) {
+    if (lc.state != nullptr) {
+      tt::loop_tail(lc, c, staged ? pk : 0);
+    } else {
+      if (survivors != nullptr && c > 0) atomicAdd(survivors, c);
+      if (live_packets != nullptr && pk > 0) atomicAdd(live_packets, pk);
+    }
   }
 }
 
@@ -220,7 +226,11 @@ extern "C" int tt_hit_shade(const void* o, const void* d, const void* t_p,
 // null: the depth is its DEPTH slot, the survivors count into its live
 // count, and the last block runs the next condition with max_depth,
 // zeroes search_counter (int32, may be null) and, if in_graph, sets the
-// WHILE node's condition through handle.
+// WHILE node's condition through handle. cap >= 0: the wavefront's
+// staged condition on that cap (the live packets also go with each
+// block's ticket), and hist, if not null, the (max_depth,) int64 live
+// history the survivors are added into at the bounce index; cap < 0:
+// mode mega's condition, hist null.
 extern "C" int tt_bounce_shade(
     const void* o, const void* d, const void* atten, const void* rad,
     const void* alive, const void* keys, const void* depth_v,
@@ -232,7 +242,8 @@ extern "C" int tt_bounce_shade(
     void* d_out, void* atten_out, void* rad_out, void* alive_out,
     void* live_hit_out, void* survivors, void* live_packets,
     void* packet_flags, void* loop_state, int max_depth, const void* handle,
-    int in_graph, void* search_counter, int n, void* stream) {
+    int in_graph, void* search_counter, int cap, void* hist, int n,
+    void* stream) {
   if (loop_state != nullptr) {
     if (depth_v != nullptr || depth_p != nullptr || survivors != nullptr ||
         n <= 0)
@@ -252,7 +263,7 @@ extern "C" int tt_bounce_shade(
         (bool*)alive_out, (bool*)live_hit_out, (int*)survivors,
         (int*)live_packets, (bool*)packet_flags, n,
         tt::loop_ctl(loop_state, max_depth, handle, in_graph,
-                     search_counter));
+                     search_counter, cap, hist));
   }
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,13 @@
 // the loop's state, which the last block writes: the other blocks read
 // p0 and s0 (slots 0 and 1, which the condition leaves alone) before
 // their tickets, and the state pointer carries no __restrict__.
+//
+// For the wavefront's staged graph (kernels/wave_graph.py, replacing the
+// queue set-up of tpurt/render.py:325-326 and wavefront.make_queue) the
+// cursor camera also writes the queue's pix (int32) and slot (the ray's
+// row), and each 128-ray packet's live flag (a ballot a warp, as
+// bounce_shade flags them), and its last block runs the first stage's
+// condition on the live rays and the packets holding one.
 #include <cuda_runtime.h>
 
 #include "loop_ctl.cuh"
@@ -60,13 +67,18 @@ __global__ void camera_rays_kernel(const long long* __restrict__ pix,
   keys[2 * (size_t)n + i] = seed;
 }
 
+constexpr int THREADS = 256;   // a multiple of PACKET_R
+constexpr int PACKET_R = 128;  // rays of a wavefront packet
+
 __global__ void camera_rays_cursor_kernel(
     const long long* __restrict__ pix_pad, const bool* __restrict__ ok_pad,
     const long long* state, const int* __restrict__ params,
     float* __restrict__ o, float* __restrict__ d,
     long long* __restrict__ keys, bool* __restrict__ alive,
     float* __restrict__ atten, float* __restrict__ rad,
-    int* __restrict__ live, int n, int block, tt::LoopCtl lc) {
+    int* __restrict__ live, int* __restrict__ pix_out,
+    long long* __restrict__ slot_out, bool* __restrict__ packet_flags,
+    int n, int block, tt::LoopCtl lc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool ok = false;
   if (i < n) {
@@ -89,11 +101,30 @@ __global__ void camera_rays_cursor_kernel(
     keys[i] = (uint32_t)(unsigned long long)pix;
     keys[(size_t)n + i] = (uint32_t)(unsigned long long)smp;
     keys[2 * (size_t)n + i] = seed;
+    if (pix_out != nullptr) pix_out[i] = (int)pix;
+    if (slot_out != nullptr) slot_out[i] = i;
   }
+  const bool staged = lc.state != nullptr && lc.cap >= 0;
   const int c = __syncthreads_count(ok);
+  int pk = 0;  // the block's packets holding a live ray (thread 0)
+  if (packet_flags != nullptr || staged) {
+    __shared__ int packet_live[THREADS / PACKET_R];
+    if (threadIdx.x < THREADS / PACKET_R) packet_live[threadIdx.x] = 0;
+    __syncthreads();
+    const unsigned any = __ballot_sync(0xffffffffu, ok);
+    if ((threadIdx.x & 31) == 0 && any != 0u)
+      packet_live[threadIdx.x / PACKET_R] = 1;
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int k = 0; k < THREADS / PACKET_R; ++k) pk += packet_live[k];
+    const int p = blockIdx.x * (THREADS / PACKET_R) + threadIdx.x;
+    if (packet_flags != nullptr && threadIdx.x < THREADS / PACKET_R &&
+        p < (n + PACKET_R - 1) / PACKET_R)
+      packet_flags[p] = packet_live[threadIdx.x] != 0;
+  }
   if (threadIdx.x == 0) {
     if (lc.state != nullptr)
-      tt::loop_tail(lc, c);
+      tt::loop_tail(lc, c, staged ? pk : 0);
     else if (c > 0)
       atomicAdd(live, c);
   }
@@ -132,27 +163,35 @@ extern "C" int tt_camera_rays(const void* pix, const void* smp, void* o,
 // (loop_ctl.cuh), which must be `state`, and live must be null: the live
 // rays count into its live count and the last block runs the first
 // condition with max_depth, zeroes search_counter (int32, may be null)
-// and, if in_graph, sets the WHILE node's condition through handle.
+// and, if in_graph, sets the WHILE node's condition through handle; cap
+// >= 0 makes it the wavefront's staged first condition (the packets
+// holding a live ray also go with each block's ticket); hist must be
+// null (the camera records no live history). pix_out (int32), slot_out
+// (int64) and packet_flags ((n + 127) / 128 bytes), each may be null:
+// the wavefront queue's pixel id and slot (the ray's row i) of each ray,
+// and which 128-ray packets hold a live ray.
 extern "C" int tt_camera_rays_cursor(
     const void* pix_pad, const void* ok_pad, const void* state,
     const void* params, void* o, void* d, void* keys, void* alive,
-    void* atten, void* rad, void* live, void* loop_state, int max_depth,
-    const void* handle, int in_graph, void* search_counter, int n,
+    void* atten, void* rad, void* live, void* pix_out, void* slot_out,
+    void* packet_flags, void* loop_state, int max_depth, const void* handle,
+    int in_graph, void* search_counter, int cap, void* hist, int n,
     int block, void* stream) {
   if (loop_state != nullptr) {
-    if (loop_state != state || live != nullptr || n <= 0 || block <= 0)
+    if (loop_state != state || live != nullptr || hist != nullptr ||
+        n <= 0 || block <= 0)
       return (int)cudaErrorInvalidValue;
   }
   if (n > 0 && block > 0) {
-    const int threads = 256;
-    camera_rays_cursor_kernel<<<(n + threads - 1) / threads, threads, 0,
+    camera_rays_cursor_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
                                 (cudaStream_t)stream>>>(
         (const long long*)pix_pad, (const bool*)ok_pad,
         (const long long*)state, (const int*)params, (float*)o, (float*)d,
         (long long*)keys, (bool*)alive, (float*)atten, (float*)rad,
-        (int*)live, n, block,
+        (int*)live, (int*)pix_out, (long long*)slot_out,
+        (bool*)packet_flags, n, block,
         tt::loop_ctl(loop_state, max_depth, handle, in_graph,
-                     search_counter));
+                     search_counter, cap, nullptr));
   }
   return (int)cudaGetLastError();
 }

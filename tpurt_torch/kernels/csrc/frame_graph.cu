@@ -21,7 +21,9 @@
 //                 block: the next condition) }
 //   -> [memset(part)] -> film_fold (at the cursor) -> frame_advance
 // A bounce is three kernel nodes; tt_graph_node_counts counts the nodes
-// of the parent graph and of the WHILE body.
+// of the parent graph and of a WHILE body. The wavefront's staged graph
+// (kernels/wave_graph.py) is captured through the same entry points,
+// with one WHILE node (and one condition handle) a stage.
 //
 // tt_frame_graph (the condition, loop_cond) runs on no render path: it
 // is the loop control alone, which chip_smoke.py holds against the plain
@@ -93,10 +95,11 @@ extern "C" int tt_frame_advance(void* state, int block, int n_pad, int c,
 }
 
 // Starts capturing the stream (thread-local mode: this thread may not
-// allocate until the capture ends) and creates the WHILE node's
-// condition handle on its graph; writes the handle to *handle_out (host
-// memory, 8 bytes).
-extern "C" int tt_graph_begin(void* handle_out, void* stream) {
+// allocate until the capture ends) and creates n_handles condition
+// handles on its graph, one for each WHILE node; writes them to
+// handle_out[0 .. n_handles) (host memory, 8 bytes each).
+extern "C" int tt_graph_begin(void* handle_out, int n_handles,
+                              void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaStreamBeginCapture(s, cudaStreamCaptureModeThreadLocal);
   if (err != cudaSuccess) return (int)err;
@@ -105,10 +108,12 @@ extern "C" int tt_graph_begin(void* handle_out, void* stream) {
   size_t n_deps;
   err = capture_info(s, &graph, &deps, &n_deps);
   if (err != cudaSuccess) return (int)err;
-  cudaGraphConditionalHandle handle;
-  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
-  if (err != cudaSuccess) return (int)err;
-  *(unsigned long long*)handle_out = handle;
+  for (int k = 0; k < n_handles; ++k) {
+    cudaGraphConditionalHandle handle;
+    err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+    if (err != cudaSuccess) return (int)err;
+    ((unsigned long long*)handle_out)[k] = handle;
+  }
   return (int)cudaSuccess;
 }
 

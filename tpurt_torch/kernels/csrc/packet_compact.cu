@@ -31,9 +31,23 @@
 // before any is stored. Any other packet writes its rows' radiance home
 // at rad_out[slot], row by row (slot may be any permutation). keep = 0
 // (the last commit) reads no flags: every packet goes home.
+//
+// The wavefront's staged graph (kernels/wave_graph.py) runs it as each
+// stage's shrink, out of place between its two queue buffers: the live
+// packet count is then the frame state's (the stage's last condition
+// left it there; no host read), a kept packet's warp also writes its
+// flag in the kept queue (packet p live iff p < live_pk, so a stage
+// that runs no bounce compacts by current flags, never by the layout
+// before this shrink), and the last block to finish (loop_ctl.cuh's
+// compact_tail, one ticket a block) clamps the live packets to keep and
+// runs the next stage's first condition. When live_pk > keep (a stage
+// stopped by max_depth) the live packets ranked from keep on go home with
+// the dead ones, as tpurt commits them (tpurt/wavefront.py:336-341).
 #include <cuda_runtime.h>
 
 #include <stdint.h>
+
+#include "loop_ctl.cuh"
 
 namespace {
 
@@ -159,11 +173,15 @@ __device__ __forceinline__ void commit_packet(const Fields& q,
 __global__ void __launch_bounds__(THREADS)
     packet_compact_kernel(Fields q, const bool* __restrict__ flags, int pk,
                           int live_pk, int keep, OutFields out,
-                          float* __restrict__ rad_out) {
+                          float* __restrict__ rad_out,
+                          bool* __restrict__ out_flags, tt::LoopCtl lc) {
   __shared__ int warp_live[PACKETS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p0 = blockIdx.x * PACKETS;
   const int p = p0 + warp;
+  // in the staged loop the live packets are the state's, which the last
+  // block rewrites only after every block's ticket
+  if (lc.state != nullptr) live_pk = *tt::packets_word(lc.state);
   int dest = keep;  // keep = 0: every packet goes home
   if (keep > 0) {
     // live flags in front of the block: p0 bytes, a multiple of 16, each
@@ -183,12 +201,19 @@ __global__ void __launch_bounds__(THREADS)
     for (int w = 0; w < PACKETS; ++w) live_rank += warp_live[w];
     dest = (mine >> warp & 1u) ? live_rank : live_pk + (p - live_rank);
   }
-  if (p >= pk) return;
-  if (dest < keep)
-    move_packet(q, out, (long long)pk * PACKET_R, (long long)keep * PACKET_R,
-                p, dest, lane);
-  else
-    commit_packet(q, rad_out, p, lane);
+  if (p < pk) {
+    if (dest < keep) {
+      move_packet(q, out, (long long)pk * PACKET_R,
+                  (long long)keep * PACKET_R, p, dest, lane);
+      if (out_flags != nullptr && lane == 0) out_flags[dest] = dest < live_pk;
+    } else {
+      commit_packet(q, rad_out, p, lane);
+    }
+  }
+  if (lc.state != nullptr) {
+    __syncthreads();
+    if (threadIdx.x == 0) tt::compact_tail(lc, keep);
+  }
 }
 
 }  // namespace
@@ -196,13 +221,25 @@ __global__ void __launch_bounds__(THREADS)
 // n rows (a multiple of 128; every pointer 16-byte aligned), keep
 // packets kept. keep > 0: flags (n / 128,) bool and live_pk, the number
 // of set flags. keep = 0: every row goes home; flags and the eight
-// outputs may be null.
+// outputs may be null. out_flags, if not null (keep > 0), gets the kept
+// queue's packet flags: packet p live iff p < live_pk. loop_state: null,
+// or (keep > 0) the frame's state in the wavefront's staged loop
+// (loop_ctl.cuh): live_pk is then read from its live packet word, and
+// the last block clamps that word to keep and runs the staged condition
+// on cap (zeroing search_counter, int32, may be null, and, if in_graph,
+// setting the WHILE node's condition through handle); hist must be
+// null.
 extern "C" int tt_packet_compact(
     const void* o, const void* d, const void* atten, const void* rad,
     const void* pix, const void* key, const void* alive, const void* slot,
     const void* flags, void* rad_out, void* o2, void* d2, void* atten2,
-    void* rad2, void* pix2, void* key2, void* alive2, void* slot2, int n,
+    void* rad2, void* pix2, void* key2, void* alive2, void* slot2,
+    void* out_flags, void* loop_state, int max_depth, const void* handle,
+    int in_graph, void* search_counter, int cap, void* hist, int n,
     int keep, int live_pk, void* stream) {
+  if (loop_state != nullptr &&
+      (keep <= 0 || n <= 0 || cap < 0 || hist != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const int pk = n / PACKET_R;
     const Fields q{(const float*)o,   (const float*)d,
@@ -214,7 +251,10 @@ extern "C" int tt_packet_compact(
                         (bool*)alive2, (long long*)slot2};
     packet_compact_kernel<<<(pk + PACKETS - 1) / PACKETS, THREADS, 0,
                             (cudaStream_t)stream>>>(
-        q, (const bool*)flags, pk, live_pk, keep, out, (float*)rad_out);
+        q, (const bool*)flags, pk, live_pk, keep, out, (float*)rad_out,
+        (bool*)out_flags,
+        tt::loop_ctl(loop_state, max_depth, handle, in_graph,
+                     search_counter, cap, nullptr));
   }
   return (int)cudaGetLastError();
 }

@@ -37,17 +37,22 @@ searches' outputs, the state and the fold target (the film rows, or a
 block's part for the sample-sharded render, which sums it over ranks
 between launches). On the CPU the same schedule runs with every
 wrapper's plain version and the WHILE node as a Python loop over
-``GO``: that is the graph's plain version. ``get`` caches one graph per
-(scene tensors, n, block, c, max_depth, rr_start, fold target, device):
+``GO``: that is the graph's plain version. The schedule (``_schedule``)
+is written once and drives both: the capture records its nodes, the
+plain launch runs them. ``wave_graph.WaveGraph`` is the same machinery
+with the wavefront's staged schedule. ``get`` caches one graph per
+(class, scene tensors, n, block, c, max_depth, rr_start, fold target,
+device):
 shapes only, since the view and the cursor are loaded for each call, so
 a scene rendered from camera after camera keeps the graphs it has. An
 entry is dropped when any of its scene's tensors is freed. A capture or
 a launch that fails raises: nothing falls back to the host loop.
 ``node_counts`` reads the captured graph's nodes by type.
 
-``render.accumulate`` returns a tally ((2,) int64 on the device: rays
-cast, bounces the graphs ran); ``read_tally`` reads both in one copy and
-adds the bounces' kernel runs, which only the device knows, to
+``render.accumulate`` returns a tally ((2 + max_depth,) int64 on the
+device: rays cast, bounces the graphs ran, the wavefront's live history
+after each bounce); ``read_tally`` reads it in one copy and adds the
+bounces' kernel runs, which only the device knows, to
 ``_build.LAUNCHES`` (a graph launch counts its fixed nodes itself).
 """
 
@@ -98,15 +103,19 @@ def bounce_kernels(scene) -> dict:
     return {"prims_nearest": 1, search_kernel(scene): 1, "bounce_shade": 1}
 
 
-def read_tally(scene, tally) -> int:
-    """rays_cast of a render.accumulate tally ((2,) int64: rays cast,
-    bounces the frame graphs ran), read with the bounces in one copy to
-    the host. On a card the bounces' kernel runs are added to
-    _build.LAUNCHES. Returns rays_cast."""
-    rays, bounces = tally.tolist()
+def read_tally(scene, tally, live_hist=None) -> int:
+    """rays_cast of a render.accumulate tally ((2 + max_depth,) int64:
+    rays cast, bounces the graphs ran, the wavefront's live history),
+    read with the bounces and the history in one copy to the host. On a
+    card the bounces' kernel runs are added to _build.LAUNCHES. live_hist
+    (an int64 NumPy array of max_depth), if given, gains the history.
+    Returns rays_cast."""
+    rays, bounces, *hist = tally.tolist()
     if tally.device.type == "cuda":
         for kernel, n in bounce_kernels(scene).items():
             _build.LAUNCHES[kernel] += n * bounces
+    if live_hist is not None:
+        live_hist += hist
     return rays
 
 
@@ -157,7 +166,10 @@ class FrameGraph:
     samples of ``block`` rows at the cursor, traced to max_depth and
     folded into the fold target. On a card the batch is captured as a
     CUDA graph at construction; ``launch`` replays it. On the CPU
-    ``launch`` runs the same schedule with the plain versions."""
+    ``launch`` runs the same schedule with the plain versions.
+    Subclasses (``wave_graph.WaveGraph``) keep the cursor, the view, the
+    capture and the launch, and give their own buffers (``_buffers``),
+    loops (``_loops``) and schedule (``_schedule``)."""
 
     def __init__(self, scene, n: int, block: int, c: int, max_depth: int,
                  rr_start, reduce: bool, device):
@@ -167,94 +179,131 @@ class FrameGraph:
         self.n_pad = -(-n // block) * block
         self.max_depth, self.rr_start, self.reduce = max_depth, rr_start, \
             reduce
-        rays = c * block
         f32, i32 = torch.float32, torch.int32
-
-        def empty(*shape, dtype=f32):
-            return torch.empty(shape, dtype=dtype, device=dev)
-
-        # the state and traverse's ray counter, zeroed in one allocation
-        scalars = torch.zeros(STATE_SLOTS + 1, dtype=torch.int64, device=dev)
+        # the state, the live history and traverse's ray counter, zeroed
+        # in one allocation
+        scalars = torch.zeros(STATE_SLOTS + max_depth + 1, dtype=torch.int64,
+                              device=dev)
         self.state = scalars[:STATE_SLOTS]
-        self.view = empty(camera_k.VIEW_WORDS, dtype=i32)
-        self.pix = empty(self.n_pad, dtype=torch.int64)
-        self.ok = empty(self.n_pad, dtype=torch.bool)
+        self.hist = scalars[STATE_SLOTS:STATE_SLOTS + max_depth]
+        # the state and the history, zeroed by begin in one fill
+        self._tallies = scalars[:STATE_SLOTS + max_depth]
+        self.view = self.empty(camera_k.VIEW_WORDS, dtype=i32)
+        self.pix = self.empty(self.n_pad, dtype=torch.int64)
+        self.ok = self.empty(self.n_pad, dtype=torch.bool)
         # the film rows (n, 3), or the block's part (block, 3) that the
         # sample-sharded render sums over ranks
-        self.film = empty(block if reduce else n, 3)
+        self.film = self.empty(block if reduce else n, 3, dtype=f32)
+        # traverse's ray counter: zero here, then zeroed by the last
+        # block of the kernel before each search
+        self.counter = None
+        if scene.pk_nodes is not None:
+            self.counter = scalars[STATE_SLOTS + max_depth:].view(i32)[:1]
+        # WHILE nodes of the graph
+        self.n_loops = 1
+        # launches a replay makes besides its bounces (camera, fold and
+        # the advance)
+        self.per_launch = {"camera_rays": 1, "film_fold": 1,
+                           "frame_graph": 1}
+        rays = c * block
+        # the searches' outputs and the bounce's live_hit
+        self.live_hit = self.empty(rays, dtype=torch.bool)
+        self.prim = (self.empty(rays), self.empty(rays, 3),
+                     self.empty(rays, dtype=i32))
+        self.tri = (self.empty(rays), self.empty(rays, 3),
+                    self.empty(rays, dtype=i32),
+                    self.empty(rays, dtype=torch.bool),
+                    self.empty(rays, dtype=i32))
+        self._buffers(rays)
+        # the executable graph, the graph it was made from and its WHILE
+        # bodies (CUDA handles; node_counts reads the last two); the
+        # plain schedule's bounces a WHILE node in its last launch
+        self.exec = self.graph = None
+        self.bodies, self.stage_bounces = [], []
+        if dev.type == "cuda":
+            self._capture(scene)
+
+    def empty(self, *shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _buffers(self, rays: int) -> None:
+        """The ray state of a batch of rays (a subclass also sets n_loops
+        and per_launch here)."""
+        empty = self.empty
         # o, d, keys, alive, atten, rad
         self.rays = (empty(rays, 3), empty(rays, 3),
                      empty(3, rays, dtype=torch.int64),
                      empty(rays, dtype=torch.bool), empty(rays, 3),
                      empty(rays, 3))
-        self.live_hit = empty(rays, dtype=torch.bool)
-        self.prim = (empty(rays), empty(rays, 3), empty(rays, dtype=i32))
-        self.tri = (empty(rays), empty(rays, 3), empty(rays, dtype=i32),
-                    empty(rays, dtype=torch.bool), empty(rays, dtype=i32))
-        # traverse's ray counter: zero here, then zeroed by the last
-        # block of the kernel before each search
-        self.counter = None
-        if scene.pk_nodes is not None:
-            self.counter = scalars[STATE_SLOTS:].view(i32)[:1]
-            self.tri += (self.counter,)
-        # launches a replay makes besides its bounces (camera, fold and
-        # the advance)
-        self.per_launch = {"camera_rays": 1, "film_fold": 1,
-                           "frame_graph": 1}
-        # the executable graph, the graph it was made from and its WHILE
-        # body (CUDA handles; node_counts reads the last two)
-        self.exec = self.graph = self.body = None
-        if dev.type == "cuda":
-            self._capture(scene)
+
+    def tri_out(self, k: int) -> tuple:
+        """The search's outputs for the first k rays (and traverse's ray
+        counter)."""
+        out = tuple(t[:k] for t in self.tri)
+        return out if self.counter is None else out + (self.counter,)
 
     # -- the schedule, shared by the capture and the plain loop ---------
 
-    def _prologue(self, loop):
+    def _loops(self, handles) -> list:
+        """The loop control of each WHILE node (handles: their n_loops
+        condition handles while capturing, else Nones)."""
+        return [Loop(self.state, self.max_depth, handles[0], self.counter)]
+
+    def _schedule(self, scene, loops, run_while) -> None:
+        """The batch's nodes in order. run_while(k, body) runs body() as
+        WHILE node k (a node captured on a card, a loop over GO in the
+        plain schedule)."""
+        o, d, keys, alive, atten, rad = self.rays
         camera_k.camera_rays_cursor(
             self.view, self.pix, self.ok, self.state, self.c, self.block,
-            out=self.rays, loop=loop)
+            out=self.rays, loop=loops[0])
 
-    def _body(self, scene, loop):
-        o, d, keys, alive, atten, rad = self.rays
-        prims.prims_nearest(scene, o, d, alive=alive, out=self.prim)
-        search(scene, o, d, self.prim[0], out=self.tri, counter_zeroed=True)
-        bounce_k.bounce_shade(
-            scene, o, d, atten, rad, alive, keys, None, self.rr_start,
-            self.prim, self.tri[:5], out=(o, d, atten, rad, alive,
-                                          self.live_hit), loop=loop)
+        def body():
+            prims.prims_nearest(scene, o, d, alive=alive, out=self.prim)
+            search(scene, o, d, self.prim[0], out=self.tri_out(o.shape[0]),
+                   counter_zeroed=True)
+            bounce_k.bounce_shade(
+                scene, o, d, atten, rad, alive, keys, None, self.rr_start,
+                self.prim, self.tri, out=(o, d, atten, rad, alive,
+                                          self.live_hit), loop=loops[0])
 
-    def _epilogue(self):
+        run_while(0, body)
+        self._fold(rad)
+
+    def _fold(self, rad) -> None:
+        """The batch's radiance rad (c * block, 3) folded at the cursor
+        (into a zeroed part when the graph folds into one), then the
+        cursor's step."""
         if self.reduce:
             graph_memset(self.film)
-        fold_k.film_fold(self.film, self.rays[5], self.c, self.block,
+        fold_k.film_fold(self.film, rad, self.c, self.block,
                          None if self.reduce else self.state)
         frame_advance(self.state, self.block, self.n_pad, self.c)
-
-    def loop(self, handle=None) -> Loop:
-        """The loop control the camera's and each bounce's last block run
-        (handle: the WHILE node's, while capturing)."""
-        return Loop(self.state, self.max_depth, handle, self.counter)
 
     def _capture(self, scene):
         dev = self.device
         side, body = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
-        # host words: the WHILE handle, exec, graph, body
-        words = torch.zeros(4, dtype=torch.int64)
+        n_loops = self.n_loops
+        # host words: the WHILE handles, exec, graph, then the bodies
+        words = torch.zeros(2 * n_loops + 2, dtype=torch.int64)
         t0 = time.perf_counter()
         _build.CAPTURING[0] = True
+
+        def run_while(k, fn):
+            _build.launch("tt_graph_while", dev, loops[k].handle,
+                          body.cuda_stream, words[n_loops + 2 + k:])
+            with torch.cuda.stream(body):
+                fn()
+                _build.launch("tt_graph_while_end", dev)
+
         try:
             with torch.cuda.stream(side):
-                _build.launch("tt_graph_begin", dev, words[0:1])
-                loop = self.loop(int(words[0]) & 0xFFFFFFFFFFFFFFFF)
-                self._prologue(loop)
-                _build.launch("tt_graph_while", dev, loop.handle,
-                              body.cuda_stream, words[3:4])
-                with torch.cuda.stream(body):
-                    self._body(scene, loop)
-                    _build.launch("tt_graph_while_end", dev)
-                self._epilogue()
+                _build.launch("tt_graph_begin", dev, words, n_loops)
+                loops = self._loops([int(w) & 0xFFFFFFFFFFFFFFFF
+                                     for w in words[:n_loops]])
+                self._schedule(scene, loops, run_while)
                 t1 = time.perf_counter()
-                _build.launch("tt_graph_end", dev, words[1:3])
+                _build.launch("tt_graph_end", dev, words[n_loops:])
         except BaseException:
             with torch.cuda.stream(side):
                 _build.launch("tt_graph_abort", dev, body.cuda_stream)
@@ -262,7 +311,9 @@ class FrameGraph:
         finally:
             _build.CAPTURING[0] = False
         t2 = time.perf_counter()
-        self.exec, self.graph, self.body = (int(w) for w in words[1:])
+        vals = [int(w) for w in words]
+        self.exec, self.graph = vals[n_loops:n_loops + 2]
+        self.bodies = vals[n_loops + 2:]
         BUILD_STATS["graphs"] += 1
         BUILD_STATS["capture_s"] += t1 - t0
         BUILD_STATS["instantiate_s"] += t2 - t1
@@ -272,15 +323,18 @@ class FrameGraph:
 
     def node_counts(self) -> dict:
         """The captured graph's nodes by type, as instantiated: {"parent":
-        {"kernel", "memset", "conditional", "other"}, "body": the same for
-        the WHILE node's body}."""
-        out = torch.zeros(8, dtype=torch.int64)
-        _build.launch("tt_graph_node_counts", self.device, self.graph,
-                      self.body, out)
+        {"kernel", "memset", "conditional", "other"}, "bodies": the same
+        for each WHILE node's body, in order}."""
         kinds = ("kernel", "memset", "conditional", "other")
-        vals = out.tolist()
-        return {"parent": dict(zip(kinds, vals[:4])),
-                "body": dict(zip(kinds, vals[4:]))}
+        parent, bodies = None, []
+        for body in self.bodies:
+            out = torch.zeros(8, dtype=torch.int64)
+            _build.launch("tt_graph_node_counts", self.device, self.graph,
+                          body, out)
+            vals = out.tolist()
+            parent = dict(zip(kinds, vals[:4]))
+            bodies.append(dict(zip(kinds, vals[4:])))
+        return {"parent": parent, "bodies": bodies}
 
     # -- one call of render.accumulate -----------------------------------
 
@@ -290,7 +344,7 @@ class FrameGraph:
         pixel list pix (n,) and live rows ok (n,) bool (the tail padded
         with the last pixel, dead), the film rows acc (n, 3) unless the
         graph folds into a part, and the cursor (0, s0); zero the ray and
-        bounce tallies."""
+        bounce tallies and the live history."""
         n = self.n
         view = torch.tensor(camera_k.view_words(cam, width, height, seed),
                             dtype=torch.int32)
@@ -308,7 +362,7 @@ class FrameGraph:
             self.film.copy_(acc)
         # fills, not a copy from the host: a copy from pageable memory
         # may wait for the stream
-        self.state.zero_()
+        self._tallies.zero_()
         self.state[S0:S0 + 1].fill_(s0)
 
     def launch(self, scene) -> None:
@@ -318,15 +372,27 @@ class FrameGraph:
         scene: the scene the graph was made for (the plain schedule reads
         it; a captured graph holds its tensors' addresses)."""
         if self.exec is None:
-            loop = self.loop()
-            self._prologue(loop)
-            while int(self.state[GO]):
-                self._body(scene, loop)
-            self._epilogue()
+            self.stage_bounces = []
+
+            def run_while(k, fn):
+                runs = 0
+                while int(self.state[GO]):
+                    fn()
+                    runs += 1
+                self.stage_bounces.append(runs)
+
+            self._schedule(scene, self._loops([None] * self.n_loops),
+                           run_while)
             return
         _build.launch("tt_graph_launch", self.device, self.exec)
         for kernel, n in self.per_launch.items():
             _build.LAUNCHES[kernel] += n
+
+    def add_tally(self, tally) -> None:
+        """Add the rays cast and bounces run over the launches since
+        ``begin`` into tally[:2] ((2 + max_depth,) int64 on the device;
+        a WaveGraph also adds its live history into tally[2:])."""
+        tally[:2] += self.state[RAYS:ITERS + 1]
 
     def end(self, acc) -> None:
         """Copy the folded film rows back into acc (n, 3)."""
@@ -337,19 +403,18 @@ _CACHE: dict = {}
 
 
 def get(scene, n: int, block: int, c: int, max_depth: int, rr_start,
-        reduce: bool, device) -> FrameGraph:
-    """The FrameGraph of this batch shape on this scene, cached (on a
-    card, one capture per key); the entry goes when any of the scene's
-    tensors is freed."""
+        reduce: bool, device, cls=FrameGraph) -> FrameGraph:
+    """The ``cls`` graph (FrameGraph, or wave_graph.WaveGraph) of this
+    batch shape on this scene, cached (on a card, one capture per key);
+    the entry goes when any of the scene's tensors is freed."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    key = (tuple(id(f) for f in scene), n, block, c, max_depth, rr_start,
-           reduce, dev)
+    key = (cls, tuple(id(f) for f in scene), n, block, c, max_depth,
+           rr_start, reduce, dev)
     fg = _CACHE.get(key)
     if fg is None:
-        fg = FrameGraph(scene, n, block, c, max_depth, rr_start, reduce,
-                        dev)
+        fg = cls(scene, n, block, c, max_depth, rr_start, reduce, dev)
         _CACHE[key] = fg
         for f in scene:
             if f is not None:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import linalg
 from ..bvh import LEAF_F, PACKET_LEAF_N as LN
 from ..geometry import INF, T_MIN, TRI_EPS
 from . import _build
@@ -67,7 +68,7 @@ def leaf_mt(tri, ox, oy, oz, dx, dy, dz, t_best, live=None):
     gnx = w1y * w2z - w1z * w2y
     gny = w1z * w2x - w1x * w2z
     gnz = w1x * w2y - w1y * w2x
-    glen = torch.sqrt(torch.clamp_min(gnx * gnx + gny * gny + gnz * gnz,
+    glen = linalg.sqrt(torch.clamp_min(gnx * gnx + gny * gny + gnz * gnz,
                                       1e-24))
     tri_i = tri.view(torch.int32)
     mat = torch.gather(tri_i[:, 9 * LN:10 * LN], 1, j)

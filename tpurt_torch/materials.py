@@ -38,7 +38,7 @@ def scatter(d, n, front, mtype, albedo, fuzz, ior, draws):
 
     eta = torch.where(front, 1.0 / ior, ior)
     cos_t = torch.clamp_max(linalg.dot(-d, n), 1.0)
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+    sin_t = linalg.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
     cannot_refract = eta * sin_t > 1.0
     r = (1.0 - eta) / (1.0 + eta)
     r0 = r * r

@@ -102,9 +102,9 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
     """Add the radiance sum of samples [sample_start, sample_stop) over
     the mesh to film_flat (npix, 3), a host float32 array, so the result
     is directly checkpointable. Every rank returns (film_flat,
-    rays_cast). Modes as tpurt's: primary, wavefront, and the megakernel
-    for every other mode (persist included): render.accumulate's frame
-    graph, or with host_loop its host loop."""
+    rays_cast). Modes as tpurt's: primary, wavefront (render.accumulate's
+    wave graph), and the megakernel for every other mode (persist
+    included): its frame graph; with host_loop, its host loops."""
     _check(cfg)
     if mesh is None:
         mesh = make_mesh()

@@ -8,15 +8,19 @@ and the film is permuted back at the end, by order tensors uploaded
 once per frame size (``order_cached``). The block loop (``accumulate``)
 runs over any list of pixel ids, so a rank of a sharded render
 (``mesh``) traces its share through it. Each batch is traced by mode:
-``primary`` (one-bounce shading), ``wavefront``
-(``wavefront.trace_chunk``, the queue shrinking as rays die), or the
-megakernel for the rest: a ``kernels.frame_graph.FrameGraph`` launch a
-batch, which on a card is one CUDA graph with its bounce loop on the
-device (no host read until the ray count and the film; tpurt's
-one-dispatch ``_accum_frame``), or, when a caller asks for the host
-loop, ``trace.trace`` (one host read a bounce). ``persist`` streams
-each pixel block's samples through one fixed-capacity pool
-(``wavefront.trace_persistent``) into the film in pixel order. RNG streams are keyed by (seed, pixel, sample), so the
+``primary`` (one-bounce shading); ``wavefront``, a
+``kernels.wave_graph.WaveGraph`` launch a batch, which on a card is one
+CUDA graph whose queue shrinks along tpurt's stage ladder on the device
+(tpurt's one-dispatch ``_wavefront_frame``), or, when a caller asks for
+the host loop, ``wavefront.trace_chunk`` (one host read a bounce); or
+the megakernel for the rest: a ``kernels.frame_graph.FrameGraph`` launch
+a batch, which on a card is one CUDA graph with its bounce loop on the
+device (tpurt's one-dispatch ``_accum_frame``), or, with the host loop,
+``trace.trace`` (one host read a bounce). Neither graph reads the host
+until the tally (rays cast, bounces, live history) and the film.
+``persist`` streams each pixel block's samples through one
+fixed-capacity pool (``wavefront.trace_persistent``) into the film in
+pixel order. RNG streams are keyed by (seed, pixel, sample), so the
 image does not depend on the batching or the mode.
 """
 
@@ -30,7 +34,7 @@ import torch
 
 from . import metrics, trace, wavefront
 from .config import RenderConfig, build_scene
-from .kernels import frame_graph
+from .kernels import frame_graph, wave_graph
 from .kernels import camera as camera_k
 from .kernels import film_fold as fold_k
 from .scene import Scene, to_device
@@ -114,7 +118,7 @@ def batch_schedule(sample_start: int, sample_stop: int,
 
 def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
                sample_start: int, sample_stop: int, acc, reduce=None,
-               live_hist=None, host_loop: bool = False):
+               host_loop: bool = False):
     """Add the radiance sums of samples [sample_start, sample_stop) at
     the pixel ids ``pix`` (n,) into rows of ``acc`` (n, 3), in place.
 
@@ -127,14 +131,17 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     ``kernels.film_fold``; ``reduce``, if given, maps each batch's
     per-pixel sum before it is added (the sample-sharded render sums it
     over ranks there).
-    Modes: primary, wavefront (the shrinking ``wavefront.trace_chunk``),
-    and the megakernel for every other mode: the frame graph
+    Modes: primary; wavefront, the staged wave graph
+    (``kernels.wave_graph``), or with ``host_loop`` the host's batch
+    loop over the shrinking ``wavefront.trace_chunk``; and the
+    megakernel for every other mode: the frame graph
     (``kernels.frame_graph``), or with ``host_loop`` the host's batch
-    loop over ``trace.trace`` (a host read a bounce; the per-call path
-    the smoke checks kernels on). live_hist (np int64 (max_depth,)), if
-    given, gains the wavefront's live counts. Returns a tally on the
-    device, (2,) int64: rays cast, and the bounces the frame graphs ran
-    (0 on the other paths); ``frame_graph.read_tally`` reads it."""
+    loop over ``trace.trace`` (a host read a bounce; the per-call paths
+    the smoke checks kernels on). Returns a tally on the device,
+    (2 + max_depth,) int64: rays cast, the bounces the graphs ran (0 on
+    the host loops), and the wavefront's live history (the live rays
+    after each bounce, summed over batches; 0 in the other modes);
+    ``frame_graph.read_tally`` reads it."""
     dev = acc.device
     n = pix.shape[0]
     ray_batch = effective_ray_batch(cfg, scene)
@@ -146,15 +153,18 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     ok = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
           else valid)
     pix = pix.long()
-    if cfg.mode not in ("primary", "wavefront") and not host_loop:
+    if cfg.mode != "primary" and not host_loop:
+        cls = (wave_graph.WaveGraph if cfg.mode == "wavefront"
+               else frame_graph.FrameGraph)
         return _accumulate_graph(cfg, scene, cam, pix, ok, block,
                                  sample_start, sample_stop, spp_chunk, acc,
-                                 reduce)
+                                 reduce, cls)
     if n_pad > n:
         pix = torch.cat([pix, pix[-1:].expand(n_pad - n)])
         ok = torch.cat([ok, torch.zeros(n_pad - n, dtype=torch.bool,
                                         device=dev)])
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    live_hist = np.zeros(cfg.max_depth, np.int64)
     for first, c, n_chunks in batch_schedule(sample_start, sample_stop,
                                              spp_chunk):
         for s0 in range(first, first + c * n_chunks, c):
@@ -175,8 +185,7 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
                     rad, cast, hist = wavefront.trace_chunk(
                         scene, q, cfg.max_depth, cfg.rr_start)
                     nrays = nrays + cast
-                    if live_hist is not None:
-                        live_hist += hist
+                    live_hist += hist
                 else:
                     rad, cast = trace.trace(scene, o, d, keys,
                                             cfg.max_depth, cfg.rr_start,
@@ -190,24 +199,28 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
                                        device=dev)
                     part = reduce(fold_k.film_fold(part, rad, c, block))
                     acc[p0:p0 + m] += part[:m]
-    return torch.cat([nrays.reshape(1), nrays.new_zeros(1)])
+    return torch.cat([nrays.reshape(1), nrays.new_zeros(1),
+                      torch.from_numpy(live_hist).to(dev)])
 
 
 def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
-                      sample_stop, spp_chunk, acc, reduce):
-    """accumulate's megakernel path: per run of equal chunks, one
-    FrameGraph launched once a batch (the cursor steps on the device),
-    the film rows loaded into it before and copied back after; with
-    ``reduce``, each batch's part is summed over ranks and added to acc
-    between launches. Nothing is read back to the host. Returns the
-    tally (rays cast, bounces run)."""
+                      sample_stop, spp_chunk, acc, reduce, cls):
+    """accumulate's graph path: per run of equal chunks, one ``cls``
+    graph (FrameGraph, or WaveGraph for the wavefront) launched once a
+    batch (the cursor steps on the device), the film rows loaded into it
+    before and copied back after; with ``reduce``, each batch's part is
+    summed over ranks and added to acc between launches. Nothing is read
+    back to the host. Returns the tally (rays cast, bounces run, live
+    history)."""
     n = pix.shape[0]
     n_pad = -(-n // block) * block
-    tally = torch.zeros(2, dtype=torch.int64, device=acc.device)
+    tally = torch.zeros(2 + cfg.max_depth, dtype=torch.int64,
+                        device=acc.device)
     for s0, c, n_chunks in batch_schedule(sample_start, sample_stop,
                                           spp_chunk):
         fg = frame_graph.get(scene, n, block, c, cfg.max_depth,
-                             cfg.rr_start, reduce is not None, acc.device)
+                             cfg.rr_start, reduce is not None, acc.device,
+                             cls)
         fg.begin(cam, cfg.width, cfg.height, cfg.seed, pix, ok, acc, s0)
         for _ in range(n_chunks):
             for p0 in range(0, n_pad, block):
@@ -217,7 +230,7 @@ def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
                     acc[p0:p0 + m] += reduce(fg.film)[:m]
         if reduce is None:
             fg.end(acc)
-        tally += fg.state[frame_graph.RAYS:frame_graph.ITERS + 1]
+        fg.add_tally(tally)
     return tally
 
 
@@ -249,17 +262,17 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
 
     # the padded tail's rows are traced dead and never read back
     film_tiled = film_flat[pix]
-    live_hist = np.zeros(cfg.max_depth, np.int64)
     tally = accumulate(cfg, scene, cam, pix, valid, sample_start,
-                       sample_stop, film_tiled, live_hist=live_hist,
-                       host_loop=host_loop)
+                       sample_stop, film_tiled, host_loop=host_loop)
+    live_hist = np.zeros(cfg.max_depth, np.int64)
+    rays = frame_graph.read_tally(scene, tally, live_hist)
     if cfg.mode == "wavefront" and stats_sink is not None:
         # live counts are summed over every batch, so the capacity is the
         # queue rows issued per bounce over all of them
         stats_sink["queue_capacity"] = -(-npix // block) * block * n_samples
         stats_sink.setdefault("live_history", []).extend(
             int(x) for x in live_hist)
-    return film_tiled[inv], frame_graph.read_tally(scene, tally)
+    return film_tiled[inv], rays
 
 
 def _render_persist(cfg, scene, cam, film_flat, pix, block, ray_batch,

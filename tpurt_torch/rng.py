@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from . import linalg
+
 NDRAWS = 6
 CAMERA_STREAM = 0x43414D00   # 'CAM\0'
 BOUNCE_BASE = 0xB0000000
@@ -89,7 +91,7 @@ def unit_vector_from(u0, u1):
     """Uniform direction on the unit sphere; component tuple (x, y, z)."""
     z = 2.0 * u0 - 1.0
     phi = (2.0 * math.pi) * u1
-    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    r = linalg.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
     return r * torch.cos(phi), r * torch.sin(phi), z
 
 

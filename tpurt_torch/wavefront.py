@@ -1,18 +1,24 @@
 """Wavefront tracers: SoA ray queues with packet compaction, and the
 persistent fixed-capacity pool (port of tpurt/wavefront.py).
 
-``trace_chunk`` runs the bounce loop on the host, one ``step`` per
-bounce and one 8-byte host read per bounce (live rays and live
-packets), and shrinks the queue as rays die: when the packets that still
-hold a live ray fit a smaller power of two (8 packets at least), one
-``kernels.compact.packet_compact`` call (one kernel launch on a card)
-moves live packets to the front, in the order of the per-packet live
-flags that the bounce wrote, drops the dead tail and commits its
-radiance home through the queue's ``slot``. It keeps the contract of tpurt's ``trace_chunk_staged``:
-radiance back in input queue order, rays_cast, and the live count after
-each bounce. tpurt's stage ladder and one-dispatch staging were shaped
-by XLA; images do not depend on the shrink rule, because every draw is
-keyed by (seed, pixel, sample, bounce).
+A render in mode wavefront traces each batch through
+``kernels.wave_graph.WaveGraph`` (``render.accumulate``): on a card one
+CUDA graph a batch whose queue shrinks along tpurt's stage ladder on the
+device, as tpurt's one-dispatch ``trace_chunk_staged``, with no host
+read until the film. ``trace_chunk`` is the host-loop reference that
+``host_loop=True`` runs (the smoke checks each kernel call on it): one
+``step`` per bounce and one 8-byte host read per bounce (live rays and
+live packets), and the queue shrinks as rays die: when the packets that
+still hold a live ray fit a smaller power of two (8 packets at least),
+one ``kernels.compact.packet_compact`` call (one kernel launch on a
+card) moves live packets to the front, in the order of the per-packet
+live flags that the bounce wrote, drops the dead tail and commits its
+radiance home through the queue's ``slot``. Both keep the contract of
+tpurt's ``trace_chunk_staged``: radiance back in input queue order,
+rays_cast, and the live count after each bounce. Images do not depend
+on the shrink rule, because every draw is keyed by (seed, pixel,
+sample, bounce), so the graph's ladder and this loop's powers of two
+give the same film.
 
 ``trace_persistent`` keeps tpurt's regeneration rule exactly
 (``kernels.refill.persist_refill``, one kernel launch a step on a card,
@@ -23,14 +29,12 @@ bytes).
 
 Not ported: ``trace_static``, tpurt's fixed-size queue for ``mesh``
 (``shard_map`` needs one shape on every chip; a rank of the port's mesh
-has its own host loop and runs ``trace_chunk``), and tpurt's test
+runs the wave graph through ``render.accumulate``), and tpurt's test
 oracles ``multi_step``, ``commit_*`` and its own host-loop
 ``trace_chunk`` (the port is tested against tpurt itself).
 """
 
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,19 +46,7 @@ from .kernels import refill as refill_k
 
 PACKET_R = compact.PACKET_R   # rays never leave their packet
 MIN_PACKETS = 8             # the queue shrinks no further
-
-
-class Queue(NamedTuple):
-    """SoA ray queue; row i of every field describes the same ray."""
-
-    o: torch.Tensor       # (N,3)
-    d: torch.Tensor       # (N,3)
-    atten: torch.Tensor   # (N,3)
-    rad: torch.Tensor     # (N,3) radiance gathered so far by this ray
-    pix: torch.Tensor     # (N,)  flat pixel id
-    key: torch.Tensor     # (3,N) rng streams [pixel, sample, seed]
-    alive: torch.Tensor   # (N,) bool
-    slot: torch.Tensor    # (N,) int64 row of the ray in the input queue
+Queue = compact.Queue       # SoA ray queue; row i of every field is one ray
 
 
 def make_queue(o, d, pix, keys, alive=None) -> Queue:
@@ -99,7 +91,7 @@ def _shrink_target(live_pk: int, pk: int) -> int:
 
 def trace_chunk(scene, queue: Queue, max_depth: int, rr_start):
     """Bounces [0, max_depth) of a packet-aligned queue, shrinking it as
-    rays die. Returns (radiance (N,3) in input queue order, rays_cast as
+    rays die (the host-loop reference of the wave graph). Returns (radiance (N,3) in input queue order, rays_cast as
     a 0-dim int64 tensor, live_hist: a list of max_depth ints, entry b
     the live count after bounce b, 0 after extinction).
 
