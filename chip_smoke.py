@@ -71,9 +71,19 @@ exits non-zero and prints no result):
                  total running out inside a warp); then the three timed
                  on c3 / c4 traffic, each with its bound, its device time
                  by kernel and one CUDA kernel a call (film_fold at the
-                 cursor, as the frame graph folds, checked also at a
-                 ragged last block and into a part), and film_fold
-                 beside the library call FOLD_LIBRARY; then the entries
+                 cursor with the cursor's step in its last block, as the
+                 graphs fold, checked also inside the list, at a ragged
+                 last block and into a part, the state word for word
+                 frame_advance_plain's, and timed without the step), and
+                 film_fold beside the library call FOLD_LIBRARY; then
+                 the pool graph's entries on c4 persist's traffic
+                 (check_pool_entries: the load at the first and the
+                 ragged last pool, the refill at the cursor with the
+                 pool's loop, the commit with the end of the pool, each
+                 with equal pools, counters, records and states and the
+                 film within film_bound, and timed; the refill row times
+                 this entry, checked again, on the host loop's largest
+                 refill, beside the host loop's entry); then the entries
                  the wave graph runs, on c4's own traffic, given its
                  staged loop (check_wave_entries): the cursor camera
                  with the queue's pix, slot and packet flags,
@@ -99,13 +109,21 @@ exits non-zero and prints no result):
                  instantiate seconds apart from the walls; every cached
                  graph's nodes as instantiated (check_node_counts: each
                  WHILE body of three kernel nodes and no memset, BVH and
-                 brute; a parent of the camera, the WHILE node, the fold
-                 and the advance, and a memset only sharded by spp; a
-                 wave graph's parent also one WHILE node and one
-                 compaction a stage, six for c4);
-                 then frame_graph.cu's kernels against their plain
-                 versions, the condition (on no render path) timed with
-                 its bound
+                 brute; a parent of the camera, the WHILE node and the
+                 fold, whose last block steps the cursor (no advance
+                 node), and a memset only sharded by spp; a wave graph's
+                 parent also one WHILE node and one compaction a stage,
+                 six for c4); mode persist through the pool graph and
+                 the host loop (c4 at PERSIST_SPP, c4 at 1 spp, whose
+                 ragged last pool has fewer slots and so a second graph,
+                 g2 with 2,048-slot pools), each rendered twice through
+                 the cached graphs: films within film_bound (float
+                 atomics), rays, iterations and occupancy equal, a
+                 graph a pool capacity, a parent of the load,
+                 one WHILE node and the commit, a body of four kernel
+                 nodes and no memset; then frame_graph.cu's kernels
+                 against their plain versions, on no render path, timed
+                 with their bound
   9. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
  10. c1-primary — 640x480 at 1 spp (its own size and spp), then through
@@ -143,19 +161,22 @@ exits non-zero and prints no result):
                  (cudaLaunchKernel, cudaGraphLaunch) per spp, the port's
                  kernels as the profiler saw them beside the counted
                  launches, the search kernel's device time per launch;
-                 c3 must stay under 64 CUDA launches per spp, c2 under
-                 66, c4 in mode wavefront under 194 and in mode persist
-                 under 171 (MAX_LAUNCHES_PER_SPP), and c3's and c2's
-                 mega renders and c4's wavefront render may copy to the
-                 host at most twice a render call, the tally and the
-                 film (MAX_DTOH_PER_RENDER)
+                 c3 must stay under 62 CUDA launches per spp, c2 under
+                 64, c4 in mode wavefront under 190 and in mode persist
+                 under 125 (MAX_LAUNCHES_PER_SPP), and c3's and c2's
+                 mega renders, c4's wavefront render and c4's persist
+                 render may copy to the host at most twice a render
+                 call, the tally (the pools' counts) and the film
+                 (MAX_DTOH_PER_RENDER)
 The probe (in phase 4) and phases 9-17 are the main paths, each with the
 launch counts reset just before it and read just after (a mega render's
 kernels run as frame-graph nodes, counted by execution); every render
-path must launch its search kernel, the three fused kernels and its
-mode's kernels (the film fold and frame_graph in mode mega;
-packet_compact and frame_graph in mode wavefront, persist_refill in
-mode persist), and the renders of phases 9 and 11-15 must cast
+path must launch its search kernel and its mode's kernels (the three
+fused kernels and the film fold in mode mega, and packet_compact in
+mode wavefront; in mode persist prims_nearest, bounce_shade and
+persist_refill: the pool graph's load, which makes the primary rays
+with the camera kernel's code, refills and commit), and the renders of
+phases 9 and 11-15 must cast
 PHASE_RAYS exactly. Then
 the card's nvidia-smi line, the kernel table as one JSON object (all
 twelve kernels, each with its launches by path, its bound and its
@@ -200,20 +221,24 @@ PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
               "c4-wavefront": 9_571_880, "c4-persist": 9_571_880,
               "c5-tiles": 19_143_284, "c5-spp": 19_143_284}
 # CUDA launches per spp, under: c3's and c2's in mode mega (per batch:
-# the camera, three kernels a bounce, the fold and the cursor step, the
-# loop's condition inside the camera and the bounce, no memset kernel;
-# with the condition and the counter's memset as kernels of their own
-# they made 98 and 82), c4's in mode wavefront (the wave graph: per
-# batch the camera, three kernels a bounce, one compaction a stage of
-# six, the fold and the cursor step; the host loop made 240) and in mode
-# persist (also one refill kernel a pool iteration; the two-kernel
-# version made 171)
-MAX_LAUNCHES_PER_SPP = {"c3-mesh": 64, "c2-cornell": 66,
-                        "c4-wavefront": 194, "c4-persist": 171}
+# the camera, three kernels a bounce and the fold, whose last block
+# steps the cursor; the loop's condition inside the camera and the
+# bounce, no memset kernel; with the cursor step as a kernel of its own
+# they made 63 and 63, with the condition and the counter's memset too
+# 98 and 82), c4's in mode wavefront (the wave graph: per batch the
+# camera, three kernels a bounce, one compaction a stage of six and the
+# fold; with the cursor step 193, the host loop made 240) and in mode
+# persist (the pool graph: per pool the load and the commit, per
+# iteration three kernels a bounce and the refill, 116 a spp at 2 spp;
+# the host loop made 145)
+MAX_LAUNCHES_PER_SPP = {"c3-mesh": 62, "c2-cornell": 64,
+                        "c4-wavefront": 190, "c4-persist": 125}
 # copies to the host in one render call through the CLI, at most: the
-# tally (rays, bounces, the wavefront's live history) and the film (the
-# frame graph and the wave graph read nothing between)
-MAX_DTOH_PER_RENDER = {"c3-mesh": 2, "c2-cornell": 2, "c4-wavefront": 2}
+# tally (rays, bounces, the wavefront's live history; in mode persist
+# each pool's rays and iterations) and the film (the frame, wave and
+# pool graphs read nothing between)
+MAX_DTOH_PER_RENDER = {"c3-mesh": 2, "c2-cornell": 2, "c4-wavefront": 2,
+                       "c4-persist": 2}
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -1808,34 +1833,108 @@ def check_refill_pools(dev) -> dict:
     return out
 
 
+def cursor_of(frame):
+    """The refill.Cursor (on a fresh frame state at p0 0, s0 sample_lo)
+    that reads a host Frame's chunk on the device: its pixel table as a
+    one-pool pixel list, c = total / npix_chunk samples, the view of its
+    camera, frame size and seed."""
+    import torch
+    from tpurt_torch.kernels import camera, loop_ctl, refill
+    table = frame.pixel_table
+    m = table.shape[0]
+    if frame.total % m:
+        raise AssertionError(f"refill: a chunk of {frame.total} rays over "
+                             f"{m} pixels")
+    st = torch.zeros(loop_ctl.STATE_SLOTS, dtype=torch.int64,
+                     device=table.device)
+    st[loop_ctl.S0] = frame.sample_lo
+    view = torch.tensor(camera.view_words(frame.cam, frame.width,
+                                          frame.height, frame.seed),
+                        dtype=torch.int32, device=table.device)
+    return refill.Cursor(st, view, table, m, m, frame.total // m,
+                         frame.max_depth)
+
+
 def time_refill(frame, before, scan):
-    """persist_refill's kernel and plain version on the state ``before``,
-    restored before each call (time_ms's setup, followed by the L2
-    flush, so that the call meets neither the restored state in L2 nor
-    its dirty lines; the scan state goes on from the render's steps):
-    the kernel's device time is its kernel's (persist_refill_kernel) in
+    """persist_refill's kernel and plain version on the state ``before``
+    (a host-loop refill's inputs), restored before each call (time_ms's
+    setup, followed by the L2 flush, so that the call meets neither the
+    restored state in L2 nor its dirty lines; the scan state goes on
+    from the render's steps): the pool graph's entry (the chunk read at
+    the cursor, cursor_of(frame), the pool's condition in its last
+    block), first checked against its plain version (the pool, counter
+    and state word for word, the film within film_bound), and the host
+    loop's (the Frame given by the host, a live count) in "host_loop".
+    A kernel's device time is its kernel's (persist_refill_kernel) in
     the profile; the plain version's is its call's device time less the
     restore's (its event time spans the call alone)."""
-    from tpurt_torch.kernels import refill
+    import torch
+    from tpurt_torch.kernels import loop_ctl, refill
+    q = cursor_of(frame)
+    st0 = q.state.clone()
+    dev = st0.device
+
+    def loop():
+        return loop_ctl.Loop(q.state, frame.max_depth, None, torch.full(
+            (1,), DIRTY_COUNTER, dtype=torch.int32, device=dev), pool=True)
+
+    got = {}
+    for plain in (False, True):
+        state = [t.clone() for t in before[:-1]]
+        q.state.copy_(st0)
+        lp = loop()
+        if plain:
+            refill.persist_refill_plain(q, *state, loop=lp)
+        else:
+            refill.persist_refill(q, *state, None, *scan, loop=lp)
+        got[plain] = (state, q.state.clone(), lp.counter)
+    names = ("o", "d", "atten", "rad", "alive", "live_hit", "depth", "pix",
+             "streams", "counter")
+    for name, g, w in zip((*names, "state"),
+                          (*got[False][0][1:], got[False][1]),
+                          (*got[True][0][1:], got[True][1])):
+        if not same_values(g, w)[0]:
+            raise AssertionError(f"refill at the cursor: {name} differs from "
+                                 "the plain version")
+    diff = (got[False][0][0] - got[True][0][0]).abs()
+    if not bool((diff <= film_bound(before[0], before[8],
+                                    before[4])).all()) \
+            or int(got[False][2]) != 0:
+        raise AssertionError("refill at the cursor: the film is over "
+                             "film_bound or traverse's counter is not 0")
     work_state = tuple(t.clone() for t in before)
+    lp = loop()
 
     def restore():
         for w, b in zip(work_state, before):
             w.copy_(b)
+        q.state.copy_(st0)
 
-    k = time_ms(lambda: refill.persist_refill(frame, *work_state, *scan),
-                20, keep=lambda key: "refill_" in key, setup=restore)
-    p = time_ms(lambda: refill.persist_refill_plain(frame, *work_state), 5,
-                setup=restore)
+    key = lambda k: "refill_" in k  # noqa: E731
+    k = time_ms(lambda: refill.persist_refill(q, *work_state[:-1], None,
+                                              *scan, loop=lp),
+                20, keep=key, setup=restore)
+    h = time_ms(lambda: refill.persist_refill(frame, *work_state, *scan),
+                20, keep=key, setup=restore)
+    p = time_ms(lambda: refill.persist_refill_plain(q, *work_state[:-1],
+                                                    loop=lp),
+                5, setup=restore)
     r = time_ms(restore, 20)
     plain_dev = p["device"] is not None and r["device"] is not None
-    return {"ms": k["device"] if k["device"] is not None else k["wall"],
+
+    def ms(t):
+        return t["device"] if t["device"] is not None else t["wall"]
+
+    return {"ms": ms(k),
             "plain_ms": (p["device"] - r["device"]) if plain_dev
             else p["wall"],
             "wall_ms": k["wall"], "plain_wall_ms": p["wall"],
             "by_kernel_ms": k["by_kernel"],
             "launches_per_call": k["launches_per_call"],
-            "timer": "profiler" if k["device"] is not None else "events"}
+            "timer": "profiler" if k["device"] is not None else "events",
+            "film_max_abs_err": float(diff.max()),
+            "host_loop": {"ms": ms(h), "wall_ms": h["wall"],
+                          "by_kernel_ms": h["by_kernel"]}}
 
 
 def phase_frame(dev):
@@ -1844,9 +1943,13 @@ def phase_frame(dev):
     frame_cases renders checked against its plain version (FrameCheck),
     and every bounce_shade call's survivor and live-packet counts with
     the fused kernels (FusedCheck); both persist renders must regenerate,
-    and c4 in mode persist must cast PHASE_RAYS["c4-persist"]. Then each
-    kernel and its plain version timed on the kept inputs (c3's first
-    fold, c4's first shrink, c4 persist's largest refill), each with its
+    and c4 in mode persist must cast PHASE_RAYS["c4-persist"]; the
+    renders run the host loops, whose every call a wrapper sees. Then
+    the wave graph's entries (check_wave_entries) and the pool graph's
+    (check_pool_entries) on c4 traffic. Then each kernel and its plain
+    version timed on the kept inputs (c3's first fold at the cursor with
+    its step, c4's first shrink; the host loop's largest refill at the
+    cursor with the pool's loop, beside the host loop's entry), each with its
     bound, and film_fold beside FOLD_LIBRARY. Returns the kernels'
     rows."""
     import torch
@@ -1900,6 +2003,7 @@ def phase_frame(dev):
         kept_fused["camera_rays"][0], kept_fused["bounce_shade"][0],
         kept["packet_compact"], config.PRESETS["c4-wavefront"].max_depth)
     emit("frame", case="wave_entries", check="array_equal", **wave)
+    pool = check_pool_entries(dev)
     _build.reset_launches()
 
     def checked(name):
@@ -1914,7 +2018,8 @@ def phase_frame(dev):
                      lambda: fold_k.film_fold_plain(acc_p, rad, c, block),
                      50, 20)
     rows["film_fold"] = {
-        "shape": f"c3 batch 0 at the cursor, c={c}, block={block}",
+        "shape": f"c3 batch 0 at the cursor with the cursor's step in its "
+                 f"last block, c={c}, block={block}",
         **bound(nbytes(rad, acc, acc), work((3 * m * c, {"add_mul": 1}))),
         **check_fold_cursor(acc, rad, c, block),
         "row_extra": {"checked_calls": checked("film_fold"),
@@ -1925,6 +2030,8 @@ def phase_frame(dev):
     lib = time_ms(lambda: acc_l.add_(rad.view(c, block, 3).sum(0)), 50)
     rows["film_fold"]["library_ms"] = (lib["device"] if lib["device"]
                                        is not None else lib["wall"])
+    for k in ("without_step_ms", "step_cases"):
+        rows["film_fold"]["row_extra"][k] = rows["film_fold"].pop(k)
 
     q, rad_out, keep, *flags = kept["packet_compact"]
     n, kr = q.o.shape[0], keep * compact.PACKET_R
@@ -1958,14 +2065,26 @@ def phase_frame(dev):
     # every slot: live_hit, alive, depth read, alive written; a slot that
     # hit: its depth written; a refilled slot: its pix, radiance, pixel
     # table entry and film row read, its film row, o, d, atten, rad, pix,
-    # streams and depth written
+    # streams and depth written. The row times the entry the pool graph
+    # runs (at the cursor, the pool's condition in its last block) on the
+    # host loop's largest refill, and the host loop's entry on it in
+    # row_extra
     rows["persist_refill"] = {
-        "shape": f"c4 persist, {cap} slots, {refills} refilled",
+        "shape": f"c4 persist, the host loop's largest refill at the "
+                 f"cursor with the pool's loop: {cap} slots, {refills} "
+                 "refilled",
         **bound(cap * (1 + 1 + 8 + 1) + hits * 8
                 + refills * (8 + 12 + 8 + 12 + 12 + 48 + 8 + 24 + 8),
                 work((refills, CAMERA_RAY_OPS))),
-        **refill_times,
-        "row_extra": {"checked_calls": checked("persist_refill"),
+        **{k: v for k, v in refill_times.items()
+           if k not in ("host_loop", "film_max_abs_err")},
+        "row_extra": {"host_loop_entry": refill_times["host_loop"],
+                      "pool_first_refill": {
+                          k: pool["refill"][k] for k in (
+                              "shape", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "by_kernel_ms")},
+                      "load": pool["load"], "commit": pool["commit"],
+                      "checked_calls": checked("persist_refill"),
                       "pool_checks": pools,
                       "commit_calls": checked("persist_commit"),
                       "refills_by_case": {lab: st.get("persist_refill", {})
@@ -1976,10 +2095,13 @@ def phase_frame(dev):
                           for st in cases.values()
                           for k in ("persist_refill", "persist_commit"))}}
     for name, row in rows.items():
-        film_err = max((st.get(k, {}).get("film_max_abs_err", 0.0)
+        film_err = max([st.get(k, {}).get("film_max_abs_err", 0.0)
                         for st in cases.values()
-                        for k in ("persist_refill", "persist_commit")),
-                       default=0.0) if name == "persist_refill" else 0.0
+                        for k in ("persist_refill", "persist_commit")]
+                       + [pool[k]["film_max_abs_err"]
+                          for k in ("refill", "commit")]
+                       + [refill_times["film_max_abs_err"]]) \
+            if name == "persist_refill" else 0.0
         row.update(max_abs_err=film_err,
                    check="array_equal" + (", film within film_bound"
                                           if name == "persist_refill"
@@ -1994,33 +2116,77 @@ def phase_frame(dev):
 
 
 def check_fold_cursor(acc, rad, c, block) -> dict:
-    """The frame graph's fold (film_fold at the state's cursor) against
-    its plain version, array-equal: at p0 0 of a film of block rows (c3's
-    first batch, timed), at the ragged last block of a film of 2.5
-    blocks, and into a part at row 0 without the state (the
-    sample-sharded render's). Returns the kernel's and the plain
-    version's times on the first."""
+    """The graphs' fold (film_fold at the state's cursor, its last block
+    stepping the cursor) against its plain version: the film array-equal
+    and the state word for word frame_advance_plain's, at p0 0 of a film
+    of block rows (c3's first batch, timed), at the ragged last block of
+    a film of 2.5 blocks (the cursor wraps to the next chunk), and into a
+    part at row 0 without the state (the sample-sharded render's), which
+    steps the state all the same. Returns the kernel's and the plain
+    version's times on the first with the step, and the kernel's without
+    it (the fold before the step moved into it)."""
     import torch
     from tpurt_torch.kernels import film_fold as fold_k, frame_graph
-    state = torch.zeros(frame_graph.STATE_SLOTS, dtype=torch.int64,
-                        device=acc.device)
     gen = torch.Generator(device=acc.device).manual_seed(5)
     big = torch.randn((block * 5 // 2, 3), generator=gen, device=acc.device)
-    for film, p0, at in ((acc, 0, True), (big, 2 * block, True),
-                         (acc, 0, False)):
-        state[frame_graph.P0] = p0
-        st = state if at else None
-        got = fold_k.film_fold(film.clone(), rad, c, block, st)
-        want = fold_k.film_fold_plain(film.clone(), rad, c, block, st)
-        ok, _, err = same_values(got, want)
-        if not ok:
-            raise AssertionError(f"fold cursor at {p0} ({at}): differs from "
-                                 f"the plain version (max |diff| {err})")
-    state[frame_graph.P0] = 0
+
+    def state(p0):
+        st = torch.zeros(frame_graph.STATE_SLOTS, dtype=torch.int64,
+                         device=acc.device)
+        st[frame_graph.P0], st[frame_graph.S0] = p0, 4
+        st[frame_graph.RAYS], st[frame_graph.ITERS] = 12345, 17
+        st[frame_graph.DEPTH], st[frame_graph.K] = 3, 4
+        frame_graph.live_word(st).fill_(9)
+        return st
+
+    cases = 0
+    # (film, the cursor's p0, fold at the state, the padded list's rows)
+    for film, p0, at, n_pad in ((acc, 0, True, block),
+                                (big, 0, True, 3 * block),
+                                (big, 2 * block, True, 3 * block),
+                                (acc, 0, False, 3 * block),
+                                (acc, 2 * block, False, 3 * block)):
+        for step in (False, True):
+            st, st_p = state(p0), state(p0)
+            got = fold_k.film_fold(
+                film.clone(), rad, c, block, st if at else None,
+                step=st if step else None, n_pad=n_pad)
+            want = fold_k.film_fold_plain(film.clone(), rad, c, block,
+                                          st_p if at else None)
+            if step:
+                frame_graph.frame_advance_plain(st_p, block, n_pad, c)
+            ok, _, err = same_values(got, want)
+            if not ok or not torch.equal(st, st_p):
+                raise AssertionError(
+                    f"fold cursor at {p0} (at the state {at}, step "
+                    f"{step}): differs from the plain version (max |diff| "
+                    f"{err}; state {st.tolist()} against {st_p.tolist()})")
+            cases += 1
+    start = state(0)
+    st, st_p = start.clone(), start.clone()
     acc_k, acc_p = acc.clone(), acc.clone()
-    return timed(lambda: fold_k.film_fold(acc_k, rad, c, block, state),
-                 lambda: fold_k.film_fold_plain(acc_p, rad, c, block, state),
-                 50, 20)
+    n_pad = 2 * block
+
+    def fold():
+        fold_k.film_fold(acc_k, rad, c, block, st, step=st, n_pad=n_pad)
+
+    def plain():
+        fold_k.film_fold_plain(acc_p, rad, c, block, st_p, step=st_p,
+                               n_pad=n_pad)
+
+    k = time_ms(fold, 50, keep=lambda key: "film_fold" in key,
+                setup=lambda: st.copy_(start))
+    p = time_ms(plain, 20, setup=lambda: st_p.copy_(start))
+    alone = time_ms(lambda: fold_k.film_fold(acc_k, rad, c, block, start),
+                    50)
+    return {"ms": k["device"] if k["device"] is not None else k["wall"],
+            "plain_ms": p["device"] if p["device"] is not None
+            else p["wall"], "wall_ms": k["wall"],
+            "plain_wall_ms": p["wall"], "by_kernel_ms": k["by_kernel"],
+            "launches_per_call": k["launches_per_call"],
+            "timer": "profiler" if k["device"] is not None else "events",
+            "without_step_ms": alone["device"] if alone["device"]
+            is not None else alone["wall"], "step_cases": cases}
 
 
 def check_permuted_slot(q, rad_out, keep, flags) -> dict:
@@ -2276,6 +2442,218 @@ def check_wave_entries(cam_args, bounce_args, compact_args,
     return out
 
 
+def check_pool_entries(dev, cfg=None) -> dict:
+    """The pool graph's entries on c4 persist's own traffic (PERSIST_SPP
+    samples, pools of the main path's slots), each launched alone (no
+    graph) with the pool's loop and held against its plain version on
+    clones of the same inputs: the load at the cursor of the first pool
+    and of the ragged last one; after one bounce of the first pool (the
+    fused kernels), persist_refill at the cursor with the pool's loop;
+    and the commit with the end of the pool. The pools, counters,
+    records and states must be array-equal (word for word), the film
+    that the refill and the commit add into with atomics within
+    film_bound, and traverse's ray counter zeroed. Then each is timed
+    with its bound, the commit with the end against the commit alone.
+    Returns the rows "load", "refill" and "commit". cfg: another
+    persist config to take the traffic of (the CPU tests' small one)."""
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch import scene as scene_mod
+    from tpurt_torch.kernels import bounce, camera, loop_ctl, prims, refill
+    from tpurt_torch.kernels.frame_graph import search
+    if cfg is None:
+        cfg = config.PRESETS["c4-wavefront"].replace(spp=PERSIST_SPP,
+                                                     mode="persist")
+    scene, cam = config.build_scene(cfg)
+    dscene = scene_mod.to_device(scene, dev)
+    npix = cfg.width * cfg.height
+    block = render.block_size(npix, cfg.ray_batch)
+    cap = render.pool_capacity(block, cfg.spp, cfg.ray_batch)
+    pix, _, _ = render.order_cached(cfg.width, cfg.height, block, dev)
+    n_pad = pix.shape[0]
+    view = torch.tensor(camera.view_words(cam, cfg.width, cfg.height,
+                                          cfg.seed), dtype=torch.int32,
+                        device=dev)
+    i64 = torch.int64
+    names = ("o", "d", "atten", "rad", "alive", "depth", "pix", "streams")
+
+    def cursor(p0):
+        st = torch.zeros(loop_ctl.STATE_SLOTS, dtype=i64, device=dev)
+        st[loop_ctl.P0] = p0
+        return refill.Cursor(st, view, pix, npix, block, cfg.spp,
+                             cfg.max_depth)
+
+    def loop(st):
+        return loop_ctl.Loop(st, cfg.max_depth, None, torch.full(
+            (1,), DIRTY_COUNTER, dtype=torch.int32, device=dev), pool=True)
+
+    def same(what, got, want):
+        ok, _, err = same_values(got, want)
+        if not ok:
+            raise AssertionError(f"pool entries: {what} differs from the "
+                                 f"plain version (max |diff| {err})")
+
+    def ms(t):
+        return t["device"] if t["device"] is not None else t["wall"]
+
+    out, pools = {}, {}
+    for p0 in (0, (npix - 1) // block * block):
+        cur = cursor(p0)
+        got = {}
+        for plain in (False, True):
+            st = cur.state.clone()
+            lp = loop(st)
+            bufs = [torch.empty((cap, 3), device=dev) for _ in range(4)] + [
+                torch.empty(cap, dtype=torch.bool, device=dev),
+                torch.full((cap,), 7, dtype=i64, device=dev),
+                torch.empty(cap, dtype=i64, device=dev),
+                torch.empty((3, cap), dtype=i64, device=dev)]
+            counter = torch.zeros(1, dtype=i64, device=dev)
+            (refill.persist_load_plain if plain else refill.persist_load)(
+                cur._replace(state=st), *bufs, counter, loop=lp)
+            got[plain] = (*bufs, counter, st, lp.counter)
+        for name, g, w in zip((*names, "counter", "state"), got[False],
+                              got[True]):
+            same(f"the load at p0 {p0}: {name}", g, w)
+        if int(got[False][-1]) != 0:
+            raise AssertionError("pool entries: the load left traverse's "
+                                 "ray counter at "
+                                 f"{int(got[False][-1])}")
+        pools[p0] = (cur, got[False])
+    # the load, timed at the first pool
+    cur, (*bufs, counter, st, _) = pools[0]
+    start = st.clone()
+    lp = loop(st)
+    t_load = time_ms(lambda: refill.persist_load(cur._replace(state=st),
+                                                 *bufs, counter, loop=lp),
+                     20, keep=lambda k: "persist_load_kernel" in k,
+                     setup=lambda: st.copy_(start))
+    t_load_plain = time_ms(
+        lambda: refill.persist_load_plain(cur._replace(state=st), *bufs,
+                                          counter, loop=lp),
+        5, setup=lambda: st.copy_(start))
+    st.copy_(start)
+    live = int(start[loop_ctl.RAYS])
+    out["load"] = {
+        "shape": f"c4 persist, the first pool's load: {cap} slots, {live} "
+                 "live, the first condition in its last block",
+        **bound(cap * (48 + 8 + 24 + 8 + 1) + live * 8 + 4 * 21 + 16,
+                work((cap, CAMERA_RAY_OPS))),
+        "ms": ms(t_load),
+        "plain_ms": ms(t_load_plain), "by_kernel_ms": t_load["by_kernel"],
+        "launches_per_call": t_load["launches_per_call"],
+        "pools_checked": len(pools)}
+    # one bounce of the first pool, then its first refill
+    o, d, atten, rad, alive, depth, ppix, streams = bufs
+    prim = prims.prims_nearest(dscene, o, d, alive=alive)
+    tri = search(dscene, o, d, prim[0])
+    live_hit = torch.empty(cap, dtype=torch.bool, device=dev)
+    bounce.bounce_shade(dscene, o, d, atten, rad, alive, streams, depth,
+                        cfg.rr_start, prim, tri,
+                        out=(o, d, atten, rad, alive, live_hit))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    film = torch.rand((npix, 3), generator=gen, device=dev)
+    before = (film, o, d, atten, rad, alive, live_hit, depth, ppix, streams,
+              counter, st)
+    before = tuple(t.clone() for t in before)
+    scan = refill.scan_state(cap, dev)
+    got = {}
+    for plain in (False, True):
+        state = [t.clone() for t in before]
+        lp = loop(state[-1])
+        if plain:
+            refill.persist_refill_plain(cur._replace(state=state[-1]),
+                                        *state[:-1], loop=lp)
+        else:
+            refill.persist_refill(cur._replace(state=state[-1]),
+                                  *state[:-1], scan=scan, loop=lp)
+        got[plain] = (state, lp.counter)
+    fields = ("film", *names[:5], "live_hit", *names[5:], "counter",
+              "state")
+    for name, g, w in zip(fields[1:], got[False][0][1:], got[True][0][1:]):
+        same(f"the refill with the pool's loop: {name}", g, w)
+    diff = (got[False][0][0] - got[True][0][0]).abs()
+    tol = film_bound(before[0], before[8], before[4])
+    if not bool((diff <= tol).all()) or int(got[False][1]) != 0:
+        raise AssertionError("pool entries: the refill's film is off by "
+                             f"{float(diff.max())} (film_bound), or "
+                             "traverse's ray counter is not 0")
+    refills = int(got[True][0][10]) - int(before[10])
+    work_state = [t.clone() for t in before]
+
+    def restore():
+        for w, b in zip(work_state, before):
+            w.copy_(b)
+
+    wcur = cur._replace(state=work_state[-1])
+    wlp = loop(work_state[-1])
+    key = lambda k: "refill_" in k  # noqa: E731
+    t_loop = time_ms(lambda: refill.persist_refill(
+        wcur, *work_state[:-1], scan=scan, loop=wlp), 20, keep=key,
+        setup=restore)
+    t_plain = time_ms(lambda: refill.persist_refill_plain(
+        wcur, *work_state[:-1], loop=wlp), 5, setup=restore)
+    t_restore = time_ms(restore, 10)
+    hits = int(before[6].sum())
+    out["refill"] = {
+        "shape": f"c4 persist, the first pool's first refill at the cursor "
+                 f"with the pool's loop: {cap} slots, {refills} refilled",
+        **bound(cap * (1 + 1 + 8 + 1) + hits * 8
+                + refills * (8 + 12 + 8 + 12 + 12 + 48 + 8 + 24 + 8),
+                work((refills, CAMERA_RAY_OPS))),
+        "ms": ms(t_loop),
+        "plain_ms": ms(t_plain) - ms(t_restore),
+        "by_kernel_ms": t_loop["by_kernel"],
+        "launches_per_call": t_loop["launches_per_call"],
+        "film_max_abs_err": float(diff.max()),
+        "film_max_share_of_bound": float(torch.where(
+            tol > 0, diff / tol, 0.0).max())}
+    # the commit with the end of the pool, on the refilled pool
+    state_k = got[False][0]
+    film0, cpix, crad = state_k[0], state_k[8], state_k[4]
+    st0 = state_k[-1]
+    got = {}
+    for plain in (False, True):
+        f, st = film0.clone(), st0.clone()
+        rec = torch.zeros((n_pad // block, 2), dtype=i64, device=dev)
+        end = refill.PoolEnd(st, rec, block, n_pad, cfg.spp)
+        (refill.persist_commit_plain if plain else refill.persist_commit)(
+            f, cpix, crad, end)
+        got[plain] = (f, st, rec)
+    for name, g, w in zip(("state", "record"), got[False][1:],
+                          got[True][1:]):
+        same(f"the commit with the end of the pool: {name}", g, w)
+    cdiff = (got[False][0] - got[True][0]).abs()
+    ctol = film_bound(film0, cpix, crad)
+    if not bool((cdiff <= ctol).all()):
+        raise AssertionError("pool entries: the commit's film is off by "
+                             f"{float(cdiff.max())}, over film_bound")
+    f, st = film0.clone(), st0.clone()
+    rec = torch.zeros((n_pad // block, 2), dtype=i64, device=dev)
+    end = refill.PoolEnd(st, rec, block, n_pad, cfg.spp)
+    key = lambda k: "film_commit_kernel" in k  # noqa: E731
+    t_end = time_ms(lambda: refill.persist_commit(f, cpix, crad, end), 20,
+                    keep=key, setup=lambda: st.copy_(st0))
+    t_alone = time_ms(lambda: refill.persist_commit(f, cpix, crad), 20,
+                      keep=key)
+    t_cplain = time_ms(lambda: refill.persist_commit_plain(f, cpix, crad,
+                                                           end), 5,
+                       setup=lambda: st.copy_(st0))
+    touched = int(torch.unique(cpix).numel())
+    out["commit"] = {
+        "shape": f"c4 persist, the first pool's slots after one refill "
+                 f"({cap}; {touched} pixels), with the end of the pool",
+        **bound(cap * (8 + 12) + touched * 24 + 2 * 8 * 9,
+                work((3 * cap, {"add_mul": 1}))),
+        "ms": ms(t_end), "without_end_ms": ms(t_alone),
+        "plain_ms": ms(t_cplain), "by_kernel_ms": t_end["by_kernel"],
+        "launches_per_call": t_end["launches_per_call"],
+        "film_max_abs_err": float(cdiff.max())}
+    emit("frame", case="pool_entries", check="array_equal (film: "
+         "film_bound)", **out)
+    return out
+
+
 GOLDENS = {
     "g1-primary": dict(width=64, height=48, spp=2, seed=11,
                        scene="spheres_plane", mode="primary"),
@@ -2338,39 +2716,44 @@ def phase_goldens(dev):
             if stats["rays"] != rays[name]:
                 raise AssertionError(f"{name} ({mode}): {stats['rays']} rays, "
                                      f"the megakernel cast {rays[name]}")
-            for kernel in (search_kernel(cfg), *FUSED, *mode_kernels(mode)):
+            for kernel in (search_kernel(cfg), *mode_kernels(mode)):
                 if launches[kernel] == 0:
                     raise AssertionError(f"{name} ({mode}): {kernel} never "
                                          "launched")
     return rays
 
 
-# kernels a render launches besides its search and the fused kernels,
-# by mode: the film fold, and the queue's or the pool's kernel (the pool
-# adds into the film itself), or the frame graph's loop control
-MODE_KERNELS = {"wavefront": ("film_fold", "packet_compact", "frame_graph"),
-                "persist": ("persist_refill",),
-                "primary": ("film_fold",)}
+# kernels a render launches besides its search, by mode: the fused
+# kernels, the film fold (whose last block steps a graph's cursor), and
+# the queue's or the pool's kernel (the pool adds into the film itself;
+# its load, persist_refill.cu's, makes the primary rays with the camera
+# kernel's code, so the pool graph launches no camera_rays)
+MODE_KERNELS = {"wavefront": (*FUSED, "film_fold", "packet_compact"),
+                "persist": ("prims_nearest", "bounce_shade",
+                            "persist_refill"),
+                "primary": (*FUSED, "film_fold")}
 
 
 def mode_kernels(mode: str) -> tuple:
-    """The kernels a render of ``mode`` launches besides its search and
-    the three fused kernels: the film fold and the frame graph's cursor
-    step in mode mega; with them the compaction in mode wavefront (the
-    wave graph)."""
-    return MODE_KERNELS.get(mode, ("film_fold", "frame_graph"))
+    """The kernels a render of ``mode`` launches besides its search: the
+    three fused kernels and the film fold (with the cursor's step in its
+    last block) in mode mega; with them the compaction in mode wavefront
+    (the wave graph); in mode persist the pool graph's: the bounce's two
+    and persist_refill (the load, refills and commit)."""
+    return MODE_KERNELS.get(mode, (*FUSED, "film_fold"))
 
 
-def check_film(label, img, shape, launches, kernel, extra=("film_fold",)):
+def check_film(label, img, shape, launches, kernel,
+               extra=mode_kernels("mega")):
     """A finite film of the expected shape, a plausible mean radiance,
-    and ``kernel``, the three fused kernels and ``extra`` launched."""
+    and ``kernel`` and ``extra`` (the mode's kernels) launched."""
     import numpy as np
     if tuple(img.shape) != shape or not np.isfinite(img).all():
         raise AssertionError(f"{label}: bad film {img.shape}")
     if not 0.05 < float(img.mean()) < 1.5:
         raise AssertionError(f"{label}: implausible mean radiance "
                              f"{img.mean()}")
-    for k in (kernel, *FUSED, *extra):
+    for k in (kernel, *extra):
         if launches[k] == 0:
             raise AssertionError(f"{label}: {k} never launched")
 
@@ -2612,11 +2995,12 @@ def check_frame_kernels(dev) -> dict:
     stepping inside the pixel list and wrapping to the next chunk, and
     zeroing the batch slots. Then both timed (the state restored before
     each call): the row's time, with its bound (FRAME_STATE_BYTES; a few
-    integer operations), is the cursor step's, the graph's last node; no
-    render launches the condition kernel, since the graph runs
-    the same step in the last block of camera_rays_cursor and
-    bounce_shade (the fused phase's loop_step). Returns the kernel's
-    row."""
+    integer operations), is the cursor step's. No render launches either
+    kernel: a graph runs the condition in the last block of
+    camera_rays_cursor and bounce_shade (the fused phase's loop_step)
+    and the cursor's step in the last block of film_fold (the frame
+    phase's fold with its step) or of the pool's commit. Returns the
+    kernel's row."""
     import torch
     from tpurt_torch.kernels import frame_graph as fg
     slots = fg.STATE_SLOTS
@@ -2646,8 +3030,9 @@ def check_frame_kernels(dev) -> dict:
     start = state(k=2, live=5)
     st, st_p = start.clone(), start.clone()
     row = {"shape": f"one state of {slots} int64 slots: the cursor step "
-                    "(the graph's last node); the condition alone in "
-                    "row_extra (on no render path)",
+                    "alone (0 own launches: it runs in the last block of "
+                    "film_fold and of the pool's commit); the condition "
+                    "alone in row_extra (on no render path)",
            **bound(FRAME_STATE_BYTES, {"cmp_minmax": 8}),
            "max_abs_err": 0.0, "check": "array_equal"}
     k = time_ms(lambda: fg.frame_cond(st, 8), 50,
@@ -2728,10 +3113,12 @@ def phase_graph(dev, golden_rays):
     execution (the fixed nodes at each launch, the bounces from the
     device counter), must equal the host loop's for every kernel both
     run (but the compaction, which the wave graph runs once a stage of
-    tpurt's ladder: six a batch for c4), and frame_graph's must be one a
-    batch (the advance: the loop's condition runs inside the camera and
-    the bounce), and every cached graph's nodes must be the graph's
-    shape (check_node_counts). Capture and instantiate
+    tpurt's ladder: six a batch for c4), the fold one a batch and
+    frame_graph's none (the fold's last block steps the cursor, and the
+    loop's condition runs inside the camera and the bounce), and every
+    cached graph's nodes must be the graph's shape (check_node_counts).
+    Mode persist runs through the pool graph against the host loop
+    (check_pool_renders). Capture and instantiate
     seconds are reported apart from the walls. Then one scene's graphs
     under another camera and seed (check_graph_views), the entry point's
     twin (tpurt_torch.entry) on the card: its radiance array-equal to the
@@ -2801,11 +3188,13 @@ def phase_graph(dev, golden_rays):
                 raise AssertionError(f"graph ({label}): occupancy {occ}")
             # the wave graph shrinks along tpurt's ladder (one compaction
             # a stage, c4: six a batch), the host loop by powers of two
-            shared = [k for k, v in lh.items() if v and k != "frame_graph"
+            shared = [k for k, v in lh.items() if v
                       and not (wave and k == "packet_compact")]
             stages = lg["packet_compact"] / max(lg["camera_rays"], 1)
+            # the cursor steps in the fold's last block: no advance node
             if any(lg[k] != lh[k] for k in shared) or \
-                    lg["frame_graph"] != lg["camera_rays"] or \
+                    lg["film_fold"] != lg["camera_rays"] or \
+                    lg["frame_graph"] != 0 or \
                     (wave and stages < 1) or \
                     (label == "c4-wavefront" and stages != 6):
                 raise AssertionError(f"graph ({label}): launches by "
@@ -2814,9 +3203,11 @@ def phase_graph(dev, golden_rays):
             for k, v in lg.items():
                 total[k] = total.get(k, 0) + v
             check_node_counts(label, nodes)
+    check_pool_renders(dev, golden_rays, scenes, nodes, total)
     emit("graph", case="all", launches_by_execution=total,
          build=dict(frame_graph.BUILD_STATS), node_counts=nodes)
-    if set(nodes) != {f"{cls}/{k}" for cls in ("FrameGraph", "WaveGraph")
+    if set(nodes) != {f"{cls}/{k}" for cls in ("FrameGraph", "WaveGraph",
+                                               "PoolGraph")
                       for k in ("traverse_nearest", "nearest_tri_small")}:
         raise AssertionError(f"graph: node counts checked on {set(nodes)}")
     check_graph_views(dev, scenes)
@@ -2839,26 +3230,157 @@ def phase_graph(dev, golden_rays):
     return {"frame_graph": check_frame_kernels(dev)}
 
 
+def pool_cases(golden_rays) -> dict:
+    """The renders in mode persist that run through the pool graph and
+    the host loop in phase_graph: c4 at PERSIST_SPP (four pools of
+    524,288 slots, the last of 500,736 pixels), c4 at 1 spp (whose
+    ragged last pool has 500,736 slots: a second graph, which starts at
+    the cursor of the last pool) and g2 with 2,048-slot pools (each
+    regenerates). label -> (config, the rays it casts; None: the host
+    loop's)."""
+    from tpurt_torch import config
+    c4 = config.PRESETS["c4-wavefront"].replace(mode="persist")
+    return {
+        "c4-persist": (c4.replace(spp=PERSIST_SPP), PHASE_RAYS["c4-persist"]),
+        "c4-persist-1spp": (c4.replace(spp=1), None),
+        "g2-persist": (config.RenderConfig(**GOLDENS["g2-spheres-path"])
+                       .replace(mode="persist", ray_batch=2048),
+                       golden_rays["g2-spheres-path"]),
+    }
+
+
+def pool_film_bound(film_a, film_b, spp: int):
+    """film_bound of two renders of one persist config whose films differ
+    in the order of their float atomics: every ray commits its radiance
+    once, so each pixel gets spp rows (and a slot left dead past total
+    adds an exact 0), and radiance is nonnegative (the sky's colours,
+    emission and attenuation are), so the sum of the rows' magnitudes is
+    the film itself, to within spp roundings: spp * 2**-23 * the larger
+    film, by that much more."""
+    import torch
+    mag = torch.maximum(film_a, film_b)
+    return spp * EPS32 * mag * (1.0 + 2 * spp * EPS32)
+
+
+def check_pool_renders(dev, golden_rays, scenes, nodes, total) -> None:
+    """Mode persist through the pool graph and the host loop on the card
+    (pool_cases), through render_samples: the first graph render (which
+    captures) and a second one on the cached graphs, each film within
+    pool_film_bound of the host loop's (float atomics: the commits' order
+    is not fixed) and of each other, both films nonnegative (the bound's
+    premise); rays equal and the case's, each pool's iterations and
+    occupancy equal; one PoolGraph a pool capacity of the render (the
+    ragged last pool's, where it is smaller, a graph of its own);
+    launches by execution: the search and the fused
+    bounce kernels the host loop's, persist_refill one more a pool (the
+    load, which the host loop runs as camera_rays). Every cached graph's
+    nodes are checked (check_node_counts)."""
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch import scene as scene_mod
+    from tpurt_torch.kernels import _build, frame_graph
+    for label, (cfg, want) in pool_cases(golden_rays).items():
+        key = (cfg.scene, cfg.mesh_subdiv, cfg.width, cfg.height)
+        if key not in scenes:
+            scene, cam = config.build_scene(cfg)
+            scenes.clear()
+            scenes[key] = (scene_mod.to_device(scene, dev), cam)
+        dscene, cam = scenes[key]
+
+        def draw(host_loop):
+            sink = {}
+            t0 = time.perf_counter()
+            film, rays = render.render_samples(cfg, dscene, cam, 0, cfg.spp,
+                                               stats_sink=sink,
+                                               host_loop=host_loop)
+            torch.cuda.synchronize()
+            return film, rays, sink, time.perf_counter() - t0
+
+        built = dict(frame_graph.BUILD_STATS)
+        _build.reset_launches()
+        f_g, r_g, s_g, wall_g = draw(False)
+        lg = dict(_build.LAUNCHES)
+        built = {k: frame_graph.BUILD_STATS[k] - v for k, v in built.items()}
+        f_w, r_w, s_w, wall_w = draw(False)
+        _build.reset_launches()
+        f_h, r_h, s_h, wall_h = draw(True)
+        lh = dict(_build.LAUNCHES)
+        pools = len(s_h["persist_occupancy"])
+        errs = []
+        for f in (f_g, f_w):
+            diff = (f - f_h).abs()
+            tol = pool_film_bound(f, f_h, cfg.spp)
+            errs.append({"max_abs_err": float(diff.max()),
+                         "max_share_of_bound": float(torch.where(
+                             tol > 0, diff / tol, 0.0).max()),
+                         "within": bool((diff <= tol).all()),
+                         "elements_off": int((diff > 0).sum())})
+        nonneg = all(bool((f >= 0).all()) for f in (f_g, f_w, f_h))
+        emit("graph", case=label, how="pool graph", mode=cfg.mode,
+             spp=cfg.spp, rays=[r_g, r_w, r_h], expected_rays=want,
+             pools=pools, iterations=s_g["persist_iterations"],
+             occupancy=s_g["persist_occupancy"], films=errs,
+             films_nonnegative=nonneg, graphs_built=built["graphs"],
+             capture_s=built["capture_s"],
+             instantiate_s=built["instantiate_s"], graph_wall_first_s=wall_g,
+             graph_wall_s=wall_w, host_loop_wall_s=wall_h,
+             launches_by_execution=lg, host_loop_launches=lh)
+        if not nonneg or not all(e["within"] for e in errs):
+            raise AssertionError(f"graph ({label}): the pool graph's film is "
+                                 "not within film_bound of the host loop's")
+        if [r_g, r_w] != [r_h] * 2 or want not in (None, r_h):
+            raise AssertionError(f"graph ({label}): rays {[r_g, r_w, r_h]}, "
+                                 f"expected {want}")
+        npix = cfg.width * cfg.height
+        rb = render.effective_ray_batch(cfg, dscene)
+        block = render.block_size(npix, rb)
+        caps = [render.pool_capacity(min(block, npix - p0), cfg.spp, rb)
+                for p0 in range(0, npix, block)]
+        graphs = sorted(g.cap for g in frame_graph._CACHE.values()
+                        if type(g).__name__ == "PoolGraph" and g.n == npix
+                        and g.c == cfg.spp)
+        if graphs != sorted(set(caps)):
+            raise AssertionError(f"graph ({label}): pool graphs of "
+                                 f"{graphs} slots for pools of {caps}")
+        if not s_g == s_w == s_h:
+            raise AssertionError(f"graph ({label}): iterations or occupancy "
+                                 f"{s_g} against the host loop's {s_h}")
+        bounce = [k for k in ("prims_nearest", "bounce_shade",
+                              search_kernel(cfg))]
+        if any(lg[k] != lh[k] for k in bounce) or \
+                lg["persist_refill"] != lh["persist_refill"] + pools or \
+                lg["camera_rays"] != 0 or lh["camera_rays"] != pools:
+            raise AssertionError(f"graph ({label}): launches by execution "
+                                 f"{lg} against the host loop's {lh}")
+        for k, v in lg.items():
+            total[k] = total.get(k, 0) + v
+        check_node_counts(label, nodes)
+
+
 def check_node_counts(label, seen) -> None:
     """Every captured graph now cached, by its nodes as instantiated
-    (FrameGraph.node_counts). A frame graph's parent holds the camera,
-    the fold and the advance as kernel nodes, the WHILE node, and a
-    memset only when it folds into a part (sharded by spp); a wave
-    graph's parent holds also one compaction a stage and one WHILE node
-    a stage (c4's, with its 2**19-ray batches: six). Every WHILE body
-    holds three kernel nodes (prims_nearest, the search, bounce_shade)
-    and no memset. seen ("class/search kernel" -> graphs checked) gains
-    the graphs checked."""
+    (FrameGraph.node_counts). A frame graph's parent holds the camera
+    and the fold (whose last block steps the cursor: no advance node) as
+    kernel nodes, the WHILE node, and a memset only when it folds into a
+    part (sharded by spp); a wave graph's parent holds also one
+    compaction a stage and one WHILE node a stage (c4's, with its
+    2**19-ray batches: six). Every WHILE body of those holds three
+    kernel nodes (prims_nearest, the search, bounce_shade) and no
+    memset. A pool graph's parent holds the load, one WHILE node and
+    the commit; its body four kernel nodes (the bounce's three and the
+    refill) and no memset. seen ("class/search kernel" -> graphs
+    checked) gains the graphs checked."""
     from tpurt_torch.kernels import frame_graph
     graphs = [fg for fg in frame_graph._CACHE.values() if fg.exec is not None]
     if not graphs:
         raise AssertionError(f"graph ({label}): no captured graph cached")
-    body = {"kernel": 3, "memset": 0, "conditional": 0, "other": 0}
     for fg in graphs:
         got = fg.node_counts()
         loops = fg.n_loops
         cls = type(fg).__name__
-        want = {"parent": {"kernel": 3 + (loops if cls == "WaveGraph"
+        body = {"kernel": 4 if cls == "PoolGraph" else 3, "memset": 0,
+                "conditional": 0, "other": 0}
+        want = {"parent": {"kernel": 2 + (loops if cls == "WaveGraph"
                                           else 0),
                            "memset": int(fg.reduce), "conditional": loops,
                            "other": 0},
@@ -2996,6 +3518,43 @@ def wave_walls(reps: int = WALL_REPS) -> dict:
     return out
 
 
+def pool_walls(reps: int = WALL_REPS) -> dict:
+    """Warm walls of mode persist with the scene on the card: c4 at
+    PERSIST_SPP through the pool graph and through the host loop
+    (host_loop=True), each rendered once first (the graph captures),
+    then reps times each, in turns, through render.render, whose wall
+    ends with the film on the host. One line with every wall, the
+    medians and quartiles."""
+    import statistics
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch import scene as scene_mod
+    dev = torch.device("cuda", 0)
+    cfg = config.PRESETS["c4-wavefront"].replace(spp=PERSIST_SPP,
+                                                 mode="persist")
+    scene, cam = config.build_scene(cfg)
+    dscene = scene_mod.to_device(scene, dev)
+    out = {}
+    for host_loop in (False, True):
+        render.render(cfg, dscene, cam, device=dev, host_loop=host_loop)
+    runs = {False: [], True: []}
+    for _ in range(reps):
+        for host_loop in (False, True):
+            runs[host_loop].append(render.render(
+                cfg, dscene, cam, device=dev, host_loop=host_loop)[1])
+    for host_loop, label in ((False, "pool_graph"), (True, "host_loop")):
+        walls = [st["wall_s"] for st in runs[host_loop]]
+        q1, median, q3 = statistics.quantiles(walls, n=4)
+        out[label] = {"walls_s": walls, "median_s": median,
+                      "quartiles_s": [q1, q3]}
+        if any(st["rays"] != PHASE_RAYS["c4-persist"]
+               for st in runs[host_loop]):
+            raise AssertionError(f"pool_walls ({label}): rays")
+    emit("pool_walls", preset="c4-wavefront", mode="persist",
+         spp=PERSIST_SPP, device=smi_line(), **out)
+    return out
+
+
 def top_device_items(prof, n=6) -> list:
     """The n keys of a CUDA-only profile with the most device time:
     [name (cut to 60 characters), device ms, calls]."""
@@ -3013,10 +3572,11 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 
 
 # kernels counted under another LAUNCHES name: frame_graph.cu's two, and
-# persist_commit's (counted as a persist_refill launch)
+# the pool's commit and load (counted as persist_refill launches)
 PROFILE_NAMES = {"frame_cond_kernel": "frame_graph",
                  "frame_advance_kernel": "frame_graph",
-                 "film_commit_kernel": "persist_refill"}
+                 "film_commit_kernel": "persist_refill",
+                 "persist_load_kernel": "persist_refill"}
 
 
 def kernel_launches(prof) -> dict:
@@ -3344,11 +3904,12 @@ def main() -> int:
     # above); vmemloop runs on the probe's path; camera_rays,
     # prims_nearest, bounce_shade and film_fold on every render path (in
     # mode mega as nodes of the frame graph, counted by execution);
-    # frame_graph (the cursor's step, one a batch; the loop's condition
-    # runs inside camera_rays, bounce_shade and, in the wave graph,
-    # packet_compact) on the mega paths and c4-wavefront; packet_compact
-    # (one a stage of the wave graph) on c4-wavefront (and a wavefront
-    # rank of c5 would), persist_refill on c4-persist.
+    # frame_graph on none (its kernels run on no render path: the loop's
+    # condition runs inside camera_rays, bounce_shade and, in the wave
+    # graph, packet_compact; the cursor's step inside film_fold and the
+    # pool's commit); packet_compact (one a stage of the wave graph) on
+    # c4-wavefront (and a wavefront rank of c5 would), persist_refill
+    # (the pool graph's load, refills and commit) on c4-persist.
     print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

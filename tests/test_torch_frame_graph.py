@@ -15,6 +15,10 @@ tpurt's one-dispatch frame pass.
     search's ray counter;
   * the fold at the cursor (film_fold_plain with the state): array-equal
     to the host loop's fold of acc[p0:p0 + m], m = min(block, n - p0);
+    with its cursor tail (the fold's ``step``, the batch's last node):
+    the fold, then frame_advance_plain, inside the list, at the ragged
+    last block (the wrap to the next chunk) and into the sample-sharded
+    render's part;
   * the loop condition and the cursor's step: the bounces and rays the
     host loop of trace.trace runs and counts, the batches in its order;
   * the plain frame loop (the graph's schedule: cursor, condition,
@@ -47,7 +51,7 @@ from tpurt_torch.kernels import bounce as bounce_k  # noqa: E402
 from tpurt_torch.kernels import camera as camera_k  # noqa: E402
 from tpurt_torch.kernels import film_fold as fold_k  # noqa: E402
 from tpurt_torch.kernels import frame_graph as fg_k  # noqa: E402
-from tpurt_torch.kernels import loop_ctl, prims  # noqa: E402
+from tpurt_torch.kernels import loop_ctl, prims, refill  # noqa: E402
 
 SMALL = tconfig.RenderConfig(width=40, height=30, spp=3, seed=7,
                              scene="spheres_plane", max_depth=6, rr_start=2)
@@ -314,6 +318,43 @@ def test_cursor_fold_equals_host_loop_slice(n, block, c, p0):
         torch.zeros((block, 3)), rad, c, block, _state(0)))
 
 
+# (n, block, c, p0, part): inside the list; the ragged last block (232
+# rows), where the cursor wraps to the next chunk; a block past half the
+# list; the sample-sharded render's part at row 0
+FOLD_STEPS = [(1000, 256, 1, 0, False), (1000, 256, 3, 768, False),
+              (1000, 512, 2, 0, False), (1000, 256, 2, 512, True),
+              (1000, 256, 2, 768, True)]
+
+
+@pytest.mark.parametrize("n,block,c,p0,part", FOLD_STEPS)
+def test_fold_with_its_cursor_tail(n, block, c, p0, part):
+    """film_fold given the state to step (the frame graph's fold, which
+    ends the batch): the film of film_fold_plain without it, and the
+    state of frame_advance_plain after it, through the plain version
+    and the wrapper."""
+    rs = np.random.RandomState(p0 + c + part)
+    n_pad = -(-n // block) * block
+    acc = torch.from_numpy(rs.normal(
+        size=(block if part else n, 3)).astype(np.float32))
+    rad = torch.from_numpy(rs.normal(size=(c * block, 3)).astype(np.float32))
+    start = _state(p0, 5)
+    start[fg_k.RAYS], start[fg_k.ITERS], start[fg_k.GO] = 77, 9, 0
+    start[fg_k.K], start[fg_k.DEPTH] = 4, 3
+    fg_k.live_word(start).fill_(6)
+    want_st = start.clone()
+    want = fold_k.film_fold_plain(acc.clone(), rad, c, block,
+                                  None if part else want_st)
+    fg_k.frame_advance_plain(want_st, block, n_pad, c)
+    assert int(want_st[fg_k.P0]) == (0 if p0 + block >= n_pad
+                                     else p0 + block)
+    for fold in (fold_k.film_fold_plain, fold_k.film_fold):
+        st = start.clone()
+        got = fold(acc.clone(), rad, c, block, None if part else st,
+                   step=st, n_pad=n_pad)
+        assert torch.equal(got, want)
+        assert torch.equal(st, want_st)
+
+
 @pytest.mark.parametrize("live,max_depth", [([5, 3, 1, 0, 7], 8),
                                             ([5, 3, 1, 2], 3),
                                             ([0, 4], 5),
@@ -467,13 +508,24 @@ def test_batch_schedule_equals_tpurt(monkeypatch, start, stop, chunk):
 
 
 @pytest.mark.parametrize("fn", ["camera", "camera_loop", "fold", "cond",
-                                "advance"])
+                                "advance", "fold_step", "pool_load",
+                                "pool_refill", "pool_commit"])
 def test_graph_wrappers_raise_off_the_cpu(small, fn):
     """A wrapper runs its plain version only for CPU tensors; tensors on
-    another device (here meta) must launch a kernel or raise."""
+    another device (here meta) must launch a kernel or raise: the frame
+    graph's, the fold with its cursor tail, and the pool graph's load,
+    refill at the cursor with the pool's loop, and commit with the end
+    of the pool."""
     _, cam = small
     st = torch.zeros(fg_k.STATE_SLOTS, dtype=torch.int64, device="meta")
     pix = torch.zeros(256, dtype=torch.int64, device="meta")
+    cap = 256
+    pool = (torch.zeros((cap, 3), device="meta"),) * 4 + (
+        pix.bool(), pix, pix, torch.zeros((3, cap), dtype=torch.int64,
+                                          device="meta"))
+    counter = pix[:1]
+    cursor = refill.Cursor(st, _view(cam).to("meta"), pix, 256, 128, 2, 4)
+    loop = loop_ctl.Loop(st, 4, pool=True)
     with pytest.raises(ValueError):
         if fn == "camera":
             camera_k.camera_rays_cursor(
@@ -489,5 +541,24 @@ def test_graph_wrappers_raise_off_the_cpu(small, fn):
                              st)
         elif fn == "cond":
             fg_k.frame_cond(st, 4)
-        else:
+        elif fn == "advance":
             fg_k.frame_advance(st, 128, 256, 1)
+        elif fn == "fold_step":
+            fold_k.film_fold(torch.zeros((256, 3), device="meta"),
+                             torch.zeros((256, 3), device="meta"), 1, 256,
+                             st, step=st, n_pad=512)
+        elif fn == "pool_load":
+            refill.persist_load(cursor, *pool, counter, loop=loop)
+        elif fn == "pool_refill":
+            refill.persist_refill(cursor, torch.zeros((256, 3),
+                                                      device="meta"),
+                                  *pool[:5], pool[4], *pool[5:], counter,
+                                  scan=refill.scan_state(cap, "meta"),
+                                  loop=loop)
+        else:
+            refill.persist_commit(torch.zeros((256, 3), device="meta"), pix,
+                                  pool[3], refill.PoolEnd(
+                                      st, torch.zeros((2, 2),
+                                                      dtype=torch.int64,
+                                                      device="meta"),
+                                      128, 256, 2))

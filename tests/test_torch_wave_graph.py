@@ -430,8 +430,8 @@ def test_stage_caps_are_tpurts_ladder(pk0):
 def test_one_wave_graph_a_shape_and_its_node_plan(spheres):
     """render.accumulate in mode wavefront caches one WaveGraph a batch
     shape (beside the frame graphs, keyed by class), whose launch counts
-    its fixed nodes: the camera, one compaction a stage, the fold and
-    the advance."""
+    its fixed nodes: the camera, one compaction a stage and the fold,
+    whose last block also steps the cursor (no node of its own)."""
     scene, cam, _ = spheres
     cfg = tconfig.RenderConfig(width=W, height=H, spp=2, seed=3,
                                scene="spheres_plane", mode="wavefront",
@@ -444,9 +444,42 @@ def test_one_wave_graph_a_shape_and_its_node_plan(spheres):
     g = new[0]
     assert g.n_loops == len(g.caps) + 1 == 3
     assert g.per_launch == {"camera_rays": 1, "packet_compact": 3,
-                            "film_fold": 1, "frame_graph": 1}
+                            "film_fold": 1}
     assert fg_k.get(scene, g.n, g.block, g.c, 5, None, False, "cpu") \
         is not g
+
+
+def test_wave_graph_state_after_a_call(spheres):
+    """One accumulate call through a WaveGraph on the CPU (two batches of
+    two samples, a ragged last one): the film, rays_cast and the live
+    history are the host loop's; the cursor ends past the range, the
+    bounces the graph ran are counted, and the fold's step leaves the
+    batch slots, the live words and the done counter at 0."""
+    scene, cam, _ = spheres
+    cfg = tconfig.RenderConfig(width=W, height=H, spp=4, seed=3,
+                               scene="spheres_plane", mode="wavefront",
+                               max_depth=6, rr_start=2, ray_batch=2560,
+                               spp_chunk=1)
+    n = W * H
+    block = trender.block_size(n, cfg.ray_batch)
+    pix, valid, _ = trender.order_cached(W, H, block, "cpu")
+    g = fg_k.get(scene, n, block, 1, cfg.max_depth, cfg.rr_start, False,
+                 "cpu", wave_graph.WaveGraph)
+    want = torch.zeros((n, 3))
+    want_tally = trender.accumulate(cfg, scene, cam, pix[:n], valid[:n], 1,
+                                    3, want, host_loop=True)
+    acc = torch.zeros((n, 3))
+    tally = trender.accumulate(cfg, scene, cam, pix[:n], valid[:n], 1, 3,
+                               acc)
+    assert torch.equal(acc, want)
+    assert tally[0] == want_tally[0] == int(g.state[loop_ctl.RAYS])
+    assert torch.equal(tally[2:], want_tally[2:])
+    assert torch.equal(g.hist, want_tally[2:])
+    assert int(tally[1]) == int(g.state[loop_ctl.ITERS]) > 0
+    st = g.state
+    assert (int(st[loop_ctl.P0]), int(st[loop_ctl.S0])) == (0, 3)
+    assert st[loop_ctl.DEPTH:loop_ctl.GO].tolist() == [0, 0, 0]
+    assert int(st[loop_ctl.GO]) == int(st[loop_ctl.DONE]) == 0
 
 
 @pytest.mark.parametrize("fn", ["compact_keep0", "compact_no_cap",

@@ -19,12 +19,15 @@ film_fold — a ray batch's samples folded into the tile-order film
 compact   — the wavefront queue's packet compaction, shrink and commit
             (ports tpurt/wavefront.py::_compact_packets and the
             packet-row commit of trace_chunk_staged)
-refill    — the persistent pool's regeneration and last commit (ports
-            the regeneration of tpurt/wavefront.py::trace_persistent)
+refill    — the persistent pool's load, regeneration and last commit
+            (ports the load and regeneration of
+            tpurt/wavefront.py::trace_persistent)
 frame_graph, wave_graph — a batch of mode mega and of mode wavefront as
             one CUDA graph (port tpurt/render.py's one-dispatch frame
-            passes, _accum_frame and _wavefront_frame); loop_ctl — their
-            loop control, run in the last block of a graph's kernels
+            passes, _accum_frame and _wavefront_frame); pool_graph — a
+            pool of mode persist as one CUDA graph (ports tpurt's
+            one-dispatch trace_persistent); loop_ctl — their loop
+            control, run in the last block of a graph's kernels
 
 The film fold is reached as ``kernels.film_fold.film_fold`` (the module
 shares the function's name). A wrapper runs the plain version only for
@@ -38,7 +41,7 @@ from .compact import packet_compact
 from .intersect import nearest_tri_small
 from .leaf import leaf_phase
 from .prims import prims_nearest
-from .refill import persist_commit, persist_refill
+from .refill import persist_commit, persist_load, persist_refill
 from .slab import slab_step
 from .traverse import nearest_tri
 from .vmemloop import node_step_loop
@@ -46,4 +49,4 @@ from .vmemloop import node_step_loop
 __all__ = ["bounce_shade", "camera_rays", "hit_shade",
            "leaf_phase", "nearest_tri", "nearest_tri_small",
            "node_step_loop", "packet_compact", "persist_commit",
-           "persist_refill", "prims_nearest", "slab_step"]
+           "persist_load", "persist_refill", "prims_nearest", "slab_step"]

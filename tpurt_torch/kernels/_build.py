@@ -55,7 +55,7 @@ SIGNATURES = {
     "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
     "tt_hit_shade": "p" * 17 + "i",
     "tt_bounce_shade": "p" * 8 + "iii" + "p" * 23 + "ipipip" + "i",
-    "tt_film_fold": "ppp" + "iii",
+    "tt_film_fold": "ppp" + "iii" + "pi",
     "tt_frame_graph": "pp" + "ii",
     "tt_frame_advance": "p" + "iii",
     "tt_graph_begin": "pi",
@@ -68,7 +68,10 @@ SIGNATURES = {
     "tt_graph_node_counts": "ppp",
     "tt_graph_memset": "pi",
     "tt_packet_compact": "p" * 19 + "pipipip" + "iii",
-    "tt_persist_refill": "p" * 14 + "i" * 9 + "i" * 18,
+    "tt_persist_refill": "p" * 14 + "i" * 8 + "i" * 18 + "ppp" + "iii"
+                         + "pipipip",
+    "tt_persist_load": "p" * 9 + "i" + "ppp" + "iii" + "pipipip",
+    "tt_persist_commit": "p" * 5 + "i" * 4,
 }
 
 # kernel name -> launches since the last reset (one a wrapper call, or

@@ -19,16 +19,20 @@
 //              by the last block before, or nearest_tri_small)
 //              -> bounce_shade (depth from the state, in place; its last
 //                 block: the next condition) }
-//   -> [memset(part)] -> film_fold (at the cursor) -> frame_advance
+//   -> [memset(part)] -> film_fold (at the cursor; its last block steps
+//                          the cursor and resets the batch slots)
 // A bounce is three kernel nodes; tt_graph_node_counts counts the nodes
 // of the parent graph and of a WHILE body. The wavefront's staged graph
-// (kernels/wave_graph.py) is captured through the same entry points,
-// with one WHILE node (and one condition handle) a stage.
+// (kernels/wave_graph.py) and the persistent pool's graph (kernels/
+// pool_graph.py) are captured through the same entry points, with one
+// WHILE node (and one condition handle) a stage or a pool.
 //
-// tt_frame_graph (the condition, loop_cond) runs on no render path: it
-// is the loop control alone, which chip_smoke.py holds against the plain
-// version and times. tt_frame_advance is the graph's last node
-// (cursor_step: the cursor's step and the batch slots' reset).
+// tt_frame_graph (the condition, loop_cond) and tt_frame_advance (the
+// cursor's step and the batch slots' reset, cursor_step) run on no
+// render path: they are the loop control alone, which chip_smoke.py
+// holds against the plain versions and times. In a graph the condition
+// runs in the last block of the kernel that makes the live count and the
+// cursor's step in the last block of film_fold or of the pool's commit.
 //
 // Bound on the H100: the two kernels move under 100 bytes and are bound
 // by a launch's latency, not by bytes or operations. Design: one thread,

@@ -6,10 +6,13 @@
 // (tpurt/trace.py:267-269), its ray counter (nrays + sum(alive), :272),
 // the wavefront's staged conditions, cond & (live_pk > cap) on each cap
 // of trace_chunk_staged's ladder (tpurt/wavefront.py:321-332), its live
-// history (:310), and the fori_loop indices over sample chunks and pixel
-// blocks (tpurt/render.py:144-176, :299-341), which XLA keeps on the TPU.
-// The plain versions are kernels/loop_ctl.py::frame_cond_plain,
-// stage_cond_plain, compact_end_plain and frame_advance_plain.
+// history (:310), the persistent pool's lax.while_loop cond, nrays and
+// iters (tpurt/wavefront.py:457-464), and the fori_loop indices over
+// sample chunks and pixel blocks (tpurt/render.py:144-176, :299-341) and
+// the host loop over pools (:270-292), which XLA keeps on the TPU. The
+// plain versions are kernels/loop_ctl.py::frame_cond_plain,
+// stage_cond_plain, compact_end_plain, frame_advance_plain,
+// pool_cond_plain and pool_end_plain.
 //
 // The frame's state is one int64 array of STATE_SLOTS slots (the layout
 // of kernels/loop_ctl.py): 0 p0 (first pixel row of the batch), 1 s0
@@ -35,6 +38,13 @@
 // the end of the padded pixel list p0 = 0, s0 += c (chunk-major, then
 // block, render.py's order); it also zeroes the bounce index, k and the
 // live words, so the next batch starts clean without a memset node.
+// pool_step: the persistent pool's condition (tpurt's cond, any(alive),
+// with its nrays and iters, tpurt/wavefront.py:457-464) on the pool's
+// live count v: go = v > 0, with no bound on depth at the pool's level
+// (each slot has its own); going on, rays_cast gains v and the
+// iterations step. pool_end: what ends a pool, its rays and iterations
+// recorded at the pool's index p0 / block of a (pools, 2) record, both
+// slots zeroed for the next pool, then cursor_step to the next pool.
 //
 // loop_tail (nvcc only): camera_rays_cursor and bounce_shade call it from
 // thread 0 of every block with the block's counts (live rays, survivors;
@@ -65,6 +75,12 @@
 // compact_tail: the same ticket with no counts, for packet_compact in the
 // staged loop: its last block clamps the live packets to the packets it
 // kept (the rest went home) and runs the next stage's first condition.
+// pool_tail: the ticket with the block's live slots, for the pool's load
+// and each refill (persist_refill.cu): its last block runs pool_step.
+// last_block: the ticket with no counts alone, for the kernels that end
+// a unit of work: film_fold's last block runs cursor_step (the batch's),
+// the pool's commit's runs pool_end. Each of their blocks reads the
+// cursor, if at all, before its barrier and its ticket.
 //
 // Every TT_HD function is __host__ __device__ under nvcc and plain inline
 // under g++, which the CPU tests use to hold it against the plain
@@ -150,7 +166,63 @@ TT_HD void cursor_step(long long* st, long long block, long long n_pad,
   st[LIVE] = 0;
 }
 
+// The pool's condition on live count v; returns it (GO holds it too).
+TT_HD bool pool_step(long long* st, long long v) {
+  const bool go = v > 0;
+  if (go) {
+    st[RAYS] += v;
+    st[ITERS] += 1;
+  }
+  st[GO] = go;
+  return go;
+}
+
+// The pool's condition on the live word, which it takes and zeroes.
+TT_HD bool pool_cond(long long* st) {
+  int* live = live_word(st);
+  const long long v = *live;
+  *live = 0;
+  return pool_step(st, v);
+}
+
+// The end of a pool: its rays and iterations into rec (pools, 2) at row
+// p0 / block, both zeroed, then the cursor's step to the next pool.
+TT_HD void pool_end(long long* st, long long* rec, long long block,
+                    long long n_pad, long long c) {
+  long long* row = rec + 2 * (st[P0] / block);
+  row[0] = st[RAYS];
+  row[1] = st[ITERS];
+  st[RAYS] = 0;
+  st[ITERS] = 0;
+  cursor_step(st, block, n_pad, c);
+}
+
 #ifdef __CUDACC__
+
+// One block's ticket on the done counter of state st with its counts;
+// true for the last block, which gets the counts of every block into
+// rays and packets.
+__device__ __forceinline__ bool done_ticket(long long* st, int count,
+                                            int packets, long long& rays,
+                                            long long& pks) {
+  const unsigned long long old =
+      atomicAdd(reinterpret_cast<unsigned long long*>(st + DONE),
+                (1ull << 48) | ((unsigned long long)packets << 32) |
+                    (unsigned)count);
+  if ((old >> 48) != gridDim.x - 1) return false;
+  rays = (long long)((old & 0xffffffffull) + (unsigned)count);
+  pks = (long long)(((old >> 32) & 0xffffull) + (unsigned)packets);
+  return true;
+}
+
+// Thread 0 of every block, after the block's barrier: true for the last
+// block to finish, which also puts the done counter back to 0.
+__device__ __forceinline__ bool last_block(long long* st) {
+  long long rays, pks;
+  if (!done_ticket(st, 0, 0, rays, pks)) return false;
+  st[DONE] = 0;
+  return true;
+}
 
 // The loop control a kernel's last block runs; state null: none (the
 // kernel runs outside the frame graph's loop).
@@ -177,14 +249,7 @@ __device__ __forceinline__ void loop_done(const LoopCtl& lc, bool go) {
 __device__ __forceinline__ bool loop_ticket(const LoopCtl& lc, int count,
                                             int packets, long long& rays,
                                             long long& pks) {
-  const unsigned long long old =
-      atomicAdd(reinterpret_cast<unsigned long long*>(lc.state + DONE),
-                (1ull << 48) | ((unsigned long long)packets << 32) |
-                    (unsigned)count);
-  if ((old >> 48) != gridDim.x - 1) return false;
-  rays = (long long)((old & 0xffffffffull) + (unsigned)count);
-  pks = (long long)(((old >> 32) & 0xffffull) + (unsigned)packets);
-  return true;
+  return done_ticket(lc.state, count, packets, rays, pks);
 }
 
 // Thread 0 of every block calls it, after the block's barrier, with
@@ -216,6 +281,18 @@ __device__ __forceinline__ void compact_tail(const LoopCtl& lc, int keep) {
   int* lpk = packets_word(st);
   if (*lpk > keep) *lpk = keep;
   loop_done(lc, stage_cond(st, lc.max_depth, lc.cap));
+}
+
+// The pool's load and refill (thread 0 of every block, after the
+// block's barrier, count its slots alive): the last block runs the
+// pool's condition on the live slots.
+__device__ __forceinline__ void pool_tail(const LoopCtl& lc, int count) {
+  long long rays, pks;
+  if (!loop_ticket(lc, count, 0, rays, pks)) return;
+  long long* st = lc.state;
+  const long long v = rays + *live_word(st);
+  *live_word(st) = 0;
+  loop_done(lc, pool_step(st, v));
 }
 
 // A LoopCtl from a C entry point's arguments.

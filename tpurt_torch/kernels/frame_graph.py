@@ -3,7 +3,8 @@
 ``_accum_frame`` with the bounce ``lax.while_loop`` of
 tpurt/trace.py:267-269), and the loop control as standalone kernels,
 ``frame_cond`` / ``frame_advance`` (``csrc/frame_graph.cu``; the state's
-layout and the plain versions are in ``loop_ctl``).
+layout and the plain versions are in ``loop_ctl``), which no render
+runs.
 
 tpurt traces a whole sample range as one device dispatch: the sample
 chunks and pixel blocks are ``fori_loop``s and each batch's bounce loop
@@ -13,13 +14,15 @@ once and launched once per batch:
 
     camera_rays_cursor (+ first condition)
     -> WHILE { prims_nearest -> search -> bounce_shade (+ condition) }
-    -> [memset(part), sample-sharded only] -> film_fold (at the cursor)
-    -> frame_advance (+ reset of the batch slots)
+    -> [memset(part), sample-sharded only]
+    -> film_fold (at the cursor; + the cursor's step and the reset of
+       the batch slots)
 
 Every node is one of the port's own kernels or a memset, and a bounce is
 three kernel nodes: the loop's condition runs in the last block to
 finish of the kernel that makes the live count (``loop_ctl.Loop``, which
-also zeroes the BVH search's ray counter, so the search adds no memset).
+also zeroes the BVH search's ray counter, so the search adds no memset),
+and the cursor's step in the last block to finish of the fold.
 The graph reads its batch from a cursor in the frame's device state (p0,
 s0: the indices of tpurt's ``dynamic_slice``) and the camera, frame size
 and seed from a view array on the device, counts rays_cast and the
@@ -40,9 +43,10 @@ wrapper's plain version and the WHILE node as a Python loop over
 ``GO``: that is the graph's plain version. The schedule (``_schedule``)
 is written once and drives both: the capture records its nodes, the
 plain launch runs them. ``wave_graph.WaveGraph`` is the same machinery
-with the wavefront's staged schedule. ``get`` caches one graph per
+with the wavefront's staged schedule, ``pool_graph.PoolGraph`` with the
+persistent pool's. ``get`` caches one graph per
 (class, scene tensors, n, block, c, max_depth, rr_start, fold target,
-device):
+device, the pool's capacity):
 shapes only, since the view and the cursor are loaded for each call, so
 a scene rendered from camera after camera keeps the graphs it has. An
 entry is dropped when any of its scene's tensors is freed. A capture or
@@ -140,7 +144,9 @@ def frame_cond(state, max_depth: int, handle=None):
 def frame_advance(state, block: int, n_pad: int, c: int):
     """The cursor's step and the batch slots' reset on state's device:
     the plain version for a CPU tensor, the CUDA kernel for a CUDA tensor
-    (or an error). Returns state."""
+    (or an error). No render runs it: in a graph the same step runs in
+    the last block of film_fold (its ``step``) or of the pool's commit.
+    Returns state."""
     if state.device.type == "cpu":
         return frame_advance_plain(state, block, n_pad, c)
     dev = _build.cuda_device("frame_graph", state)
@@ -172,7 +178,7 @@ class FrameGraph:
     loops (``_loops``) and schedule (``_schedule``)."""
 
     def __init__(self, scene, n: int, block: int, c: int, max_depth: int,
-                 rr_start, reduce: bool, device):
+                 rr_start, reduce: bool, device, cap=None):
         dev = torch.device(device)
         self.device = dev
         self.n, self.block, self.c = n, block, c
@@ -201,11 +207,11 @@ class FrameGraph:
             self.counter = scalars[STATE_SLOTS + max_depth:].view(i32)[:1]
         # WHILE nodes of the graph
         self.n_loops = 1
-        # launches a replay makes besides its bounces (camera, fold and
-        # the advance)
-        self.per_launch = {"camera_rays": 1, "film_fold": 1,
-                           "frame_graph": 1}
-        rays = c * block
+        # launches a replay makes besides its bounces (the camera and the
+        # fold, which also steps the cursor)
+        self.per_launch = {"camera_rays": 1, "film_fold": 1}
+        # rays of the graph's buffers: the batch's, or the pool's slots
+        rays = c * block if cap is None else cap
         # the searches' outputs and the bounce's live_hit
         self.live_hit = self.empty(rays, dtype=torch.bool)
         self.prim = (self.empty(rays), self.empty(rays, 3),
@@ -272,13 +278,13 @@ class FrameGraph:
 
     def _fold(self, rad) -> None:
         """The batch's radiance rad (c * block, 3) folded at the cursor
-        (into a zeroed part when the graph folds into one), then the
-        cursor's step."""
+        (into a zeroed part when the graph folds into one), and the
+        cursor's step in the fold's last block."""
         if self.reduce:
             graph_memset(self.film)
         fold_k.film_fold(self.film, rad, self.c, self.block,
-                         None if self.reduce else self.state)
-        frame_advance(self.state, self.block, self.n_pad, self.c)
+                         None if self.reduce else self.state,
+                         step=self.state, n_pad=self.n_pad)
 
     def _capture(self, scene):
         dev = self.device
@@ -339,12 +345,12 @@ class FrameGraph:
     # -- one call of render.accumulate -----------------------------------
 
     def begin(self, cam, width: int, height: int, seed: int, pix, ok, acc,
-              s0: int) -> None:
+              s0: int, p0: int = 0) -> None:
         """Load the call's view (the camera, frame size and seed), its
         pixel list pix (n,) and live rows ok (n,) bool (the tail padded
         with the last pixel, dead), the film rows acc (n, 3) unless the
-        graph folds into a part, and the cursor (0, s0); zero the ray and
-        bounce tallies and the live history."""
+        graph folds into a part, and the cursor (p0, s0); zero the ray
+        and bounce tallies and the live history."""
         n = self.n
         view = torch.tensor(camera_k.view_words(cam, width, height, seed),
                             dtype=torch.int32)
@@ -362,8 +368,13 @@ class FrameGraph:
             self.film.copy_(acc)
         # fills, not a copy from the host: a copy from pageable memory
         # may wait for the stream
+        # the zero fill spans the whole state, the cursor's p0 too (a
+        # pool graph's call that ends inside the list leaves p0 there), so
+        # only an s0 and a p0 that are not 0 need a fill of their own
         self._tallies.zero_()
         self.state[S0:S0 + 1].fill_(s0)
+        if p0:
+            self.state[P0:P0 + 1].fill_(p0)
 
     def launch(self, scene) -> None:
         """Trace and fold the batch at the cursor, then step the cursor:
@@ -403,18 +414,19 @@ _CACHE: dict = {}
 
 
 def get(scene, n: int, block: int, c: int, max_depth: int, rr_start,
-        reduce: bool, device, cls=FrameGraph) -> FrameGraph:
-    """The ``cls`` graph (FrameGraph, or wave_graph.WaveGraph) of this
+        reduce: bool, device, cls=FrameGraph, cap=None) -> FrameGraph:
+    """The ``cls`` graph (FrameGraph, wave_graph.WaveGraph, or
+    pool_graph.PoolGraph with its pool's capacity ``cap``) of this
     batch shape on this scene, cached (on a card, one capture per key);
     the entry goes when any of the scene's tensors is freed."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (cls, tuple(id(f) for f in scene), n, block, c, max_depth,
-           rr_start, reduce, dev)
+           rr_start, reduce, dev, cap)
     fg = _CACHE.get(key)
     if fg is None:
-        fg = cls(scene, n, block, c, max_depth, rr_start, reduce, dev)
+        fg = cls(scene, n, block, c, max_depth, rr_start, reduce, dev, cap)
         _CACHE[key] = fg
         for f in scene:
             if f is not None:

@@ -1,11 +1,13 @@
 """The device frame passes' loop control (port of tpurt's bounce
 ``lax.while_loop`` cond and ray counter, tpurt/trace.py:267-272, the
 wavefront's staged conditions and live history, tpurt/wavefront.py:
-305-332, and the frame passes' loop indices, tpurt/render.py:144-176,
-:299-341): the frame state's layout, its plain versions
-``frame_cond_plain`` / ``stage_cond_plain`` / ``compact_end_plain`` /
-``frame_advance_plain`` and ``Loop``, the loop control that a graph
-hands to the kernel that makes the live count (``csrc/loop_ctl.cuh``).
+305-332, the persistent pool's cond, nrays and iters, tpurt/
+wavefront.py:457-464, and the frame passes' loop indices, tpurt/
+render.py:144-176, :299-341): the frame state's layout, its plain
+versions ``frame_cond_plain`` / ``stage_cond_plain`` /
+``compact_end_plain`` / ``frame_advance_plain`` / ``pool_cond_plain`` /
+``pool_end_plain`` and ``Loop``, the loop control that a graph hands to
+the kernel that makes the live count (``csrc/loop_ctl.cuh``).
 
 The state (``STATE_SLOTS`` int64): P0, S0 (the cursor), RAYS, ITERS
 (rays_cast and bounces run, summed over the graph's launches), DEPTH
@@ -26,6 +28,15 @@ each block's counts go with its ticket into DONE, and the last block
 takes the live words plus those counts. The plain versions add their
 counts into the live words and run ``loop_end_plain`` (or
 ``compact_end_plain``) at their end: the same state after the call.
+
+The persistent pool's condition (``Loop.pool`` set: the pool graph's
+load and refill, ``kernels/pool_graph.py``) goes on while the pool has
+a live slot, with no bound on depth at the pool's level; going on, it
+counts the live slots into rays_cast and steps the iterations. The
+pool's commit ends it (``pool_end_plain``): the pool's rays and
+iterations go into a per-pool record and the cursor steps to the next
+pool. A batch of the other graphs ends with the fold, whose last block
+steps the cursor (``frame_advance_plain``).
 
 Mode mega's condition (``Loop.cap`` None) takes the live count whether
 or not the loop goes on. The wavefront's staged condition (``cap`` an
@@ -72,13 +83,16 @@ class Loop(NamedTuple):
     search has none), the stage's cap (None: mode mega's condition; an
     int: the wavefront's staged condition) and the (max_depth,) int64
     live history a bounce adds its survivors into at its bounce index
-    (None: none; the staged loop's bounces only)."""
+    (None: none; the staged loop's bounces only). pool: the persistent
+    pool's condition (``pool_cond_plain``; cap and hist None, max_depth
+    unused), which the pool's load and refill run."""
     state: torch.Tensor
     max_depth: int
     handle: Optional[int] = None
     counter: Optional[torch.Tensor] = None
     cap: Optional[int] = None
     hist: Optional[torch.Tensor] = None
+    pool: bool = False
 
 
 def frame_cond_plain(state, max_depth: int):
@@ -137,6 +151,32 @@ def frame_advance_plain(state, block: int, n_pad: int, c: int):
     return state
 
 
+def pool_cond_plain(state):
+    """Plain PyTorch version of the persistent pool's condition, in place
+    on state: takes the live count v (and zeroes it) and goes on while
+    v > 0 (tpurt's any(alive)); going on, rays_cast gains v and the
+    iterations step. GO holds the condition."""
+    live = live_word(state)
+    v = int(live)
+    live.zero_()
+    go = v > 0
+    if go:
+        state[RAYS] += v
+        state[ITERS] += 1
+    state[GO] = int(go)
+    return state
+
+
+def pool_end_plain(state, record, block: int, n_pad: int, c: int):
+    """Plain PyTorch version of the end of a pool, in place on state and
+    record (pools, 2) int64: the pool's rays and iterations (RAYS,
+    ITERS) into record row p0 // block, both slots zeroed, then
+    frame_advance_plain to the next pool."""
+    record[int(state[P0]) // block] = state[RAYS:ITERS + 1]
+    state[RAYS:ITERS + 1] = 0
+    return frame_advance_plain(state, block, n_pad, c)
+
+
 def loop_end_plain(loop: Loop) -> None:
     """What the last block of a kernel given ``loop`` does, in plain
     PyTorch: the live rays added into the live history at the bounce
@@ -146,7 +186,9 @@ def loop_end_plain(loop: Loop) -> None:
     st = loop.state
     if loop.hist is not None:
         loop.hist[int(st[DEPTH])] += int(live_word(st))
-    if loop.cap is None:
+    if loop.pool:
+        pool_cond_plain(st)
+    elif loop.cap is None:
         frame_cond_plain(st, loop.max_depth)
     else:
         stage_cond_plain(st, loop.max_depth, loop.cap)
@@ -163,13 +205,21 @@ def compact_end_plain(loop: Loop, keep: int) -> None:
     loop_end_plain(loop)
 
 
-def loop_args(loop: Optional[Loop], dev, n_blocks: int = 0) -> tuple:
+def loop_args(loop: Optional[Loop], dev, n_blocks: int = 0,
+              pool: bool = False) -> tuple:
     """The C entry points' loop arguments (state, max_depth, handle,
     in_graph, search counter, cap, hist), checked; all null for no loop.
     n_blocks: the blocks the kernel launches, at most MAX_LOOP_BLOCKS
-    with a loop."""
+    with a loop. pool: whether the kernel runs the pool's condition (the
+    pool's load and refill) or a frame's (the rest), which the loop must
+    ask for."""
     if loop is None:
         return (None, 0, 0, 0, None, -1, None)
+    if loop.pool != pool:
+        raise ValueError(f"loop: the kernel runs the "
+                         f"{'pool' if pool else 'frame'}'s condition, the "
+                         f"loop asks for the "
+                         f"{'pool' if loop.pool else 'frame'}'s")
     _build.check("loop state", loop.state, (STATE_SLOTS,), torch.int64, dev)
     if loop.counter is not None:
         _build.check("loop counter", loop.counter, (1,), torch.int32, dev)
@@ -178,6 +228,9 @@ def loop_args(loop: Optional[Loop], dev, n_blocks: int = 0) -> tuple:
                      dev)
     if loop.cap is not None and loop.cap < 0:
         raise ValueError(f"loop: cap {loop.cap} < 0")
+    if loop.pool and (loop.cap is not None or loop.hist is not None):
+        raise ValueError("loop: the pool's condition takes no cap and no "
+                         "live history")
     if n_blocks > MAX_LOOP_BLOCKS:
         raise ValueError(f"loop: {n_blocks} blocks, more than the done "
                          f"counter's {MAX_LOOP_BLOCKS}")

@@ -26,8 +26,8 @@ one WHILE node and condition handle a stage):
                           first condition)
     -> WHILE_last (cap 0) { the same three nodes }
     -> packet_compact(keep 0: the last commit)
-    -> [memset(part), sample-sharded only] -> film_fold (at the cursor)
-    -> frame_advance
+    -> [memset(part), sample-sharded only] -> film_fold (at the cursor;
+                                                 + the cursor's step)
 
 Each condition runs in the last block of the kernel before it
 (``loop_ctl.Loop`` with a cap: live packets > cap on top of mode mega's
@@ -40,8 +40,8 @@ row count (its stage's). rad_out holds the batch's radiance in first
 queue order, which the fold reads at the cursor. rays_cast, the bounces
 run and the live history (the survivors of each bounce, summed over
 batches) stay on the card until ``read_tally``; each replay counts its
-fixed nodes (the camera, one compaction a stage, the fold, the advance)
-and ``read_tally`` adds the bounces from ITERS. The ladder is tpurt's,
+fixed nodes (the camera, one compaction a stage, the fold) and
+``read_tally`` adds the bounces from ITERS. The ladder is tpurt's,
 not the host loop's power of two (``wavefront.trace_chunk``): images,
 rays_cast and the live history do not depend on where a queue shrinks,
 since every draw is keyed by (seed, pixel, sample, bounce).
@@ -95,7 +95,7 @@ class WaveGraph(FrameGraph):
         self.caps = stage_caps(pk0)
         self.n_loops = len(self.caps) + 1
         self.per_launch = {"camera_rays": 1, "packet_compact": self.n_loops,
-                           "film_fold": 1, "frame_graph": 1}
+                           "film_fold": 1}
 
         def queue(k):
             return Queue(o=empty(k, 3), d=empty(k, 3), atten=empty(k, 3),

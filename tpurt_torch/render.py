@@ -19,9 +19,14 @@ device (tpurt's one-dispatch ``_accum_frame``), or, with the host loop,
 ``trace.trace`` (one host read a bounce). Neither graph reads the host
 until the tally (rays cast, bounces, live history) and the film.
 ``persist`` streams each pixel block's samples through one
-fixed-capacity pool (``wavefront.trace_persistent``) into the film in
-pixel order. RNG streams are keyed by (seed, pixel, sample), so the
-image does not depend on the batching or the mode.
+fixed-capacity pool into the film in pixel order: a
+``kernels.pool_graph.PoolGraph`` launch a pool, which on a card is one
+CUDA graph with the pool's loop on the device (tpurt's one-dispatch
+``trace_persistent``) that reads the host only for the pools' counts,
+once a render, and the film; or, when a caller asks for the host loop,
+``wavefront.trace_persistent`` (one host read an iteration). RNG
+streams are keyed by (seed, pixel, sample), so the image does not
+depend on the batching or the mode.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 
 from . import metrics, trace, wavefront
 from .config import RenderConfig, build_scene
-from .kernels import frame_graph, wave_graph
+from .kernels import frame_graph, pool_graph, wave_graph
 from .kernels import camera as camera_k
 from .kernels import film_fold as fold_k
 from .scene import Scene, to_device
@@ -137,7 +142,10 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     megakernel for every other mode: the frame graph
     (``kernels.frame_graph``), or with ``host_loop`` the host's batch
     loop over ``trace.trace`` (a host read a bounce; the per-call paths
-    the smoke checks kernels on). Returns a tally on the device,
+    the smoke checks kernels on). Mode persist renders its pools in
+    render_samples (``_render_persist``); it comes here only from a
+    sharded rank (``mesh``), which traces it with the megakernel, as
+    tpurt's sharded render does. Returns a tally on the device,
     (2 + max_depth,) int64: rays cast, the bounces the graphs ran (0 on
     the host loops), and the wavefront's live history (the live rays
     after each bounce, summed over batches; 0 in the other modes);
@@ -243,7 +251,8 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
     rays_cast). stats_sink (dict, optional) receives the wavefront's
     "queue_capacity" and "live_history" (live rays after each bounce,
     summed over batches), or the persistent pool's "persist_occupancy"
-    (one entry per pixel block). host_loop: accumulate's."""
+    and "persist_iterations" (one entry per pixel block). host_loop:
+    accumulate's, and in mode persist the pools' host loop."""
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}")
     dev = scene.sph_c.device
@@ -256,9 +265,9 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
     n_samples = sample_stop - sample_start
     pix, valid, inv = order_cached(cfg.width, cfg.height, block, dev)
     if cfg.mode == "persist":
-        return _render_persist(cfg, scene, cam, film_flat, pix, block,
-                               ray_batch, sample_start, n_samples,
-                               stats_sink)
+        return _render_persist(cfg, scene, cam, film_flat, pix, valid,
+                               block, ray_batch, sample_start, n_samples,
+                               stats_sink, host_loop)
 
     # the padded tail's rows are traced dead and never read back
     film_tiled = film_flat[pix]
@@ -275,27 +284,63 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
     return film_tiled[inv], rays
 
 
-def _render_persist(cfg, scene, cam, film_flat, pix, block, ray_batch,
-                    sample_start, n_samples, stats_sink):
+def pool_capacity(rows: int, n_samples: int, ray_batch: int) -> int:
+    """The slots of the pool of a pixel block of ``rows`` pixels: its
+    rays, at most ray_batch, rounded up to whole packets (tpurt's)."""
+    cap = min(ray_batch, rows * n_samples)
+    return cap + (-cap) % trace.PACKET_R
+
+
+def _render_persist(cfg, scene, cam, film_flat, pix, valid, block,
+                    ray_batch, sample_start, n_samples, stats_sink,
+                    host_loop=False):
     """Persistent mode: each pixel block's whole sample range streams
     through one pool of min(ray_batch, rays) slots, rounded up to whole
-    packets. pix: the tile order on the device (order_cached)."""
+    packets. pix, valid: the tile order on the device and its live rows
+    (order_cached). A PoolGraph launch a pool: one graph a run of pools
+    of one capacity (every pool, or all but a ragged last one), each
+    pool's rays and iterations recorded on the device and read once, at
+    the end; with host_loop, wavefront.trace_persistent a pool."""
     npix = cfg.width * cfg.height
     film_flat = film_flat.clone()    # the pool adds into it in place
-    total_rays = 0
-    for p0 in range(0, npix, block):
-        p1 = min(p0 + block, npix)
-        pixel_table = pix[p0:p1]
-        capacity = min(ray_batch, (p1 - p0) * n_samples)
-        capacity += (-capacity) % trace.PACKET_R
-        film_flat, nrays, occ, _ = wavefront.trace_persistent(
-            scene, cam, film_flat, pixel_table, sample_start, n_samples,
-            cfg.seed, cfg.width, cfg.height, cfg.max_depth, cfg.rr_start,
-            capacity)
-        total_rays += nrays
-        if stats_sink is not None:
-            stats_sink.setdefault("persist_occupancy", []).append(occ)
-    return film_flat, total_rays
+    caps = [pool_capacity(min(block, npix - p0), n_samples, ray_batch)
+            for p0 in range(0, npix, block)]
+    if host_loop or n_samples <= 0:
+        pairs = []
+        for k, cap in enumerate(caps):
+            p0 = k * block
+            film_flat, nrays, _, iters = wavefront.trace_persistent(
+                scene, cam, film_flat, pix[p0:min(p0 + block, npix)],
+                sample_start, n_samples, cfg.seed, cfg.width, cfg.height,
+                cfg.max_depth, cfg.rr_start, cap)
+            pairs.append((nrays, iters))
+    else:
+        counts = torch.zeros((len(caps), 2), dtype=torch.int64,
+                             device=film_flat.device)
+        first = 0
+        while first < len(caps):
+            last = first
+            while last + 1 < len(caps) and caps[last + 1] == caps[first]:
+                last += 1
+            g = frame_graph.get(scene, npix, block, n_samples,
+                                cfg.max_depth, cfg.rr_start, False,
+                                film_flat.device, pool_graph.PoolGraph,
+                                caps[first])
+            g.begin(cam, cfg.width, cfg.height, cfg.seed, pix[:npix],
+                    valid[:npix], film_flat, sample_start, first * block)
+            for _ in range(first, last + 1):
+                g.launch(scene)
+            g.end(film_flat)
+            g.add_tally(counts)
+            first = last + 1
+        pairs = pool_graph.read_counts(scene, counts)
+    if stats_sink is not None:
+        stats_sink.setdefault("persist_occupancy", []).extend(
+            wavefront.pool_occupancy(nrays, iters, cap)
+            for (nrays, iters), cap in zip(pairs, caps))
+        stats_sink.setdefault("persist_iterations", []).extend(
+            iters for _, iters in pairs)
+    return film_flat, sum(nrays for nrays, _ in pairs)
 
 
 def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,

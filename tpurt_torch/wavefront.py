@@ -20,12 +20,19 @@ on the shrink rule, because every draw is keyed by (seed, pixel,
 sample, bounce), so the graph's ladder and this loop's powers of two
 give the same film.
 
-``trace_persistent`` keeps tpurt's regeneration rule exactly
+A render in mode persist traces each pool through
+``kernels.pool_graph.PoolGraph`` (``render._render_persist``): on a card
+one CUDA graph a pool, the pool's loop on the device as tpurt's
+one-dispatch ``trace_persistent``, with no host read until the pools'
+counts and the film. ``trace_persistent`` is the host-loop reference
+that ``host_loop=True`` runs (the smoke checks each kernel call on it):
+it keeps tpurt's regeneration rule exactly
 (``kernels.refill.persist_refill``, one kernel launch a step on a card,
 its scan state allocated once per call): dead slots take the next rays
 off a global counter in slot order, so its iteration count and
 occupancy equal tpurt's. It reads the host once per iteration (4
-bytes).
+bytes). The graph runs the same steps in the same order, so on the CPU
+its film is array-equal to this loop's.
 
 Not ported: ``trace_static``, tpurt's fixed-size queue for ``mesh``
 (``shard_map`` needs one shape on every chip; a rank of the port's mesh
@@ -149,7 +156,9 @@ def trace_persistent(scene, cam, film, pixel_table, sample_lo: int,
     device once per iteration: the 4-byte count of slots alive after the
     refill, which is also the next iteration's rays cast. Returns (film,
     rays_cast, occupancy, iterations); occupancy = rays_cast /
-    (iterations * capacity) in float32, as tpurt computes it."""
+    (iterations * capacity) in float32, as tpurt computes it
+    (``pool_occupancy``). The host-loop reference of the pool graph
+    (kernels.pool_graph.PoolGraph), which renders mode persist."""
     dev = film.device
     total = pixel_table.shape[0] * n_samples
     frame = refill_k.Frame(cam, width, height, seed, pixel_table, sample_lo,
@@ -182,6 +191,12 @@ def trace_persistent(scene, cam, film, pixel_table, sample_lo: int,
 
     # every slot's last occupant commits here
     refill_k.persist_commit(film, pix, rad)
+    return film, nrays, pool_occupancy(nrays, iters, capacity), iters
+
+
+def pool_occupancy(nrays: int, iters: int, capacity: int) -> float:
+    """A pool's occupancy, rays_cast / (iterations * capacity), in
+    tpurt's float32 arithmetic (tpurt/wavefront.py:527-529)."""
     occ = np.float32(nrays) / max(np.float32(iters) * np.float32(capacity),
                                   np.float32(1.0))
-    return film, nrays, float(occ), iters
+    return float(occ)
