@@ -12,8 +12,10 @@ enough.
 Phases, each printing one JSON line (any failure raises, so the script
 exits non-zero and prints no result):
   1. device    — a CUDA card is required; no CPU fallback
-  2. build     — nvcc build of tpurt_torch/kernels/csrc, one nvcc per
-                 source in parallel (seconds, registers)
+  2. build     — the toolkit (nvcc's release, torch's CUDA, which of
+                 frame_graph.cu's capture forms builds), then the nvcc
+                 build of tpurt_torch/kernels/csrc, one nvcc per source in
+                 parallel (seconds, registers)
   3. kernels   — the c3 scene build (seconds, native_sah), then
                  slab_step, leaf_phase and traverse_nearest against their
                  plain versions on the c3 scene (traverse: all five
@@ -54,7 +56,12 @@ exits non-zero and prints no result):
                  that traffic, with every ray dead, and at max_depth,
                  states equal to the plain composition, the done and
                  search counters 0 after each) and timed with it and
-                 without it on the same inputs (loop_step)
+                 without it on the same inputs (loop_step); then
+                 primary_shade against its plain version on c1's own
+                 batch and on the last, ragged block of a BVH scene's
+                 (dead rows): radiance array-equal, rays_cast and the
+                 search counter equal (check_primary_shade), timed on
+                 c1's batch with its count and without
   6. frame     — (mega through the host loop) every film_fold,
                  packet_compact and persist_refill call
                  (and persist_commit, the refill kernel's commit-only
@@ -95,8 +102,10 @@ exits non-zero and prints no result):
                  compaction's row times this entry)
   7. goldens   — g1..g5 through tpurt_torch.render.render against
                  tests/golden/*.ppm (under 0.2% of bytes off by more than
-                 1, none by more than 8), and g2..g5 again in modes
-                 wavefront and persist with the megakernel's ray count
+                 1, none by more than 8), g1 through the primary graph
+                 (primary_shade, not the host loop's hit_shade), and
+                 g2..g5 again in modes wavefront and persist with the
+                 megakernel's ray count
   8. graph     — every mega render path through the frame graph and
                  through the host loop (c3 at 4 spp, c2 at 8, c5 by tiles
                  and by spp, g2..g5 unsharded and sharded, c3 through
@@ -113,7 +122,12 @@ exits non-zero and prints no result):
                  fold, whose last block steps the cursor (no advance
                  node), and a memset only sharded by spp; a wave graph's
                  parent also one WHILE node and one compaction a stage,
-                 six for c4); mode persist through the pool graph and
+                 six for c4); mode primary through the primary graph
+                 and the host loop (c1, g1 unsharded and sharded, g4's
+                 blob, c1 through checkpoints): films array-equal, a
+                 parent of five kernel nodes and no WHILE node, one
+                 primary_shade a batch; mode persist through the pool
+                 graph and
                  the host loop (c4 at PERSIST_SPP, c4 at 1 spp, whose
                  ragged last pool has fewer slots and so a second graph,
                  g2 with 2,048-slot pools), each rendered twice through
@@ -126,9 +140,11 @@ exits non-zero and prints no result):
                  with their bound
   9. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
- 10. c1-primary — 640x480 at 1 spp (its own size and spp), then through
-                 --oracle: the same rays, the golden tolerance against the
-                 oracle's image
+ 10. c1-primary — 640x480 at 1 spp (its own size and spp) as one
+                 primary-graph launch (five kernel nodes, no WHILE node,
+                 no memset: C1_NODES; primary_shade launched, hit_shade
+                 not), then through --oracle: the same rays, the golden
+                 tolerance against the oracle's image
  11. c2-cornell — 12 triangles without a BVH, 512x512, max_depth 8, spp
                  cut from 64 to 8
  12. c4-wavefront — 81,920 triangles, 1920x1080, max_depth 16, roulette
@@ -142,8 +158,8 @@ exits non-zero and prints no result):
                  in this process on one card, one process per card on
                  several; stats must name that many devices
  15. c5-spp    — the same, sharded by samples
- 16. goldens-sharded — g2..g5 through mesh.render_sharded by tiles and by
-                 spp: the megakernel's rays, the golden tolerance
+ 16. goldens-sharded — g1..g5 through mesh.render_sharded by tiles and by
+                 spp: the unsharded render's rays, the golden tolerance
  17. checkpoint — c3-mesh at 4 spp, checkpoints every 2: a crash after 2
                  samples, resumed, equals the uninterrupted run bit for
                  bit with equal rays; unsharded and by tiles
@@ -153,9 +169,9 @@ exits non-zero and prints no result):
  20. profile   — last, in a fresh child process (the timing phases above
                  ran torch.profiler, and a profiled render slows later
                  ones in its process): c3, c2, c4, c4 persist (at
-                 PERSIST_SPP) and c5 unprofiled (wall), g4 with
+                 PERSIST_SPP), c5 and c1 unprofiled (wall), g4 with
                  --profile-dir (the Chrome trace names the traversal
-                 kernel), then the five under torch.profiler: CUDA
+                 kernel), then the six under torch.profiler: CUDA
                  launches, device time (and kernel time alone), idle
                  share and host reads per spp, the host's launch calls
                  (cudaLaunchKernel, cudaGraphLaunch) per spp, the port's
@@ -163,11 +179,12 @@ exits non-zero and prints no result):
                  launches, the search kernel's device time per launch;
                  c3 must stay under 62 CUDA launches per spp, c2 under
                  64, c4 in mode wavefront under 190 and in mode persist
-                 under 125 (MAX_LAUNCHES_PER_SPP), and c3's and c2's
-                 mega renders, c4's wavefront render and c4's persist
-                 render may copy to the host at most twice a render
-                 call, the tally (the pools' counts) and the film
-                 (MAX_DTOH_PER_RENDER)
+                 under 125, c1 under 15 (MAX_LAUNCHES_PER_SPP), and c3's
+                 and c2's
+                 mega renders, c4's wavefront render, c4's persist
+                 render and c1's primary render may copy to the host at
+                 most twice a render call, the tally (the pools' counts)
+                 and the film (MAX_DTOH_PER_RENDER)
 The probe (in phase 4) and phases 9-17 are the main paths, each with the
 launch counts reset just before it and read just after (a mega render's
 kernels run as frame-graph nodes, counted by execution); every render
@@ -175,12 +192,12 @@ path must launch its search kernel and its mode's kernels (the three
 fused kernels and the film fold in mode mega, and packet_compact in
 mode wavefront; in mode persist prims_nearest, bounce_shade and
 persist_refill: the pool graph's load, which makes the primary rays
-with the camera kernel's code, refills and commit), and the renders of
-phases 9 and 11-15 must cast
-PHASE_RAYS exactly. Then
-the card's nvidia-smi line, the kernel table as one JSON object (all
-twelve kernels, each with its launches by path, its bound and its
-operations by class), and as the last line {"ok": true, "device":
+with the camera kernel's code, refills and commit; in mode primary the
+camera, prims_nearest, primary_shade and the fold), and the renders of
+phases 9 and 11-15 must cast PHASE_RAYS exactly. Then the card's
+nvidia-smi line, the kernel table as one JSON object (all thirteen
+kernels, each with its launches by path, its bound, its share of it and
+its operations by class), and as the last line {"ok": true, "device":
 {...}}.
 """
 
@@ -230,15 +247,18 @@ PHASE_RAYS = {"c3-mesh": 8_840_578, "c2-cornell": 10_841_187,
 # fold; with the cursor step 193, the host loop made 240) and in mode
 # persist (the pool graph: per pool the load and the commit, per
 # iteration three kernels a bounce and the refill, 116 a spp at 2 spp;
-# the host loop made 145)
+# the host loop made 145) and c1's in mode primary (the primary graph:
+# five kernels a batch, 14 a spp with torch's fills; the host loop made
+# 35)
 MAX_LAUNCHES_PER_SPP = {"c3-mesh": 62, "c2-cornell": 64,
-                        "c4-wavefront": 190, "c4-persist": 125}
+                        "c4-wavefront": 190, "c4-persist": 125,
+                        "c1-primary": 15}
 # copies to the host in one render call through the CLI, at most: the
 # tally (rays, bounces, the wavefront's live history; in mode persist
 # each pool's rays and iterations) and the film (the frame, wave and
 # pool graphs read nothing between)
 MAX_DTOH_PER_RENDER = {"c3-mesh": 2, "c2-cornell": 2, "c4-wavefront": 2,
-                       "c4-persist": 2}
+                       "c4-persist": 2, "c1-primary": 2}
 
 # The least time the card could take for a kernel's work: the larger of
 # its bytes (each input read once, each output written once) over the
@@ -529,15 +549,39 @@ def phase_device():
     return name, smi
 
 
+def toolkit() -> dict:
+    """The CUDA toolkit the kernels build with: nvcc's release (``nvcc
+    --version``), torch's CUDA, and which of frame_graph.cu's two capture
+    forms the build compiles (``CUDART_VERSION >= 13000``: the toolkit's
+    runtime headers are its release)."""
+    import torch
+    from tpurt_torch.kernels import _build
+    res = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    found = re.search(r"release (\d+)\.(\d+)", res.stdout)
+    if found is None:
+        raise AssertionError(f"nvcc --version names no release: {res.stdout}")
+    major, minor = int(found.group(1)), int(found.group(2))
+    return {"nvcc_release": f"{major}.{minor}",
+            "torch_cuda": torch.version.cuda,
+            "capture_form": "CUDART_VERSION >= 13000" if major >= 13
+            else "CUDART_VERSION < 13000"}
+
+
 def phase_build():
     from tpurt_torch.kernels import _build
+    kit = toolkit()
+    print(f"nvcc release {kit['nvcc_release']}, torch CUDA "
+          f"{kit['torch_cuda']}, frame_graph.cu capture form "
+          f"{kit['capture_form']}", flush=True)
     t0 = time.perf_counter()
     info = _build.build()
     _build.load()
     regs = [ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln or "Compiling entry" in ln]
     emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs)
+         nvcc_seconds=info["seconds"], library=info["path"], ptxas=regs,
+         **kit)
     return info["path"]
 
 
@@ -1382,7 +1426,114 @@ def phase_fused(dev):
                               **extra})
         emit("kernel", name=name, **row)
     emit("loop_step", **loop_step)
+    rows["primary_shade"] = check_primary_shade(dev)
+    emit("kernel", name="primary_shade", **rows["primary_shade"])
     return {**rows, "loop_step": loop_step}
+
+
+# mode primary's shading of a live ray after the merge: n.L (3 mul, 2
+# add), its clamp, shade (a mul and an add), albedo * shade + emission (3
+# mul, 3 add) and the select of the hit against the sky (a miss's sky is
+# 7 add/mul instead)
+PRIMARY_SHADE_OPS = {"add_mul": 13, "cmp_minmax": 4}
+
+
+def primary_cases() -> dict:
+    """The batches check_primary_shade holds the kernel against its plain
+    version on: c1's own (640x480 at 1 spp: one block of 307,200 rows,
+    all live) and the last block of a BVH scene's (g4's blob in mode
+    primary in blocks of 1,280 rows: its last block holds 512 live rows
+    and 768 dead ones)."""
+    from tpurt_torch import config
+    return {"c1": config.PRESETS["c1-primary"].replace(spp=1),
+            "blob": config.RenderConfig(**GOLDENS["g4-mesh"]).replace(
+                mode="primary", spp=1, ray_batch=1280)}
+
+
+def check_primary_shade(dev, cases=None) -> dict:
+    """primary_shade (bounce_shade.cu's tt_primary_shade) against
+    primary_shade_plain on the last block of each primary_cases batch (c1
+    has one), made as the primary graph makes it: the cursor camera, then
+    prims_nearest with the live rows and the scene's search. The
+    radiance must be array-equal (dead rows +0.0 to the bit), and the
+    frame state's rays_cast must gain the live rows and the search's ray
+    counter be zeroed, as the plain version leaves them. Then the kernel
+    and its plain version are timed on c1's batch, with the state (the
+    count in the last block) and without it, with the bound. Returns the
+    kernel's row."""
+    import torch
+    from tpurt_torch import config, render
+    from tpurt_torch import scene as scene_mod
+    from tpurt_torch.kernels import bounce, camera, frame_graph, loop_ctl
+    from tpurt_torch.kernels import prims
+    batches, timing = {}, None
+    for label, cfg in (cases or primary_cases()).items():
+        scene, cam = config.build_scene(cfg)
+        dscene = scene_mod.to_device(scene, dev)
+        n = cfg.width * cfg.height
+        block = render.block_size(n, render.effective_ray_batch(cfg, dscene))
+        pix, valid, _ = render.order_cached(cfg.width, cfg.height, block,
+                                            dev)
+        state = torch.zeros(loop_ctl.STATE_SLOTS, dtype=torch.int64,
+                            device=dev)
+        state[loop_ctl.P0] = pix.shape[0] - block
+        view = torch.tensor(camera.view_words(cam, cfg.width, cfg.height,
+                                              cfg.seed),
+                            dtype=torch.int32).to(dev)
+        o, d, _, alive, _, _ = camera.camera_rays_cursor(
+            view, pix, valid, state, 1, block,
+            live=loop_ctl.live_word(state))
+        prim = prims.prims_nearest(dscene, o, d, alive=alive)
+        tri = frame_graph.search(dscene, o, d, prim[0])
+        args = (dscene, o, d, prim, tri, alive)
+        counter = None if dscene.pk_nodes is None else torch.full(
+            (1,), DIRTY_COUNTER, dtype=torch.int32, device=dev)
+        states = [state.clone(), state.clone()]
+        counters = [None if counter is None else counter.clone()
+                    for _ in range(2)]
+        got = bounce.primary_shade(*args, state=states[0],
+                                   counter=counters[0])
+        want = bounce.primary_shade_plain(*args, states[1], counters[1])
+        same, bits, err = same_values(got, want)
+        live = int(alive.sum())
+        dead_zero = bool((got[~alive].view(torch.int32) == 0).all())
+        rays = [int(st[loop_ctl.RAYS]) for st in states]
+        counted = torch.equal(states[0], states[1]) and rays[0] == live and \
+            all(c is None or int(c) == 0 for c in counters)
+        batches[label] = {"rays": block, "live": live,
+                          "dead_rows": block - live, "bit_diffs": bits,
+                          "rays_cast": rays, "dead_rows_plus_zero": dead_zero,
+                          "search": frame_graph.search_kernel(dscene)}
+        emit("primary_shade_check", case=label, **batches[label])
+        if not (same and dead_zero and counted):
+            raise AssertionError(
+                f"fused (primary {label}): primary_shade differs from its "
+                f"plain version (max |diff| {err}, dead rows +0.0 "
+                f"{dead_zero}, rays_cast {rays}, {live} live rows)")
+        if timing is None:
+            timing = (label, args, live)
+    label, args, live = timing
+    dscene, o, d, prim, tri, alive = args
+    n = o.shape[0]
+    out = torch.empty_like(o)
+    state = torch.zeros(loop_ctl.STATE_SLOTS, dtype=torch.int64, device=dev)
+    per_live = nbytes(o[:1], d[:1], *(t[:1] for t in prim),
+                      *(t[:1] for t in tri))
+    without = time_ms(lambda: bounce.primary_shade(*args, out=out), 50)
+    return {
+        "shape": f"{label} batch 0, N={n}, live {live}, the live rows "
+                 "counted in its last block",
+        **bound(nbytes(alive, out, dscene.mat_packed, dscene.sky_a,
+                       dscene.sky_b, state) + live * per_live,
+                work((live, MERGE_OPS), (live, PRIMARY_SHADE_OPS))),
+        **timed(lambda: bounce.primary_shade(*args, out=out, state=state),
+                lambda: bounce.primary_shade_plain(*args), 50, 10),
+        "max_abs_err": 0.0,
+        "check": "array_equal, NaN equal to NaN; rays_cast and the search "
+                 "counter equal",
+        "row_extra": {"batches": batches,
+                      "without_count_ms": without["device"]
+                      if without["device"] is not None else without["wall"]}}
 
 
 DIRTY_COUNTER = 99   # a search's ray counter as a search leaves it
@@ -2720,6 +2871,8 @@ def phase_goldens(dev):
                 if launches[kernel] == 0:
                     raise AssertionError(f"{name} ({mode}): {kernel} never "
                                          "launched")
+            if mode == "primary" and launches["bounce_shade"] != 0:
+                raise AssertionError(f"{name}: the host loop's hit_shade ran")
     return rays
 
 
@@ -2731,7 +2884,8 @@ def phase_goldens(dev):
 MODE_KERNELS = {"wavefront": (*FUSED, "film_fold", "packet_compact"),
                 "persist": ("prims_nearest", "bounce_shade",
                             "persist_refill"),
-                "primary": (*FUSED, "film_fold")}
+                "primary": ("camera_rays", "prims_nearest", "primary_shade",
+                            "film_fold")}
 
 
 def mode_kernels(mode: str) -> tuple:
@@ -2739,7 +2893,9 @@ def mode_kernels(mode: str) -> tuple:
     three fused kernels and the film fold (with the cursor's step in its
     last block) in mode mega; with them the compaction in mode wavefront
     (the wave graph); in mode persist the pool graph's: the bounce's two
-    and persist_refill (the load, refills and commit)."""
+    and persist_refill (the load, refills and commit); in mode primary
+    the primary graph's: the camera, prims_nearest, primary_shade and the
+    fold."""
     return MODE_KERNELS.get(mode, (*FUSED, "film_fold"))
 
 
@@ -2871,17 +3027,17 @@ def phase_c5(label, shard, world):
 
 
 def phase_goldens_sharded(dev, golden_rays):
-    """g2..g5 through mesh.render_sharded, sharded by tiles and by spp on
-    this process's group: the megakernel's rays and the golden
-    tolerance, with the scene's search kernel launched."""
+    """g1..g5 through mesh.render_sharded, sharded by tiles and by spp on
+    this process's group: the unsharded render's rays and the golden
+    tolerance, with the scene's search kernel and its mode's kernels
+    launched (g1 through the primary graph: primary_shade, not the host
+    loop's hit_shade)."""
     from tpurt_torch import config, mesh
     from tpurt_torch.kernels import _build
     m = mesh.make_mesh(dev)
     total = dict.fromkeys(_build.LAUNCHES, 0)
     for name, kw in sorted(GOLDENS.items()):
         cfg = config.RenderConfig(**kw)
-        if cfg.mode != "mega":
-            continue
         for shard in ("tiles", "spp"):
             _build.reset_launches()
             img, stats = mesh.render_sharded(cfg.replace(shard=shard),
@@ -2895,9 +3051,13 @@ def phase_goldens_sharded(dev, golden_rays):
                 raise AssertionError(f"{name} ({shard}): {stats['rays']} "
                                      f"rays, the megakernel cast "
                                      f"{golden_rays[name]}")
-            if launches[search_kernel(cfg)] == 0:
-                raise AssertionError(f"{name} ({shard}): "
-                                     f"{search_kernel(cfg)} never launched")
+            for kernel in (search_kernel(cfg), *mode_kernels(cfg.mode)):
+                if launches[kernel] == 0:
+                    raise AssertionError(f"{name} ({shard}): {kernel} never "
+                                         "launched")
+            if cfg.mode == "primary" and launches["bounce_shade"] != 0:
+                raise AssertionError(f"{name} ({shard}): the host loop's "
+                                     "hit_shade ran")
             for k, v in launches.items():
                 total[k] += v
     return total
@@ -3097,6 +3257,20 @@ def graph_cases(golden_rays) -> dict:
             config.RenderConfig(**GOLDENS["g5-rr"]).replace(
                 mode="wavefront", shard=shard), "sharded",
             golden_rays["g5-rr"])
+    # mode primary through the primary graph: c1 at its own size, g1
+    # unsharded and by tiles and spp, a BVH scene (g4's blob), and c1
+    # through checkpoints; a primary render casts one ray a live sample
+    c1 = presets["c1-primary"]
+    cases["c1-primary"] = (c1, "render", c1.width * c1.height * c1.spp)
+    g1 = config.RenderConfig(**GOLDENS["g1-primary"])
+    for shard in ("none", "tiles", "spp"):
+        cases["g1-primary" + ("" if shard == "none" else f"-{shard}")] = (
+            g1.replace(shard=shard), "render" if shard == "none"
+            else "sharded", golden_rays["g1-primary"])
+    g4 = config.RenderConfig(**GOLDENS["g4-mesh"]).replace(mode="primary")
+    cases["g4-mesh-primary"] = (g4, "render", g4.width * g4.height * g4.spp)
+    cases["checkpoint-primary"] = (c1.replace(spp=CKPT_SPP), "checkpoint",
+                                   c1.width * c1.height * CKPT_SPP)
     return cases
 
 
@@ -3106,14 +3280,18 @@ def phase_graph(dev, golden_rays):
     by tiles and by spp (a group of one), g2..g5 unsharded and sharded,
     and c3 through checkpoints every 2 unsharded and by tiles; and mode
     wavefront through the wave graph and the host loop: c4 at C4_SPP,
-    g3 and g5, g5 by tiles and by spp. The films must be array-equal
+    g3 and g5, g5 by tiles and by spp; and mode primary through the
+    primary graph and the host loop: c1, g1 unsharded and by tiles and
+    spp, g4's blob, c1 through checkpoints. The films must be array-equal
     (the first graph render, which captures, and a second one on the
     cached graphs), the occupancy (the live history) equal, and every
     render must cast its case's rays; the graph's launches, counted by
     execution (the fixed nodes at each launch, the bounces from the
     device counter), must equal the host loop's for every kernel both
     run (but the compaction, which the wave graph runs once a stage of
-    tpurt's ladder: six a batch for c4), the fold one a batch and
+    tpurt's ladder: six a batch for c4, and the host loop's hit_shade,
+    where the primary graph runs primary_shade once a batch and no
+    bounce_shade), the fold one a batch and
     frame_graph's none (the fold's last block steps the cursor, and the
     loop's condition runs inside the camera and the bounce), and every
     cached graph's nodes must be the graph's shape (check_node_counts).
@@ -3167,6 +3345,7 @@ def phase_graph(dev, golden_rays):
                         and np.array_equal(img_w, img_h))
             rays = [st_g["rays"], st_w["rays"], st_h["rays"]]
             wave = cfg.mode == "wavefront"
+            primary = cfg.mode == "primary"
             # the live history, as occupancy (a render's, not a rank's)
             occ = [st.get("occupancy") for st in (st_g, st_w, st_h)]
             emit("graph", case=label, how=how, mode=cfg.mode, spp=cfg.spp,
@@ -3187,16 +3366,21 @@ def phase_graph(dev, golden_rays):
             if not occ[0] == occ[1] == occ[2]:
                 raise AssertionError(f"graph ({label}): occupancy {occ}")
             # the wave graph shrinks along tpurt's ladder (one compaction
-            # a stage, c4: six a batch), the host loop by powers of two
+            # a stage, c4: six a batch), the host loop by powers of two;
+            # the primary graph shades with primary_shade, the host loop
+            # with hit_shade (counted as bounce_shade) and eager torch
             shared = [k for k, v in lh.items() if v
-                      and not (wave and k == "packet_compact")]
+                      and not (wave and k == "packet_compact")
+                      and not (primary and k == "bounce_shade")]
             stages = lg["packet_compact"] / max(lg["camera_rays"], 1)
             # the cursor steps in the fold's last block: no advance node
             if any(lg[k] != lh[k] for k in shared) or \
                     lg["film_fold"] != lg["camera_rays"] or \
                     lg["frame_graph"] != 0 or \
                     (wave and stages < 1) or \
-                    (label == "c4-wavefront" and stages != 6):
+                    (label == "c4-wavefront" and stages != 6) or \
+                    (primary and (lg["bounce_shade"] != 0 or
+                                  lg["primary_shade"] != lg["camera_rays"])):
                 raise AssertionError(f"graph ({label}): launches by "
                                      f"execution {lg} against the host "
                                      f"loop's {lh}")
@@ -3207,7 +3391,7 @@ def phase_graph(dev, golden_rays):
     emit("graph", case="all", launches_by_execution=total,
          build=dict(frame_graph.BUILD_STATS), node_counts=nodes)
     if set(nodes) != {f"{cls}/{k}" for cls in ("FrameGraph", "WaveGraph",
-                                               "PoolGraph")
+                                               "PoolGraph", "PrimaryGraph")
                       for k in ("traverse_nearest", "nearest_tri_small")}:
         raise AssertionError(f"graph: node counts checked on {set(nodes)}")
     check_graph_views(dev, scenes)
@@ -3368,8 +3552,11 @@ def check_node_counts(label, seen) -> None:
     kernel nodes (prims_nearest, the search, bounce_shade) and no
     memset. A pool graph's parent holds the load, one WHILE node and
     the commit; its body four kernel nodes (the bounce's three and the
-    refill) and no memset. seen ("class/search kernel" -> graphs
-    checked) gains the graphs checked."""
+    refill) and no memset. A primary graph's parent holds five kernel
+    nodes (the camera, prims_nearest, the search, primary_shade, the
+    fold), no WHILE node, and a memset only sharded by spp. seen
+    ("class/search kernel" -> graphs checked) gains the graphs
+    checked."""
     from tpurt_torch.kernels import frame_graph
     graphs = [fg for fg in frame_graph._CACHE.values() if fg.exec is not None]
     if not graphs:
@@ -3380,8 +3567,8 @@ def check_node_counts(label, seen) -> None:
         cls = type(fg).__name__
         body = {"kernel": 4 if cls == "PoolGraph" else 3, "memset": 0,
                 "conditional": 0, "other": 0}
-        want = {"parent": {"kernel": 2 + (loops if cls == "WaveGraph"
-                                          else 0),
+        want = {"parent": {"kernel": 5 if cls == "PrimaryGraph"
+                           else 2 + (loops if cls == "WaveGraph" else 0),
                            "memset": int(fg.reduce), "conditional": loops,
                            "other": 0},
                 "bodies": [body] * loops}
@@ -3571,12 +3758,15 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaGraphLaunch")
 
 
-# kernels counted under another LAUNCHES name: frame_graph.cu's two, and
-# the pool's commit and load (counted as persist_refill launches)
+# kernels counted under another LAUNCHES name: frame_graph.cu's two, the
+# pool's commit and load (counted as persist_refill launches), and the
+# merge alone (hit_shade, counted as bounce_shade: mode primary's host
+# loop, which a parent before the primary graph runs)
 PROFILE_NAMES = {"frame_cond_kernel": "frame_graph",
                  "frame_advance_kernel": "frame_graph",
                  "film_commit_kernel": "persist_refill",
-                 "persist_load_kernel": "persist_refill"}
+                 "persist_load_kernel": "persist_refill",
+                 "hit_shade_kernel": "bounce_shade"}
 
 
 def kernel_launches(prof) -> dict:
@@ -3616,6 +3806,7 @@ PROFILE_RUNS = {
     "c4-persist": (["--preset", "c4-wavefront", "--mode", "persist"],
                    "traverse_nearest", PERSIST_SPP),
     "c5-tiles": (["--preset", "c5-multichip"], "traverse_nearest", 1),
+    "c1-primary": (["--preset", "c1-primary"], "nearest_tri_small", 1),
 }
 
 
@@ -3750,18 +3941,44 @@ def phase_child(name: str, on_card: bool = True, timeout: float = 600.0,
     return out
 
 
+# c1's primary graph as instantiated: five kernel nodes (the camera,
+# prims_nearest, the search, primary_shade, the fold), no WHILE node, no
+# memset, and so no body
+C1_NODES = {"parent": {"kernel": 5, "memset": 0, "conditional": 0,
+                       "other": 0}, "bodies": []}
+
+
 def phase_c1_primary():
     """c1-primary at its own size (640x480, 1 spp) through the CLI on the
     card, then through --oracle (the NumPy renderer): the same rays, and
     the card's image within the golden tolerance of the oracle's. The
-    card's run is a main path; its launch counts are returned."""
+    card's render must run as primary-graph launches (one a batch: c1 is
+    one batch), each graph of C1_NODES' shape, and launch primary_shade
+    and not hit_shade (counted as bounce_shade). The card's run is a main
+    path; its launch counts are returned."""
     import numpy as np
     from tpurt_torch import cli, film
-    from tpurt_torch.kernels import _build
+    from tpurt_torch.kernels import _build, frame_graph
     argv = ["render", "--preset", "c1-primary"]
-    _build.reset_launches()
-    img, stats = cli.run(argv)
-    launches = dict(_build.LAUNCHES)
+    graphs, get = [], frame_graph.get
+
+    def spy(*args, **kw):
+        # the CLI's scene goes with the render: its graphs are read here
+        g = get(*args, **kw)
+        graphs.append(g)
+        return g
+
+    before = dict(frame_graph.BUILD_STATS)
+    frame_graph.get = spy
+    try:
+        _build.reset_launches()
+        img, stats = cli.run(argv)
+        launches = dict(_build.LAUNCHES)
+    finally:
+        frame_graph.get = get
+    built = {k: frame_graph.BUILD_STATS[k] - v for k, v in before.items()}
+    nodes = [g.node_counts() for g in graphs]
+    kinds = sorted({type(g).__name__ for g in graphs})
     o_img, o_stats = cli.run([*argv, "--oracle"])
     if img.shape != (480, 640, 3) or not np.isfinite(img).all():
         raise AssertionError(f"c1-primary: bad film {img.shape}")
@@ -3771,16 +3988,26 @@ def phase_c1_primary():
     emit("c1-primary", spp=stats["spp"], rays=stats["rays"],
          oracle_rays=o_stats["rays"], wall_s=stats["wall_s"],
          mrays_per_s=stats["mrays_per_s"], oracle_wall_s=o_stats["wall_s"],
-         frac_off_gt1=frac, max_diff=worst, launches=launches)
+         frac_off_gt1=frac, max_diff=worst, launches=launches,
+         graph_launches=built["launches"], graphs=kinds,
+         graphs_built=built["graphs"], node_counts=nodes)
+    if built["launches"] != 1 or kinds != ["PrimaryGraph"] or \
+            any(got != C1_NODES for got in nodes):
+        raise AssertionError(f"c1-primary: {built['launches']} graph "
+                             f"launches of {kinds}, nodes {nodes}, expected "
+                             f"one PrimaryGraph launch of {C1_NODES}")
     if stats["rays"] != o_stats["rays"]:
         raise AssertionError(f"c1-primary: {stats['rays']} rays, the oracle "
                              f"cast {o_stats['rays']}")
     if frac >= 0.002 or worst > 8:
         raise AssertionError(f"c1-primary: outside the golden tolerance of "
                              f"the oracle's image ({frac}, {worst})")
-    for k in ("nearest_tri_small", *FUSED, "film_fold"):
+    for k in ("nearest_tri_small", *mode_kernels("primary")):
         if launches[k] == 0:
             raise AssertionError(f"c1-primary: {k} never launched")
+    if launches["bounce_shade"] != 0:
+        raise AssertionError("c1-primary: the host loop's hit_shade ran "
+                             f"({launches['bounce_shade']} launches)")
     return launches
 
 
@@ -3812,6 +4039,8 @@ SOURCES = {
                       "tpurt/trace.py:52"),
     "bounce_shade": ("tpurt_torch/kernels/csrc/bounce_shade.cu",
                      "tpurt/trace.py:271"),
+    "primary_shade": ("tpurt_torch/kernels/csrc/bounce_shade.cu",
+                      "tpurt/trace.py:419"),
     "film_fold": ("tpurt_torch/kernels/csrc/film_fold.cu",
                   "tpurt/render.py:167"),
     "packet_compact": ("tpurt_torch/kernels/csrc/packet_compact.cu",
@@ -3889,6 +4118,7 @@ def main() -> int:
                 "max_abs_err": res["max_abs_err"],
                 "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+                "share": res["bound_ms"] / res["ms"],
                 "ops_by_class": res["ops_by_class"],
                 "library_ms": res["library_ms"],
                 "by_kernel_ms": res.get("by_kernel_ms"),
@@ -3902,8 +4132,10 @@ def main() -> int:
     # on the render paths as device functions inside traverse_nearest
     # (0 launches of their own entry points, which are checked and timed
     # above); vmemloop runs on the probe's path; camera_rays,
-    # prims_nearest, bounce_shade and film_fold on every render path (in
-    # mode mega as nodes of the frame graph, counted by execution);
+    # prims_nearest and film_fold on every render path (in mode mega as
+    # nodes of the frame graph, counted by execution), bounce_shade on
+    # every one but c1-primary's, primary_shade on c1-primary's and g1's
+    # (one node a batch of the primary graph);
     # frame_graph on none (its kernels run on no render path: the loop's
     # condition runs inside camera_rays, bounce_shade and, in the wave
     # graph, packet_compact; the cursor's step inside film_fold and the

@@ -13,7 +13,8 @@ camera    — streams, jitter and primary rays of a ray batch (ports the
 prims     — sphere and plane nearest hit (ports the primitive half of
             tpurt/trace.py::intersect)
 bounce    — the bounce body after the searches (ports the rest of
-            tpurt/trace.py's compiled bounce loop)
+            tpurt/trace.py's compiled bounce loop), and mode primary's
+            shading after them (ports tpurt/trace.py::shade_primary)
 film_fold — a ray batch's samples folded into the tile-order film
             (ports the fold of tpurt/render.py's frame pass)
 compact   — the wavefront queue's packet compaction, shrink and commit
@@ -26,8 +27,10 @@ frame_graph, wave_graph — a batch of mode mega and of mode wavefront as
             one CUDA graph (port tpurt/render.py's one-dispatch frame
             passes, _accum_frame and _wavefront_frame); pool_graph — a
             pool of mode persist as one CUDA graph (ports tpurt's
-            one-dispatch trace_persistent); loop_ctl — their loop
-            control, run in the last block of a graph's kernels
+            one-dispatch trace_persistent); primary_graph — a batch
+            of mode primary as one CUDA graph with no loop; loop_ctl —
+            their loop control, run in the last block of a graph's
+            kernels
 
 The film fold is reached as ``kernels.film_fold.film_fold`` (the module
 shares the function's name). A wrapper runs the plain version only for
@@ -35,7 +38,7 @@ tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 ``_build.LAUNCHES`` counts the launches.
 """
 
-from .bounce import bounce_shade, hit_shade
+from .bounce import bounce_shade, hit_shade, primary_shade
 from .camera import camera_rays
 from .compact import packet_compact
 from .intersect import nearest_tri_small
@@ -49,4 +52,5 @@ from .vmemloop import node_step_loop
 __all__ = ["bounce_shade", "camera_rays", "hit_shade",
            "leaf_phase", "nearest_tri", "nearest_tri_small",
            "node_step_loop", "packet_compact", "persist_commit",
-           "persist_load", "persist_refill", "prims_nearest", "slab_step"]
+           "persist_load", "persist_refill", "primary_shade",
+           "prims_nearest", "slab_step"]

@@ -54,6 +54,7 @@ SIGNATURES = {
     "tt_camera_rays_cursor": "p" * 14 + "pipipip" + "ii",
     "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
     "tt_hit_shade": "p" * 17 + "i",
+    "tt_primary_shade": "p" * 19 + "i",
     "tt_bounce_shade": "p" * 8 + "iii" + "p" * 23 + "ipipip" + "i",
     "tt_film_fold": "ppp" + "iii" + "pi",
     "tt_frame_graph": "pp" + "ii",
@@ -78,8 +79,9 @@ SIGNATURES = {
 # one a node run of a frame graph; every one starts one CUDA kernel)
 LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
             "nearest_tri_small": 0, "vmemloop": 0, "camera_rays": 0,
-            "prims_nearest": 0, "bounce_shade": 0, "film_fold": 0,
-            "packet_compact": 0, "persist_refill": 0, "frame_graph": 0}
+            "prims_nearest": 0, "bounce_shade": 0, "primary_shade": 0,
+            "film_fold": 0, "packet_compact": 0, "persist_refill": 0,
+            "frame_graph": 0}
 
 # True while kernels/frame_graph.py captures a graph: the wrappers then
 # record nodes, which run (and are counted) only when the graph is

@@ -1,7 +1,10 @@
 """The bounce body after the searches: ``bounce_shade`` and ``hit_shade``
 (port of the rest of tpurt/trace.py's compiled bounce, intersect's merge
 and vertex-normal shading and the ``lax.while_loop`` body, to
-``csrc/bounce_shade.cu``).
+``csrc/bounce_shade.cu``), and mode primary's shading after the
+searches, ``primary_shade`` (port of tpurt/trace.py:419-432
+``shade_primary`` with the live-row mask and ray count of
+tpurt/render.py:160-164).
 
 Both take the primitives' hit ``prim`` = (t, n, mat) from
 ``prims.prims_nearest`` and the triangle search's ``tri`` = (t, n, mat,
@@ -22,7 +25,10 @@ the kernel's last block runs the next condition (``loop_ctl.loop_end_plain``
 in the plain version); with a staged loop (``Loop.cap`` set, the
 wavefront's graph) the packets holding a survivor also count into its
 live packet word, and the survivors into the loop's live history at the
-bounce index.
+bounce index. ``primary_shade`` returns the radiance of the merged hit
+(``primary_radiance``: Lambertian under config 1's light, or the sky),
++0.0 on a dead row; given the frame state, its last block adds the live
+rows into rays_cast (``loop_ctl.count_end_plain``).
 """
 
 from __future__ import annotations
@@ -34,9 +40,14 @@ from ..geometry import INF
 from . import _build
 from .camera import packet_live
 from .compact import PACKET_R
-from .loop_ctl import (DEPTH, live_word, loop_args, loop_end_plain,
+from .loop_ctl import (DEPTH, MAX_LOOP_BLOCKS, STATE_SLOTS,
+                       count_end_plain, live_word, loop_args, loop_end_plain,
                        packets_word)
 from .prims import closer
+
+# Decreed constants of config 1's primary-ray shading (frozen by goldens).
+PRIMARY_LIGHT_DIR = (0.57735027, 0.57735027, 0.57735027)
+PRIMARY_AMBIENT = 0.25
 
 
 def _gid_plain(scene, ht, idx):
@@ -93,6 +104,34 @@ def sky(scene, d):
 
 
 RR_CLAMP_LO, RR_CLAMP_HI = 0.05, 0.95
+
+
+def primary_radiance(scene, d, n, mat, ok):
+    """Config 1's one-bounce shading of hits (n, mat, ok; trace.intersect's
+    Hit fields): albedo * (ambient + (1 - ambient) * max(0, n.L)) +
+    emission on a hit, sky on a miss (tpurt's shade_primary)."""
+    light = torch.tensor(PRIMARY_LIGHT_DIR, dtype=torch.float32,
+                         device=d.device)
+    ndotl = torch.clamp_min(linalg.dot(n, light[None, :]), 0.0)
+    shade = PRIMARY_AMBIENT + (1.0 - PRIMARY_AMBIENT) * ndotl
+    mp = scene.mat_packed[mat.long()]
+    lit = mp[:, 1:4] * shade[:, None] + mp[:, 4:7]
+    return torch.where(ok[:, None], lit, sky(scene, d))
+
+
+def primary_shade_plain(scene, o, d, prim, tri, alive, state=None,
+                        counter=None):
+    """Plain PyTorch version of mode primary's shading after the
+    searches: the merged hit's primary_radiance on a live row, +0.0 on a
+    dead one (tpurt's where(validf, rad, 0.0)). Given ``state`` (the
+    frame state), rays_cast gains the live rows and ``counter`` is zeroed
+    (loop_ctl.count_end_plain)."""
+    _, n, _, mat, ok = hit_shade_plain(scene, o, d, prim, tri)
+    rad = torch.where(alive[:, None], primary_radiance(scene, d, n, mat, ok),
+                      0.0)
+    if state is not None:
+        count_end_plain(state, int(alive.sum()), counter)
+    return rad
 
 
 def bounce_shade_plain(scene, o, d, atten, rad, alive, keys, depth,
@@ -273,3 +312,45 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
                   *loop_args(loop, dev, -(-n // 256)), n)
     _build.count("bounce_shade")
     return outs
+
+
+def primary_shade(scene, o, d, prim, tri, alive, out=None, state=None,
+                  counter=None):
+    """Mode primary's shading after the searches on o's device: the plain
+    version for CPU tensors, the CUDA kernel (bounce_shade.cu's
+    tt_primary_shade) for CUDA tensors (or an error). alive (N,) bool: the
+    live rows (a dead row's radiance is +0.0 and its hits are not read).
+    ``out``, if given, is the (N, 3) radiance to write. ``state``, if
+    given, is the frame state (STATE_SLOTS,) int64 whose rays_cast gains
+    the live rows in the kernel's last block, which also zeroes
+    ``counter`` (traverse's (1,) int32 ray counter, or None). Returns the
+    radiance."""
+    if o.device.type == "cpu":
+        got = primary_shade_plain(scene, o, d, prim, tri, alive, state,
+                                  counter)
+        return got if out is None else out.copy_(got)
+    dev = _build.cuda_device("primary_shade", o)
+    n = o.shape[0]
+    _build.check("o", o, (n, 3), torch.float32, dev)
+    _build.check("d", d, (n, 3), torch.float32, dev)
+    _build.check("alive", alive, (n,), torch.bool, dev)
+    m = scene.mat_packed.shape[0]
+    _build.check("mat_packed", scene.mat_packed, (m, 16), torch.float32, dev)
+    _build.check("sky_a", scene.sky_a, (3,), torch.float32, dev)
+    _build.check("sky_b", scene.sky_b, (3,), torch.float32, dev)
+    if out is None:
+        out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    _build.check("rad out", out, (n, 3), torch.float32, dev)
+    if state is not None:
+        _build.check("state", state, (STATE_SLOTS,), torch.int64, dev)
+        if -(-n // 256) > MAX_LOOP_BLOCKS:
+            raise ValueError(f"primary_shade: {n} rays, more than the done "
+                             f"counter's {MAX_LOOP_BLOCKS} blocks")
+    if counter is not None:
+        _build.check("counter", counter, (1,), torch.int32, dev)
+    _build.launch("tt_primary_shade", dev, o, d, alive,
+                  *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
+                  scene.mat_packed, scene.sky_a, scene.sky_b, out, state,
+                  counter, n)
+    _build.count("primary_shade")
+    return out

@@ -25,7 +25,10 @@
 // of the parent graph and of a WHILE body. The wavefront's staged graph
 // (kernels/wave_graph.py) and the persistent pool's graph (kernels/
 // pool_graph.py) are captured through the same entry points, with one
-// WHILE node (and one condition handle) a stage or a pool.
+// WHILE node (and one condition handle) a stage or a pool, and mode
+// primary's graph (kernels/primary_graph.py) with none: tt_graph_begin
+// with no handle, no tt_graph_while, so both forms of the CUDA 13 split
+// below (capture_info, tt_graph_while) take a graph with no WHILE node.
 //
 // tt_frame_graph (the condition, loop_cond) and tt_frame_advance (the
 // cursor's step and the batch slots' reset, cursor_step) run on no
@@ -265,7 +268,8 @@ cudaError_t count_nodes(cudaGraph_t graph, NodeGetType get_type,
 // The nodes of a frame graph (tt_graph_end's out[1]) and of its WHILE
 // body (tt_graph_while's body_out), by type, into out (host memory, 8
 // int64): the parent's kernel, memset, conditional and other nodes, then
-// the body's.
+// the body's. body may be null (a graph with no WHILE node, the primary
+// graph's): the body's counts are then 0.
 extern "C" int tt_graph_node_counts(const void* graph, const void* body,
                                     void* out, void* stream) {
   (void)stream;
@@ -275,7 +279,7 @@ extern "C" int tt_graph_node_counts(const void* graph, const void* body,
   cudaError_t err = node_get_type(&get_type);
   if (err == cudaSuccess)
     err = count_nodes((cudaGraph_t)graph, get_type, counts);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && body != nullptr)
     err = count_nodes((cudaGraph_t)body, get_type, counts + 4);
   return (int)err;
 }

@@ -12,7 +12,7 @@
 // the host loop over pools (:270-292), which XLA keeps on the TPU. The
 // plain versions are kernels/loop_ctl.py::frame_cond_plain,
 // stage_cond_plain, compact_end_plain, frame_advance_plain,
-// pool_cond_plain and pool_end_plain.
+// pool_cond_plain, pool_end_plain and count_end_plain.
 //
 // The frame's state is one int64 array of STATE_SLOTS slots (the layout
 // of kernels/loop_ctl.py): 0 p0 (first pixel row of the batch), 1 s0
@@ -81,6 +81,12 @@
 // a unit of work: film_fold's last block runs cursor_step (the batch's),
 // the pool's commit's runs pool_end. Each of their blocks reads the
 // cursor, if at all, before its barrier and its ticket.
+// count_tail: the ticket with the block's live rows and no condition,
+// for mode primary's shade (bounce_shade.cu's primary_shade, in a graph
+// with no WHILE node): its last block adds the batch's live rows into
+// rays_cast (tpurt's nrays = sum(validf), tpurt/render.py:160-164), leaves
+// the bounces at 0 and zeroes the search's ray counter for the next
+// batch's search.
 //
 // Every TT_HD function is __host__ __device__ under nvcc and plain inline
 // under g++, which the CPU tests use to hold it against the plain
@@ -293,6 +299,19 @@ __device__ __forceinline__ void pool_tail(const LoopCtl& lc, int count) {
   const long long v = rays + *live_word(st);
   *live_word(st) = 0;
   loop_done(lc, pool_step(st, v));
+}
+
+// Mode primary's shade (thread 0 of every block, after the block's
+// barrier, count its live rows): the last block adds the live rows of
+// every block into rays_cast, puts the done counter back to 0 and zeroes
+// search_counter (may be null). No condition: the graph has no loop.
+__device__ __forceinline__ void count_tail(long long* st, int count,
+                                           int* search_counter) {
+  long long rays, pks;
+  if (!done_ticket(st, count, 0, rays, pks)) return;
+  st[RAYS] += rays;
+  st[DONE] = 0;
+  if (search_counter != nullptr) *search_counter = 0;
 }
 
 // A LoopCtl from a C entry point's arguments.

@@ -44,7 +44,8 @@ wrapper's plain version and the WHILE node as a Python loop over
 is written once and drives both: the capture records its nodes, the
 plain launch runs them. ``wave_graph.WaveGraph`` is the same machinery
 with the wavefront's staged schedule, ``pool_graph.PoolGraph`` with the
-persistent pool's. ``get`` caches one graph per
+persistent pool's, ``primary_graph.PrimaryGraph`` with mode primary's,
+which has no WHILE node. ``get`` caches one graph per
 (class, scene tensors, n, block, c, max_depth, rr_start, fold target,
 device, the pool's capacity):
 shapes only, since the view and the cursor are loaded for each call, so
@@ -78,8 +79,10 @@ from .loop_ctl import (  # noqa: F401
     DEPTH, DONE, GO, ITERS, K, LIVE, P0, RAYS, S0, STATE_SLOTS, Loop,
     frame_advance_plain, frame_cond_plain, live_word)
 
-# capture and instantiate seconds of the graphs built so far, on a card
-BUILD_STATS = {"graphs": 0, "capture_s": 0.0, "instantiate_s": 0.0}
+# the graphs built so far on a card, their capture and instantiate
+# seconds, and the graph launches so far
+BUILD_STATS = {"graphs": 0, "capture_s": 0.0, "instantiate_s": 0.0,
+               "launches": 0}
 
 
 def search(scene, o, d, t_max, out=None, counter_zeroed=False):
@@ -330,17 +333,18 @@ class FrameGraph:
     def node_counts(self) -> dict:
         """The captured graph's nodes by type, as instantiated: {"parent":
         {"kernel", "memset", "conditional", "other"}, "bodies": the same
-        for each WHILE node's body, in order}."""
+        for each WHILE node's body, in order; none for a graph with no
+        WHILE node}."""
         kinds = ("kernel", "memset", "conditional", "other")
-        parent, bodies = None, []
-        for body in self.bodies:
+        vals = []
+        for body in self.bodies or [None]:
             out = torch.zeros(8, dtype=torch.int64)
             _build.launch("tt_graph_node_counts", self.device, self.graph,
                           body, out)
-            vals = out.tolist()
-            parent = dict(zip(kinds, vals[:4]))
-            bodies.append(dict(zip(kinds, vals[4:])))
-        return {"parent": parent, "bodies": bodies}
+            vals.append(out.tolist())
+        return {"parent": dict(zip(kinds, vals[0][:4])),
+                "bodies": [dict(zip(kinds, v[4:])) for v in vals
+                           if self.bodies]}
 
     # -- one call of render.accumulate -----------------------------------
 
@@ -396,6 +400,7 @@ class FrameGraph:
                            run_while)
             return
         _build.launch("tt_graph_launch", self.device, self.exec)
+        BUILD_STATS["launches"] += 1
         for kernel, n in self.per_launch.items():
             _build.LAUNCHES[kernel] += n
 
@@ -415,8 +420,9 @@ _CACHE: dict = {}
 
 def get(scene, n: int, block: int, c: int, max_depth: int, rr_start,
         reduce: bool, device, cls=FrameGraph, cap=None) -> FrameGraph:
-    """The ``cls`` graph (FrameGraph, wave_graph.WaveGraph, or
-    pool_graph.PoolGraph with its pool's capacity ``cap``) of this
+    """The ``cls`` graph (FrameGraph, wave_graph.WaveGraph,
+    primary_graph.PrimaryGraph, or pool_graph.PoolGraph with its pool's
+    capacity ``cap``) of this
     batch shape on this scene, cached (on a card, one capture per key);
     the entry goes when any of the scene's tensors is freed."""
     dev = torch.device(device)

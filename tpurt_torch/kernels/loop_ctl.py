@@ -3,11 +3,12 @@
 wavefront's staged conditions and live history, tpurt/wavefront.py:
 305-332, the persistent pool's cond, nrays and iters, tpurt/
 wavefront.py:457-464, and the frame passes' loop indices, tpurt/
-render.py:144-176, :299-341): the frame state's layout, its plain
-versions ``frame_cond_plain`` / ``stage_cond_plain`` /
-``compact_end_plain`` / ``frame_advance_plain`` / ``pool_cond_plain`` /
-``pool_end_plain`` and ``Loop``, the loop control that a graph hands to
-the kernel that makes the live count (``csrc/loop_ctl.cuh``).
+render.py:144-176, :299-341, and mode primary's nrays, :160-164): the
+frame state's layout, its plain versions ``frame_cond_plain`` /
+``stage_cond_plain`` / ``compact_end_plain`` / ``frame_advance_plain`` /
+``pool_cond_plain`` / ``pool_end_plain`` / ``count_end_plain`` and
+``Loop``, the loop control that a graph hands to the kernel that makes
+the live count (``csrc/loop_ctl.cuh``).
 
 The state (``STATE_SLOTS`` int64): P0, S0 (the cursor), RAYS, ITERS
 (rays_cast and bounces run, summed over the graph's launches), DEPTH
@@ -36,7 +37,9 @@ counts the live slots into rays_cast and steps the iterations. The
 pool's commit ends it (``pool_end_plain``): the pool's rays and
 iterations go into a per-pool record and the cursor steps to the next
 pool. A batch of the other graphs ends with the fold, whose last block
-steps the cursor (``frame_advance_plain``).
+steps the cursor (``frame_advance_plain``). Mode primary's graph has no
+loop: the last block of its shade adds the batch's live rows into
+rays_cast and runs no condition (``count_end_plain``).
 
 Mode mega's condition (``Loop.cap`` None) takes the live count whether
 or not the loop goes on. The wavefront's staged condition (``cap`` an
@@ -175,6 +178,16 @@ def pool_end_plain(state, record, block: int, n_pad: int, c: int):
     record[int(state[P0]) // block] = state[RAYS:ITERS + 1]
     state[RAYS:ITERS + 1] = 0
     return frame_advance_plain(state, block, n_pad, c)
+
+
+def count_end_plain(state, live: int, counter=None) -> None:
+    """What the last block of mode primary's shade does (csrc/
+    loop_ctl.cuh's count_tail), in plain PyTorch: rays_cast gains the
+    batch's ``live`` rows, the bounces stay, and the search's ray counter
+    (1,) int32, if given, is zeroed."""
+    state[RAYS] += live
+    if counter is not None:
+        counter.zero_()
 
 
 def loop_end_plain(loop: Loop) -> None:

@@ -8,7 +8,11 @@ and the film is permuted back at the end, by order tensors uploaded
 once per frame size (``order_cached``). The block loop (``accumulate``)
 runs over any list of pixel ids, so a rank of a sharded render
 (``mesh``) traces its share through it. Each batch is traced by mode:
-``primary`` (one-bounce shading); ``wavefront``, a
+``primary`` (one-bounce shading), a ``kernels.primary_graph.PrimaryGraph``
+launch a batch, which on a card is one CUDA graph of five kernels and no
+loop (tpurt's one-dispatch ``_accum_frame`` in mode primary), or, when a
+caller asks for the host loop, ``trace.shade_primary`` (eager torch
+after the merge); ``wavefront``, a
 ``kernels.wave_graph.WaveGraph`` launch a batch, which on a card is one
 CUDA graph whose queue shrinks along tpurt's stage ladder on the device
 (tpurt's one-dispatch ``_wavefront_frame``), or, when a caller asks for
@@ -39,7 +43,7 @@ import torch
 
 from . import metrics, trace, wavefront
 from .config import RenderConfig, build_scene
-from .kernels import frame_graph, pool_graph, wave_graph
+from .kernels import frame_graph, pool_graph, primary_graph, wave_graph
 from .kernels import camera as camera_k
 from .kernels import film_fold as fold_k
 from .scene import Scene, to_device
@@ -47,6 +51,10 @@ from .scene import Scene, to_device
 BRUTE_RAY_BATCH = 1 << 17  # batch cap for no-BVH bounce paths
 _TILE_W, _TILE_H = 16, 8   # one 128-ray packet = one 16x8 tile
 MODES = ("primary", "mega", "wavefront", "persist")
+# accumulate's graph a batch by mode; the megakernel's frame graph for
+# the rest (a sharded rank's persist too)
+GRAPHS = {"primary": primary_graph.PrimaryGraph,
+          "wavefront": wave_graph.WaveGraph}
 
 
 def effective_ray_batch(cfg: RenderConfig, scene: Scene) -> int:
@@ -136,7 +144,9 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     ``kernels.film_fold``; ``reduce``, if given, maps each batch's
     per-pixel sum before it is added (the sample-sharded render sums it
     over ranks there).
-    Modes: primary; wavefront, the staged wave graph
+    Modes: primary, the primary graph (``kernels.primary_graph``), or
+    with ``host_loop`` the host's batch loop over
+    ``trace.shade_primary``; wavefront, the staged wave graph
     (``kernels.wave_graph``), or with ``host_loop`` the host's batch
     loop over the shrinking ``wavefront.trace_chunk``; and the
     megakernel for every other mode: the frame graph
@@ -161,9 +171,8 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     ok = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
           else valid)
     pix = pix.long()
-    if cfg.mode != "primary" and not host_loop:
-        cls = (wave_graph.WaveGraph if cfg.mode == "wavefront"
-               else frame_graph.FrameGraph)
+    if not host_loop:
+        cls = GRAPHS.get(cfg.mode, frame_graph.FrameGraph)
         return _accumulate_graph(cfg, scene, cam, pix, ok, block,
                                  sample_start, sample_stop, spp_chunk, acc,
                                  reduce, cls)
@@ -214,7 +223,7 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
 def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
                       sample_stop, spp_chunk, acc, reduce, cls):
     """accumulate's graph path: per run of equal chunks, one ``cls``
-    graph (FrameGraph, or WaveGraph for the wavefront) launched once a
+    graph (GRAPHS' by mode, else FrameGraph) launched once a
     batch (the cursor steps on the device), the film rows loaded into it
     before and copied back after; with ``reduce``, each batch's part is
     summed over ranks and added to acc between launches. Nothing is read

@@ -25,17 +25,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import linalg
 from .kernels import bounce as bounce_k
 from .kernels import compact, frame_graph, prims
-from .kernels.bounce import RR_CLAMP_HI, RR_CLAMP_LO, sky  # noqa: F401
+from .kernels.bounce import (  # noqa: F401
+    PRIMARY_AMBIENT, PRIMARY_LIGHT_DIR, RR_CLAMP_HI, RR_CLAMP_LO, sky)
 
 # rays per traversal packet (compact.PACKET_R); batches are whole packets
 PACKET_R = compact.PACKET_R
-
-# Decreed constants of config 1's primary-ray shading (frozen by goldens).
-PRIMARY_LIGHT_DIR = (0.57735027, 0.57735027, 0.57735027)
-PRIMARY_AMBIENT = 0.25
 
 
 class Hit(NamedTuple):
@@ -131,12 +127,9 @@ def trace(scene, o, d, keys, max_depth: int,
 def shade_primary(scene, o, d):
     """Config 1: one-bounce Lambertian shading, no secondary rays:
     albedo * (ambient + (1 - ambient) * max(0, n.L)) + emission on a
-    hit, sky on a miss. Returns (radiance (N,3), rays)."""
+    hit, sky on a miss (``kernels.bounce.primary_radiance``), every row
+    intersected. Returns (radiance (N,3), rays). The eager form that
+    render.accumulate's host loop runs; the primary graph runs the same
+    shading as one kernel (``kernels.bounce.primary_shade``)."""
     h = intersect(scene, o, d)
-    light = torch.tensor(PRIMARY_LIGHT_DIR, dtype=torch.float32,
-                         device=o.device)
-    ndotl = torch.clamp_min(linalg.dot(h.n, light[None, :]), 0.0)
-    shade = PRIMARY_AMBIENT + (1.0 - PRIMARY_AMBIENT) * ndotl
-    mp = scene.mat_packed[h.mat.long()]
-    lit = mp[:, 1:4] * shade[:, None] + mp[:, 4:7]
-    return torch.where(h.ok[:, None], lit, sky(scene, d)), o.shape[0]
+    return bounce_k.primary_radiance(scene, d, h.n, h.mat, h.ok), o.shape[0]
