@@ -61,7 +61,7 @@ exits non-zero and prints no result):
                  batch and on the last, ragged block of a BVH scene's
                  (dead rows): radiance array-equal, rays_cast and the
                  search counter equal (check_primary_shade), timed on
-                 c1's batch with its count and without
+                 c1's batch with its count
   6. frame     — (mega through the host loop) every film_fold,
                  packet_compact and persist_refill call
                  (and persist_commit, the refill kernel's commit-only
@@ -1399,7 +1399,8 @@ def phase_fused(dev):
         "shape": f"c3 batch 0 bounce {depth}, N={o.shape[0]}, live {live}, "
                  "in place, given the loop (its step in the last block)",
         "checked_calls": totals("bounce_shade", "hit_shade"),
-        **bound(nbytes(o, d, atten, rad, alive, keys, *prim, *tri,
+        **bound(nbytes(o, d, atten, rad, alive, keys, *prim, *tri[:4],
+                       *(tri[4:] if reads_gid(scene, tri) else ()),
                        scene.mat_packed, scene.sky_a, scene.sky_b, *outs),
                 work((o.shape[0], MERGE_OPS), (live, BOUNCE_LIVE_OPS))),
         **check_bounce_in_place(args, outs, max_depth),
@@ -1431,6 +1432,15 @@ def phase_fused(dev):
     return {**rows, "loop_step": loop_step}
 
 
+def reads_gid(scene, tri) -> bool:
+    """Whether the hit merge (bounce_shade.cu's hit_of) reads the
+    triangle search's index (tri[4]) and, in primary_shade, the origin:
+    only for a scene with vertex normals, whose branch alone uses them."""
+    from tpurt_torch.kernels import bounce
+    return bounce._tri_args(scene, tri, tri[0].shape[0],
+                            tri[0].device)[-1] is not None
+
+
 # mode primary's shading of a live ray after the merge: n.L (3 mul, 2
 # add), its clamp, shade (a mul and an add), albedo * shade + emission (3
 # mul, 3 add) and the select of the hit against the sky (a miss's sky is
@@ -1458,9 +1468,8 @@ def check_primary_shade(dev, cases=None) -> dict:
     radiance must be array-equal (dead rows +0.0 to the bit), and the
     frame state's rays_cast must gain the live rows and the search's ray
     counter be zeroed, as the plain version leaves them. Then the kernel
-    and its plain version are timed on c1's batch, with the state (the
-    count in the last block) and without it, with the bound. Returns the
-    kernel's row."""
+    (its count in the last block) and its plain version are timed on
+    c1's batch, with the bound. Returns the kernel's row."""
     import torch
     from tpurt_torch import config, render
     from tpurt_torch import scene as scene_mod
@@ -1491,8 +1500,7 @@ def check_primary_shade(dev, cases=None) -> dict:
         states = [state.clone(), state.clone()]
         counters = [None if counter is None else counter.clone()
                     for _ in range(2)]
-        got = bounce.primary_shade(*args, state=states[0],
-                                   counter=counters[0])
+        got = bounce.primary_shade(*args, states[0], counter=counters[0])
         want = bounce.primary_shade_plain(*args, states[1], counters[1])
         same, bits, err = same_values(got, want)
         live = int(alive.sum())
@@ -1516,24 +1524,27 @@ def check_primary_shade(dev, cases=None) -> dict:
     dscene, o, d, prim, tri, alive = args
     n = o.shape[0]
     out = torch.empty_like(o)
-    state = torch.zeros(loop_ctl.STATE_SLOTS, dtype=torch.int64, device=dev)
-    per_live = nbytes(o[:1], d[:1], *(t[:1] for t in prim),
-                      *(t[:1] for t in tri))
-    without = time_ms(lambda: bounce.primary_shade(*args, out=out), 50)
+    states = [torch.zeros(loop_ctl.STATE_SLOTS, dtype=torch.int64,
+                          device=dev) for _ in range(2)]
+    # a live row reads its direction and both hits; its origin and the
+    # triangle's index only with vertex normals (reads_gid)
+    per_live = nbytes(d[:1], *(t[:1] for t in prim),
+                      *(t[:1] for t in tri[:4]))
+    if reads_gid(dscene, tri):
+        per_live += nbytes(o[:1], tri[4][:1])
     return {
         "shape": f"{label} batch 0, N={n}, live {live}, the live rows "
                  "counted in its last block",
         **bound(nbytes(alive, out, dscene.mat_packed, dscene.sky_a,
-                       dscene.sky_b, state) + live * per_live,
+                       dscene.sky_b, states[0]) + live * per_live,
                 work((live, MERGE_OPS), (live, PRIMARY_SHADE_OPS))),
-        **timed(lambda: bounce.primary_shade(*args, out=out, state=state),
-                lambda: bounce.primary_shade_plain(*args), 50, 10),
+        **timed(lambda: bounce.primary_shade(*args, states[0], out=out),
+                lambda: bounce.primary_shade_plain(*args, states[1]), 50,
+                10),
         "max_abs_err": 0.0,
         "check": "array_equal, NaN equal to NaN; rays_cast and the search "
                  "counter equal",
-        "row_extra": {"batches": batches,
-                      "without_count_ms": without["device"]
-                      if without["device"] is not None else without["wall"]}}
+        "row_extra": {"batches": batches}}
 
 
 DIRTY_COUNTER = 99   # a search's ray counter as a search leaves it

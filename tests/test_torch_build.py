@@ -5,8 +5,8 @@ The kernels load through ctypes, which trusts ``_build.SIGNATURES`` for
 every argument: a table that disagrees with a source passes garbage
 pointers, and that fails only on a card. So each ``extern "C" int
 tt_*(...)`` in ``kernels/csrc/*.cu`` is parsed here and held against the
-table: the number of arguments, pointer or int for each, and the CUDA
-stream last.
+table: the number of arguments, pointer, int or float for each, and the
+CUDA stream last.
 """
 
 import re
@@ -38,8 +38,9 @@ def test_every_entry_point_has_a_signature_and_back():
 
 @pytest.mark.parametrize("entry", sorted(_build.SIGNATURES))
 def test_signature_matches_source(entry):
-    """Kinds in order: a pointer parameter is 'p', an int 'i'; the last
-    parameter is the stream, a void pointer the table leaves implicit."""
+    """Kinds in order: a pointer parameter is 'p', an int 'i', a float
+    'f'; the last parameter is the stream, a void pointer the table leaves
+    implicit."""
     params = SOURCES[entry]
     *args, stream = params
     assert stream == "void* stream", (entry, stream)
@@ -48,6 +49,8 @@ def test_signature_matches_source(entry):
         if "*" in p:
             assert p.startswith(("const void*", "void*")), (entry, p)
             kinds += "p"
+        elif p.startswith("float "):
+            kinds += "f"
         else:
             assert p.startswith("int "), (entry, p)
             kinds += "i"

@@ -179,9 +179,11 @@ def test_primary_shade_dead_rows_count_and_counter(shaded):
         loop_ctl.STATE_SLOTS - loop_ctl.ITERS)
     assert int(counter) == 0
     out = torch.full_like(rad, float("nan"))
+    again = torch.zeros_like(state)
     back = bounce_k.primary_shade(dev, _t(o), _t(d), prim, tri, _t(alive),
-                                  out=out)
+                                  again, out=out)
     assert back is out and torch.equal(out, rad)
+    assert int(again[loop_ctl.RAYS]) == int(alive.sum())
 
 
 SHIM = r"""
@@ -190,20 +192,23 @@ SHIM = r"""
 extern "C" void sh_primary(int n, const float* d, const float* nrm,
                            const int* mat, const bool* ok,
                            const float* mat_packed, const float* sky,
-                           float* rad) {
+                           float lx, float ly, float lz, float ambient,
+                           float diffuse, float* rad) {
+  const tt::PrimaryLight lt{tt::v3(lx, ly, lz), ambient, diffuse};
   for (int i = 0; i < n; ++i)
     tt::store3(rad + 3 * i,
                tt::primary_shade(tt::load3(d + 3 * i), tt::load3(nrm + 3 * i),
                                  mat[i], ok[i], mat_packed, tt::load3(sky),
-                                 tt::load3(sky + 3)));
+                                 tt::load3(sky + 3), lt));
 }
 """
 
 
 def test_primary_shade_header_bit_equal_through_gpp(shaded, tmp_path):
     """The kernel's per-ray shading (shade_common.cuh's primary_shade,
-    g++ -O2 -ffp-contract=off) on the plain version's merged hits: bit
-    for bit primary_radiance's."""
+    g++ -O2 -ffp-contract=off) on the plain version's merged hits, given
+    the light and ambient as the wrapper passes them (bounce.py's
+    constants as float32): bit for bit primary_radiance's."""
     _, _, dev, o, d, _, prim, tri, _, _, _ = shaded
     src, lib = tmp_path / "shim.cpp", tmp_path / "libshim.so"
     src.write_text(SHIM)
@@ -218,8 +223,11 @@ def test_primary_shade_header_bit_equal_through_gpp(shaded, tmp_path):
         d, nrm.numpy(), mat.numpy(), ok.numpy(), dev.mat_packed.numpy(),
         np.concatenate([dev.sky_a.numpy(), dev.sky_b.numpy()]))]
     got = np.empty_like(want)
+    light = (*bounce_k.PRIMARY_LIGHT_DIR, bounce_k.PRIMARY_AMBIENT,
+             1.0 - bounce_k.PRIMARY_AMBIENT)
     shim.sh_primary(ctypes.c_int(o.shape[0]),
                     *(ctypes.c_void_p(a.ctypes.data) for a in arrs),
+                    *(ctypes.c_float(x) for x in light),
                     ctypes.c_void_p(got.ctypes.data))
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
@@ -372,8 +380,10 @@ def test_primary_shade_and_graph_raise_off_the_cpu():
     prim = (torch.zeros(n, device="meta"), meta,
             torch.zeros(n, dtype=torch.int32, device="meta"))
     tri = prim + (alive, prim[2])
+    state = torch.zeros(loop_ctl.STATE_SLOTS, dtype=torch.int64,
+                        device="meta")
     with pytest.raises(ValueError):
-        bounce_k.primary_shade(cpu, meta, meta, prim, tri, alive)
+        bounce_k.primary_shade(cpu, meta, meta, prim, tri, alive, state)
     g = primary_graph.PrimaryGraph(cpu, n, n, 1, 4, None, False, "meta")
     assert g.exec is None
     with pytest.raises(ValueError):

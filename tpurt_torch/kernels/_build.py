@@ -38,7 +38,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C entry point -> argument kinds: p = device pointer, i = int. Every
+# C entry point -> argument kinds: p = device pointer, i = int, f =
+# float. Every
 # entry point takes the CUDA stream last and returns a cudaError_t. A
 # pointer an entry point documents as optional may be given as None (a
 # null pointer). tt_hit_shade is bounce_shade.cu's kernel stopped after
@@ -54,7 +55,7 @@ SIGNATURES = {
     "tt_camera_rays_cursor": "p" * 14 + "pipipip" + "ii",
     "tt_prims_nearest": "p" * 7 + "i" + "p" * 3 + "i" + "p" * 3 + "i",
     "tt_hit_shade": "p" * 17 + "i",
-    "tt_primary_shade": "p" * 19 + "i",
+    "tt_primary_shade": "p" * 19 + "fffff" + "i",
     "tt_bounce_shade": "p" * 8 + "iii" + "p" * 23 + "ipipip" + "i",
     "tt_film_fold": "ppp" + "iii" + "pi",
     "tt_frame_graph": "pp" + "ii",
@@ -74,6 +75,8 @@ SIGNATURES = {
     "tt_persist_load": "p" * 9 + "i" + "ppp" + "iii" + "pipipip",
     "tt_persist_commit": "p" * 5 + "i" * 4,
 }
+
+ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 # kernel name -> launches since the last reset (one a wrapper call, or
 # one a node run of a frame graph; every one starts one CUDA kernel)
@@ -170,8 +173,7 @@ def load():
         lib = ctypes.CDLL(build()["path"])
         for name, kinds in SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
-                           for k in kinds] + [ctypes.c_void_p]
+            fn.argtypes = [ARG_TYPES[k] for k in kinds] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.tt_error_string.argtypes = [ctypes.c_int]
         lib.tt_error_string.restype = ctypes.c_char_p
@@ -224,11 +226,11 @@ def aligned(kernel: str, align: int, *tensors) -> None:
 
 def launch(entry: str, device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream with
-    tensors passed as device pointers, None as a null pointer and ints as
-    ints; raise if the launch reports an error."""
+    tensors passed as device pointers, None as a null pointer, floats as
+    floats and ints as ints; raise if the launch reports an error."""
     fn = getattr(load(), entry)
     cargs = [a.data_ptr() if torch.is_tensor(a) else 0 if a is None
-             else int(a) for a in args]
+             else a if isinstance(a, float) else int(a) for a in args]
     with torch.cuda.device(device):
         rc = fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:

@@ -27,8 +27,10 @@ wavefront's graph) the packets holding a survivor also count into its
 live packet word, and the survivors into the loop's live history at the
 bounce index. ``primary_shade`` returns the radiance of the merged hit
 (``primary_radiance``: Lambertian under config 1's light, or the sky),
-+0.0 on a dead row; given the frame state, its last block adds the live
-rows into rays_cast (``loop_ctl.count_end_plain``).
++0.0 on a dead row; its last block adds the live rows into the frame
+state's rays_cast (``loop_ctl.count_end_plain``). The light and ambient
+are ``PRIMARY_LIGHT_DIR`` and ``PRIMARY_AMBIENT`` here alone: the kernel
+takes them as float32 arguments.
 """
 
 from __future__ import annotations
@@ -119,18 +121,17 @@ def primary_radiance(scene, d, n, mat, ok):
     return torch.where(ok[:, None], lit, sky(scene, d))
 
 
-def primary_shade_plain(scene, o, d, prim, tri, alive, state=None,
+def primary_shade_plain(scene, o, d, prim, tri, alive, state,
                         counter=None):
     """Plain PyTorch version of mode primary's shading after the
     searches: the merged hit's primary_radiance on a live row, +0.0 on a
-    dead one (tpurt's where(validf, rad, 0.0)). Given ``state`` (the
-    frame state), rays_cast gains the live rows and ``counter`` is zeroed
+    dead one (tpurt's where(validf, rad, 0.0)). The frame state's
+    rays_cast gains the live rows and ``counter``, if given, is zeroed
     (loop_ctl.count_end_plain)."""
     _, n, _, mat, ok = hit_shade_plain(scene, o, d, prim, tri)
     rad = torch.where(alive[:, None], primary_radiance(scene, d, n, mat, ok),
                       0.0)
-    if state is not None:
-        count_end_plain(state, int(alive.sum()), counter)
+    count_end_plain(state, int(alive.sum()), counter)
     return rad
 
 
@@ -314,17 +315,16 @@ def bounce_shade(scene, o, d, atten, rad, alive, keys, depth, rr_start,
     return outs
 
 
-def primary_shade(scene, o, d, prim, tri, alive, out=None, state=None,
+def primary_shade(scene, o, d, prim, tri, alive, state, out=None,
                   counter=None):
     """Mode primary's shading after the searches on o's device: the plain
     version for CPU tensors, the CUDA kernel (bounce_shade.cu's
     tt_primary_shade) for CUDA tensors (or an error). alive (N,) bool: the
     live rows (a dead row's radiance is +0.0 and its hits are not read).
-    ``out``, if given, is the (N, 3) radiance to write. ``state``, if
-    given, is the frame state (STATE_SLOTS,) int64 whose rays_cast gains
-    the live rows in the kernel's last block, which also zeroes
-    ``counter`` (traverse's (1,) int32 ray counter, or None). Returns the
-    radiance."""
+    ``state`` is the frame state (STATE_SLOTS,) int64 whose rays_cast
+    gains the live rows in the kernel's last block, which also zeroes
+    ``counter`` (traverse's (1,) int32 ray counter, or None). ``out``, if
+    given, is the (N, 3) radiance to write. Returns the radiance."""
     if o.device.type == "cpu":
         got = primary_shade_plain(scene, o, d, prim, tri, alive, state,
                                   counter)
@@ -338,19 +338,19 @@ def primary_shade(scene, o, d, prim, tri, alive, out=None, state=None,
     _build.check("mat_packed", scene.mat_packed, (m, 16), torch.float32, dev)
     _build.check("sky_a", scene.sky_a, (3,), torch.float32, dev)
     _build.check("sky_b", scene.sky_b, (3,), torch.float32, dev)
+    _build.check("state", state, (STATE_SLOTS,), torch.int64, dev)
+    if not 0 < -(-n // 256) <= MAX_LOOP_BLOCKS:
+        raise ValueError(f"primary_shade: {n} rays, not 1 to the done "
+                         f"counter's {MAX_LOOP_BLOCKS} blocks")
     if out is None:
         out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     _build.check("rad out", out, (n, 3), torch.float32, dev)
-    if state is not None:
-        _build.check("state", state, (STATE_SLOTS,), torch.int64, dev)
-        if -(-n // 256) > MAX_LOOP_BLOCKS:
-            raise ValueError(f"primary_shade: {n} rays, more than the done "
-                             f"counter's {MAX_LOOP_BLOCKS} blocks")
     if counter is not None:
         _build.check("counter", counter, (1,), torch.int32, dev)
     _build.launch("tt_primary_shade", dev, o, d, alive,
                   *_prim_args(prim, n, dev), *_tri_args(scene, tri, n, dev),
                   scene.mat_packed, scene.sky_a, scene.sky_b, out, state,
-                  counter, n)
+                  counter, *PRIMARY_LIGHT_DIR, PRIMARY_AMBIENT,
+                  1.0 - PRIMARY_AMBIENT, n)
     _build.count("primary_shade")
     return out

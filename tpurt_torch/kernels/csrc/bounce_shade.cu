@@ -55,16 +55,18 @@
 // sum(validf) of tpurt/render.py:160-164, XLA-fused into _accum_frame's
 // one dispatch; plain version kernels/bounce.py::primary_shade_plain):
 // per ray the same merge (hit_of), then shade_common.cuh's primary_shade
-// (the Lambertian term with config 1's light and ambient, the material
-// row read through the merged int32 material id, the sky on a miss), and
-// +0.0 on a dead row, which reads no input but its alive flag (the
-// searches skip dead rows, so their hits are not read). Given the frame
-// state, each block's live rows go with its ticket into the done counter
-// and the last block adds them into rays_cast and zeroes the search's ray
-// counter (loop_ctl.cuh's count_tail): the primary graph
-// (kernels/primary_graph.py) has no WHILE node and no memset. Bound by
-// device-memory bytes (~82 B a live ray, ~30 operations); one thread a
-// ray, as hit_shade.
+// (the Lambertian term with config 1's light and ambient, given as
+// float32 by kernels/bounce.py, the material row read through the merged
+// int32 material id, the sky on a miss), and +0.0 on a dead row, which
+// reads no input but its alive flag (the searches skip dead rows, so
+// their hits are not read). The origin and the triangle's index are read
+// only for a scene with vertex normals, whose branch of the merge alone
+// uses them. Each block's live rows go with its ticket into the done
+// counter and the last block adds them into the frame state's rays_cast
+// and zeroes the search's ray counter (loop_ctl.cuh's count_tail): the
+// primary graph (kernels/primary_graph.py) has no WHILE node and no
+// memset. Bound by device-memory bytes (~66 B a live ray without vertex
+// normals, ~30 operations); one thread a ray, as hit_shade.
 //
 // Bound on the H100: device-memory bytes (~230 B a ray; three threefry
 // calls, a cos, sin, double pow and a few divisions and square roots are
@@ -105,9 +107,11 @@ __device__ __forceinline__ void hit_of(const Hits& h, int i, tt::V3 o,
   n = tt::load3(h.n_p + 3 * (size_t)i);
   mat = h.m_p[i];
   const bool ht = h.h_t[i];
-  const int gid = h.tri_src == nullptr ? h.idx[i]
-                  : ht                 ? h.tri_src[h.idx[i]]
-                                       : -1;
+  // the gid feeds only the vertex-normal branch of the merge
+  const int gid = h.tri_shn == nullptr ? -1
+                  : h.tri_src == nullptr ? h.idx[i]
+                  : ht                   ? h.tri_src[h.idx[i]]
+                                         : -1;
   tt::merge_hit(o, d, t, n, mat, h.t_t[i], tt::load3(h.n_t + 3 * (size_t)i),
                 h.m_t[i], ht, gid, h.tri_shn, front, ok);
 }
@@ -143,11 +147,14 @@ __global__ void primary_shade_kernel(const float* __restrict__ o,
                                      float* __restrict__ rad,
                                      long long* state,
                                      int* __restrict__ search_counter,
-                                     int n) {
+                                     tt::PrimaryLight lt, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n && alive[i];
   if (live) {
-    const tt::V3 ro = tt::load3(o + 3 * (size_t)i);
+    // the origin feeds only the vertex-normal branch of the merge
+    const tt::V3 ro = h.tri_shn == nullptr
+                          ? tt::v3(0.0f, 0.0f, 0.0f)
+                          : tt::load3(o + 3 * (size_t)i);
     const tt::V3 rd = tt::load3(d + 3 * (size_t)i);
     float t;
     tt::V3 nrm;
@@ -156,14 +163,12 @@ __global__ void primary_shade_kernel(const float* __restrict__ o,
     hit_of(h, i, ro, rd, t, nrm, mat, front, ok);
     tt::store3(rad + 3 * (size_t)i,
                tt::primary_shade(rd, nrm, mat, ok, mat_packed,
-                                 tt::load3(sky_a), tt::load3(sky_b)));
+                                 tt::load3(sky_a), tt::load3(sky_b), lt));
   } else if (i < n) {
     tt::store3(rad + 3 * (size_t)i, tt::v3(0.0f, 0.0f, 0.0f));
   }
-  if (state != nullptr) {
-    const int c = __syncthreads_count(live);
-    if (threadIdx.x == 0) tt::count_tail(state, c, search_counter);
-  }
+  const int c = __syncthreads_count(live);
+  if (threadIdx.x == 0) tt::count_tail(state, c, search_counter);
 }
 
 __global__ void bounce_shade_kernel(
@@ -266,29 +271,30 @@ extern "C" int tt_hit_shade(const void* o, const void* d, const void* t_p,
 }
 
 // Mode primary's shading: o, d (n,3) f32, alive (n,) bool, the hits as
-// tt_hit_shade takes them (tri_src and tri_shn may be null), mat_packed
-// (M,16) f32, sky_a and sky_b (3,) f32. Writes rad (n,3): the shade of a
-// live row, +0.0 on a dead one. state: null, or the frame's state
-// (loop_ctl.cuh; at most 65,536 blocks of 256 rows), whose rays_cast
-// gains the live rows in the last block to finish, which also zeroes
-// search_counter (int32, may be null).
+// tt_hit_shade takes them (tri_src and tri_shn may be null; o is read
+// only with tri_shn), mat_packed (M,16) f32, sky_a and sky_b (3,) f32,
+// the light (lx, ly, lz) and the ambient and diffuse weights as float32.
+// Writes rad (n,3): the shade of a live row, +0.0 on a dead one. state:
+// the frame's state (loop_ctl.cuh; at most 65,536 blocks of 256 rows),
+// whose rays_cast gains the live rows in the last block to finish, which
+// also zeroes search_counter (int32, may be null).
 extern "C" int tt_primary_shade(
     const void* o, const void* d, const void* alive, const void* t_p,
     const void* n_p, const void* m_p, const void* t_t, const void* n_t,
     const void* m_t, const void* h_t, const void* idx, const void* tri_src,
     const void* tri_shn, const void* mat_packed, const void* sky_a,
-    const void* sky_b, void* rad, void* state, void* search_counter, int n,
+    const void* sky_b, void* rad, void* state, void* search_counter,
+    float lx, float ly, float lz, float ambient, float diffuse, int n,
     void* stream) {
   const int blocks = (n + THREADS - 1) / THREADS;
-  if (state != nullptr && (n <= 0 || blocks > (1 << 16)))
+  if (state == nullptr || n <= 0 || blocks > (1 << 16))
     return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    primary_shade_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)o, (const float*)d, (const bool*)alive,
-        make_hits(t_p, n_p, m_p, t_t, n_t, m_t, h_t, idx, tri_src, tri_shn),
-        (const float*)mat_packed, (const float*)sky_a, (const float*)sky_b,
-        (float*)rad, (long long*)state, (int*)search_counter, n);
-  }
+  primary_shade_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)o, (const float*)d, (const bool*)alive,
+      make_hits(t_p, n_p, m_p, t_t, n_t, m_t, h_t, idx, tri_src, tri_shn),
+      (const float*)mat_packed, (const float*)sky_a, (const float*)sky_b,
+      (float*)rad, (long long*)state, (int*)search_counter,
+      tt::PrimaryLight{tt::v3(lx, ly, lz), ambient, diffuse}, n);
   return (int)cudaGetLastError();
 }
 

@@ -186,23 +186,24 @@ TT_HD V3 sky(V3 d, V3 a, V3 b) {
             a.z + t * (b.z - a.z));
 }
 
-// Config 1's decreed light and ambient term (trace.PRIMARY_LIGHT_DIR,
-// PRIMARY_AMBIENT): each light component, the ambient and 1 - ambient as
-// the Python floats rounded to float32, as torch rounds a scalar operand.
-constexpr float K_LIGHT = (float)0.57735027;
-constexpr float K_AMBIENT = (float)0.25;
-constexpr float K_DIFFUSE = (float)(1.0 - 0.25);
+// Config 1's decreed light and ambient term (kernels/bounce.py's
+// PRIMARY_LIGHT_DIR and PRIMARY_AMBIENT): each light component, the
+// ambient and 1 - ambient as the Python floats rounded to float32, as
+// torch rounds a scalar operand.
+struct PrimaryLight {
+  V3 dir;
+  float ambient, diffuse;
+};
 
 // trace.shade_primary of one ray after the merge: on a hit, the material
 // row's albedo * shade + emission with shade = ambient + (1 - ambient) *
 // clamp_min(dot(n, L), 0), each product and sum rounded once in that
 // order; on a miss, the sky. The material row is read on a hit only.
 TT_HD V3 primary_shade(V3 d, V3 n, int mat, bool ok, const float* mat_packed,
-                       V3 sky_a, V3 sky_b) {
+                       V3 sky_a, V3 sky_b, PrimaryLight lt) {
   if (!ok) return sky(d, sky_a, sky_b);
-  const float ndotl =
-      clamp_min(dot(n, v3(K_LIGHT, K_LIGHT, K_LIGHT)), 0.0f);
-  const float shade = K_AMBIENT + K_DIFFUSE * ndotl;
+  const float ndotl = clamp_min(dot(n, lt.dir), 0.0f);
+  const float shade = lt.ambient + lt.diffuse * ndotl;
   const float* mp = mat_packed + (long long)mat * 16;
   return v3(mp[1] * shade + mp[4], mp[2] * shade + mp[5],
             mp[3] * shade + mp[6]);
