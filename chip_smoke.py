@@ -351,6 +351,17 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+def graph_stats() -> dict:
+    """The graphs captured so far in this process, their capture and
+    instantiation seconds, and the graph launches so far, from the
+    port's span table (metrics.SPANS' graph.capture and graph.launch)."""
+    from tpurt_torch import metrics
+    cap = metrics.SPANS.get("graph.capture", {})
+    return {"graphs": cap.get("calls", 0),
+            "capture_s": cap.get("seconds", 0.0),
+            "launches": metrics.SPANS.get("graph.launch", {}).get("calls", 0)}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -409,8 +420,11 @@ def is_flush(key: str) -> bool:
 def on_device(e) -> bool:
     """A profile item that ran on the card (a kernel, copy or memset),
     not an operator or runtime call on the host (whose device time, with
-    CPU activity on, repeats its kernels')."""
-    return str(getattr(e, "device_type", "")).endswith("CUDA")
+    CPU activity on, repeats its kernels'), nor a span's range on the
+    card (a record_function, such as the port's metrics spans, whose
+    device time repeats its kernels' too)."""
+    return str(getattr(e, "device_type", "")).endswith("CUDA") and \
+        not getattr(e, "is_user_annotation", False)
 
 
 def device_us(prof, keep=lambda key: True) -> float:
@@ -2942,12 +2956,12 @@ def phase_preset(label, argv, shape, kernel, spp_preset, world=None,
     kernels of ``mode``); with ``world``, a sharded render whose stats
     must name that many devices."""
     from tpurt_torch import cli
-    from tpurt_torch.kernels import _build, frame_graph
-    built = dict(frame_graph.BUILD_STATS)
+    from tpurt_torch.kernels import _build
+    built = graph_stats()
     _build.reset_launches()
     img, stats = cli.run(["render", *argv])
     launches = dict(_build.LAUNCHES)
-    built = {k: frame_graph.BUILD_STATS[k] - v for k, v in built.items()}
+    built = {k: graph_stats()[k] - v for k, v in built.items()}
     check_film(label, img, shape, launches, kernel, mode_kernels(mode))
     check_rays(label, stats["rays"], world)
     if world is not None and stats["devices"] != world:
@@ -2959,8 +2973,7 @@ def phase_preset(label, argv, shape, kernel, spp_preset, world=None,
          launches=launches, mean_radiance=float(img.mean()),
          occupancy=stats.get("occupancy"), devices=stats.get("devices"),
          shard=stats.get("shard"), graphs_built=built["graphs"],
-         graph_capture_s=built["capture_s"],
-         graph_instantiate_s=built["instantiate_s"])
+         graph_capture_s=built["capture_s"])
     return launches
 
 
@@ -3342,12 +3355,11 @@ def phase_graph(dev, golden_rays):
                     cfg, dscene, cam, f"{tmp}/{label}.npz", every=2,
                     mesh=m, device=dev, host_loop=host_loop)
 
-            built = dict(frame_graph.BUILD_STATS)
+            built = graph_stats()
             _build.reset_launches()
             img_g, st_g = draw(False)
             lg = dict(_build.LAUNCHES)
-            built = {k: frame_graph.BUILD_STATS[k] - v
-                     for k, v in built.items()}
+            built = {k: graph_stats()[k] - v for k, v in built.items()}
             img_w, st_w = draw(False)
             _build.reset_launches()
             img_h, st_h = draw(True)
@@ -3364,7 +3376,6 @@ def phase_graph(dev, golden_rays):
                  occupancy_equal=occ[0] == occ[1] == occ[2],
                  films_array_equal=same, graphs_built=built["graphs"],
                  capture_s=built["capture_s"],
-                 instantiate_s=built["instantiate_s"],
                  graph_wall_first_s=st_g["wall_s"],
                  graph_wall_s=st_w["wall_s"], host_loop_wall_s=st_h["wall_s"],
                  launches_by_execution=lg, host_loop_launches=lh)
@@ -3400,7 +3411,7 @@ def phase_graph(dev, golden_rays):
             check_node_counts(label, nodes)
     check_pool_renders(dev, golden_rays, scenes, nodes, total)
     emit("graph", case="all", launches_by_execution=total,
-         build=dict(frame_graph.BUILD_STATS), node_counts=nodes)
+         build=graph_stats(), node_counts=nodes)
     if set(nodes) != {f"{cls}/{k}" for cls in ("FrameGraph", "WaveGraph",
                                                "PoolGraph", "PrimaryGraph")
                       for k in ("traverse_nearest", "nearest_tri_small")}:
@@ -3491,11 +3502,11 @@ def check_pool_renders(dev, golden_rays, scenes, nodes, total) -> None:
             torch.cuda.synchronize()
             return film, rays, sink, time.perf_counter() - t0
 
-        built = dict(frame_graph.BUILD_STATS)
+        built = graph_stats()
         _build.reset_launches()
         f_g, r_g, s_g, wall_g = draw(False)
         lg = dict(_build.LAUNCHES)
-        built = {k: frame_graph.BUILD_STATS[k] - v for k, v in built.items()}
+        built = {k: graph_stats()[k] - v for k, v in built.items()}
         f_w, r_w, s_w, wall_w = draw(False)
         _build.reset_launches()
         f_h, r_h, s_h, wall_h = draw(True)
@@ -3516,8 +3527,7 @@ def check_pool_renders(dev, golden_rays, scenes, nodes, total) -> None:
              pools=pools, iterations=s_g["persist_iterations"],
              occupancy=s_g["persist_occupancy"], films=errs,
              films_nonnegative=nonneg, graphs_built=built["graphs"],
-             capture_s=built["capture_s"],
-             instantiate_s=built["instantiate_s"], graph_wall_first_s=wall_g,
+             capture_s=built["capture_s"], graph_wall_first_s=wall_g,
              graph_wall_s=wall_w, host_loop_wall_s=wall_h,
              launches_by_execution=lg, host_loop_launches=lh)
         if not nonneg or not all(e["within"] for e in errs):
@@ -3619,7 +3629,7 @@ def check_graph_views(dev, scenes) -> None:
     images = []
     for k, (label, c, seed) in enumerate(views):
         if k == 1:
-            built = frame_graph.BUILD_STATS["graphs"]
+            built = graph_stats()["graphs"]
             entries = len(frame_graph._CACHE)
         run = cfg.replace(seed=seed)
         img_g, st_g = render.render(run, dscene, c, device=dev)
@@ -3633,7 +3643,7 @@ def check_graph_views(dev, scenes) -> None:
         if not same or st_g["rays"] != st_h["rays"]:
             raise AssertionError(f"graph (view {label}): the graph's film or "
                                  "rays differ from the host loop's")
-    if frame_graph.BUILD_STATS["graphs"] != built or \
+    if graph_stats()["graphs"] != built or \
             len(frame_graph._CACHE) != entries:
         raise AssertionError("graph (views): a new camera or seed captured "
                              "another graph")
@@ -3750,6 +3760,39 @@ def pool_walls(reps: int = WALL_REPS) -> dict:
             raise AssertionError(f"pool_walls ({label}): rays")
     emit("pool_walls", preset="c4-wavefront", mode="persist",
          spp=PERSIST_SPP, device=smi_line(), **out)
+    return out
+
+
+def span_cost(calls: int = 200_000) -> dict:
+    """The host's cost of one empty span (tpurt_torch.metrics.span), in
+    microseconds over an empty loop: with torch.profiler off (the
+    clock read twice, the span table updated), then while it records
+    the CPU and the card (the span also opens record_function). Run it
+    in a process that has not profiled before."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tpurt_torch import metrics
+
+    def per_call(body, n):
+        t = time.perf_counter()
+        for _ in range(n):
+            body()
+        return (time.perf_counter() - t) / n * 1e6
+
+    def one():
+        with metrics.span("span.cost"):
+            pass
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    n_on = calls // 20
+    off = per_call(one, calls) - per_call(lambda: None, calls)
+    with profile(activities=acts):
+        on = per_call(one, n_on) - per_call(lambda: None, n_on)
+    metrics.SPANS.pop("span.cost", None)
+    out = {"off_us": off, "on_us": on, "calls_off": calls, "calls_on": n_on}
+    emit("span_cost", device=smi_line(), **out)
     return out
 
 
@@ -3979,7 +4022,7 @@ def phase_c1_primary():
         graphs.append(g)
         return g
 
-    before = dict(frame_graph.BUILD_STATS)
+    before = graph_stats()
     frame_graph.get = spy
     try:
         _build.reset_launches()
@@ -3987,7 +4030,7 @@ def phase_c1_primary():
         launches = dict(_build.LAUNCHES)
     finally:
         frame_graph.get = get
-    built = {k: frame_graph.BUILD_STATS[k] - v for k, v in before.items()}
+    built = {k: graph_stats()[k] - v for k, v in before.items()}
     nodes = [g.node_counts() for g in graphs]
     kinds = sorted({type(g).__name__ for g in graphs})
     o_img, o_stats = cli.run([*argv, "--oracle"])

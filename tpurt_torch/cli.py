@@ -16,7 +16,11 @@ without a card that is an error, and the CPU is used only when
 ``--device cpu`` asks for it. Dispatch as tpurt's: --oracle, else
 --checkpoint, else a sharded render (--shard tiles | spp, or a preset
 that shards), else the plain render. Under torchrun every rank renders
-its share and rank 0 alone prints and writes --out / --json-metrics.
+its share and rank 0 alone prints and writes --out / --json-metrics;
+the stats carry the scene's counts ("scene") and the process's span
+table ("spans", tpurt_torch.metrics.SPANS: calls and seconds of the BVH
+build, each graph capture and launch, the film's way out, each
+collective).
 --profile-dir wraps the render in torch.profiler and writes one Chrome
 trace per rank into the directory.
 """
@@ -133,10 +137,7 @@ def run(argv=None):
     }
     cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
 
-    with metrics.Phase("scene_build") as ph:
-        scene, cam = config_mod.build_scene(cfg)
-    metrics.log_event("scene", build_s=round(ph.seconds, 3),
-                      **metrics.scene_stats(scene))
+    scene, cam = config_mod.build_scene(cfg)
 
     before = dict(_build.LAUNCHES)
     prof = None
@@ -156,6 +157,8 @@ def run(argv=None):
     stats["config"] = {k: getattr(cfg, k) for k in
                        ("width", "height", "spp", "max_depth", "seed",
                         "scene", "mode", "rr_start", "shard")}
+    stats["scene"] = metrics.scene_stats(scene)
+    stats["spans"] = {k: dict(v) for k, v in metrics.SPANS.items()}
     if prof is not None:
         os.makedirs(args.profile_dir, exist_ok=True)
         trace_path = os.path.join(args.profile_dir,

@@ -63,11 +63,11 @@ bounces' kernel runs, which only the device knows, to
 
 from __future__ import annotations
 
-import time
 import weakref
 
 import torch
 
+from .. import metrics
 from . import _build
 from . import bounce as bounce_k
 from . import camera as camera_k
@@ -78,11 +78,6 @@ from . import intersect, prims, traverse
 from .loop_ctl import (  # noqa: F401
     DEPTH, DONE, GO, ITERS, K, LIVE, P0, RAYS, S0, STATE_SLOTS, Loop,
     frame_advance_plain, frame_cond_plain, live_word)
-
-# the graphs built so far on a card, their capture and instantiate
-# seconds, and the graph launches so far
-BUILD_STATS = {"graphs": 0, "capture_s": 0.0, "instantiate_s": 0.0,
-               "launches": 0}
 
 
 def search(scene, o, d, t_max, out=None, counter_zeroed=False):
@@ -290,13 +285,12 @@ class FrameGraph:
                          step=self.state, n_pad=self.n_pad)
 
     def _capture(self, scene):
+        """Capture and instantiate the graph (a ``graph.capture`` span)."""
         dev = self.device
         side, body = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
         n_loops = self.n_loops
         # host words: the WHILE handles, exec, graph, then the bodies
         words = torch.zeros(2 * n_loops + 2, dtype=torch.int64)
-        t0 = time.perf_counter()
-        _build.CAPTURING[0] = True
 
         def run_while(k, fn):
             _build.launch("tt_graph_while", dev, loops[k].handle,
@@ -305,27 +299,24 @@ class FrameGraph:
                 fn()
                 _build.launch("tt_graph_while_end", dev)
 
-        try:
-            with torch.cuda.stream(side):
-                _build.launch("tt_graph_begin", dev, words, n_loops)
-                loops = self._loops([int(w) & 0xFFFFFFFFFFFFFFFF
-                                     for w in words[:n_loops]])
-                self._schedule(scene, loops, run_while)
-                t1 = time.perf_counter()
-                _build.launch("tt_graph_end", dev, words[n_loops:])
-        except BaseException:
-            with torch.cuda.stream(side):
-                _build.launch("tt_graph_abort", dev, body.cuda_stream)
-            raise
-        finally:
-            _build.CAPTURING[0] = False
-        t2 = time.perf_counter()
+        with metrics.span("graph.capture"):
+            _build.CAPTURING[0] = True
+            try:
+                with torch.cuda.stream(side):
+                    _build.launch("tt_graph_begin", dev, words, n_loops)
+                    loops = self._loops([int(w) & 0xFFFFFFFFFFFFFFFF
+                                         for w in words[:n_loops]])
+                    self._schedule(scene, loops, run_while)
+                    _build.launch("tt_graph_end", dev, words[n_loops:])
+            except BaseException:
+                with torch.cuda.stream(side):
+                    _build.launch("tt_graph_abort", dev, body.cuda_stream)
+                raise
+            finally:
+                _build.CAPTURING[0] = False
         vals = [int(w) for w in words]
         self.exec, self.graph = vals[n_loops:n_loops + 2]
         self.bodies = vals[n_loops + 2:]
-        BUILD_STATS["graphs"] += 1
-        BUILD_STATS["capture_s"] += t1 - t0
-        BUILD_STATS["instantiate_s"] += t2 - t1
         fin = weakref.finalize(self, _build.launch, "tt_graph_destroy", dev,
                                self.exec, self.graph)
         fin.atexit = False
@@ -386,21 +377,21 @@ class FrameGraph:
         bounces by read_tally from ITERS), the plain schedule on the CPU.
         scene: the scene the graph was made for (the plain schedule reads
         it; a captured graph holds its tensors' addresses)."""
-        if self.exec is None:
-            self.stage_bounces = []
+        with metrics.span("graph.launch"):
+            if self.exec is None:
+                self.stage_bounces = []
 
-            def run_while(k, fn):
-                runs = 0
-                while int(self.state[GO]):
-                    fn()
-                    runs += 1
-                self.stage_bounces.append(runs)
+                def run_while(k, fn):
+                    runs = 0
+                    while int(self.state[GO]):
+                        fn()
+                        runs += 1
+                    self.stage_bounces.append(runs)
 
-            self._schedule(scene, self._loops([None] * self.n_loops),
-                           run_while)
-            return
-        _build.launch("tt_graph_launch", self.device, self.exec)
-        BUILD_STATS["launches"] += 1
+                self._schedule(scene, self._loops([None] * self.n_loops),
+                               run_while)
+                return
+            _build.launch("tt_graph_launch", self.device, self.exec)
         for kernel, n in self.per_launch.items():
             _build.LAUNCHES[kernel] += n
 

@@ -98,13 +98,16 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
                            sample_start: int, sample_stop: int,
                            film_flat: Optional[np.ndarray] = None,
                            mesh: Optional[Mesh] = None,
-                           host_loop: bool = False):
+                           host_loop: bool = False, mean: bool = False):
     """Add the radiance sum of samples [sample_start, sample_stop) over
     the mesh to film_flat (npix, 3), a host float32 array, so the result
     is directly checkpointable. Every rank returns (film_flat,
-    rays_cast). Modes as tpurt's: primary, wavefront (render.accumulate's
-    wave graph), and the megakernel for every other mode (persist
-    included): its frame graph; with host_loop, its host loops."""
+    rays_cast); with ``mean``, film_flat divided by the sample count.
+    Modes as tpurt's: primary, wavefront (render.accumulate's wave
+    graph), and the megakernel for every other mode (persist included):
+    its frame graph; with host_loop, its host loops. Each collective is
+    a ``mesh.collective`` span, and the film's way out, from the
+    gathered sums to the host array, one ``frame.film``."""
     _check(cfg)
     if mesh is None:
         mesh = make_mesh()
@@ -131,13 +134,13 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
         film_tiled = torch.as_tensor(film_flat, device=dev)[pix]
 
         def reduce(part):
-            dist.all_reduce(part, group=mesh.group)
+            with metrics.span("mesh.collective"):
+                dist.all_reduce(part, group=mesh.group)
             return part
 
         tally = render_mod.accumulate(cfg, scene, cam, pix, valid, lo,
                                       lo + per_dev, film_tiled,
                                       reduce=reduce, host_loop=host_loop)
-        film_flat = film_tiled[inv].cpu().numpy()
     else:  # tiles
         # the tile order padded to a multiple of the world (pad: dead),
         # one contiguous share per rank
@@ -150,19 +153,29 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
                                       gvalid[lo:lo + block], sample_start,
                                       sample_stop, acc, host_loop=host_loop)
         parts = [torch.empty_like(acc) for _ in range(world)]
-        dist.all_gather(parts, acc, group=mesh.group)
-        # rows follow the tile order: un-permute, adding the call's sums
-        # to the film once (the order of additions that keeps resume
-        # exact); on the device, then one copy to the host
-        film_d = torch.tensor(film_flat, device=dev)
-        film_d += torch.cat(parts)[inv]
-        film_flat = film_d.cpu().numpy()
+        with metrics.span("mesh.collective"):
+            dist.all_gather(parts, acc, group=mesh.group)
     # the rays summed over ranks (int64: a full c5 frame casts ~2e10),
-    # the bounces this rank's graphs ran kept as they are
+    # the bounces this rank's graphs ran kept as they are; read before
+    # the film, so that the card's work is done when the film's span
+    # starts
     rays = tally[:1].clone()
-    dist.all_reduce(rays, group=mesh.group)
-    return film_flat, frame_graph.read_tally(scene,
-                                             torch.cat([rays, tally[1:]]))
+    with metrics.span("mesh.collective"):
+        dist.all_reduce(rays, group=mesh.group)
+    rays = frame_graph.read_tally(scene, torch.cat([rays, tally[1:]]))
+    with metrics.span("frame.film"):
+        if cfg.shard == "spp":
+            film_flat = film_tiled[inv].cpu().numpy()
+        else:
+            # rows follow the tile order: un-permute, adding the call's
+            # sums to the film once (the order of additions that keeps
+            # resume exact); on the device, then one copy to the host
+            film_d = torch.tensor(film_flat, device=dev)
+            film_d += torch.cat(parts)[inv]
+            film_flat = film_d.cpu().numpy()
+        if mean:
+            film_flat = film_flat / n_samples
+    return film_flat, rays
 
 
 def render_sharded(cfg: RenderConfig, scene: Optional[Scene] = None,
@@ -179,8 +192,9 @@ def render_sharded(cfg: RenderConfig, scene: Optional[Scene] = None,
     t0 = time.perf_counter()
     film_flat, total_rays = render_samples_sharded(cfg, scene, cam, 0,
                                                    cfg.spp, mesh=mesh,
-                                                   host_loop=host_loop)
-    film = (film_flat / cfg.spp).reshape(cfg.height, cfg.width, 3)
+                                                   host_loop=host_loop,
+                                                   mean=True)
+    film = film_flat.reshape(cfg.height, cfg.width, 3)
     wall = time.perf_counter() - t0
     stats = metrics.build_stats(total_rays, wall, cfg.width, cfg.height,
                                 cfg.spp, devices=mesh.world, shard=cfg.shard)

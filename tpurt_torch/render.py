@@ -366,8 +366,9 @@ def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,
     film_flat, total_rays = render_samples(cfg, scene, cam, 0, cfg.spp,
                                            stats_sink=sink,
                                            host_loop=host_loop)
-    film = (film_flat / cfg.spp).cpu().numpy().reshape(
-        cfg.height, cfg.width, 3)
+    with metrics.span("frame.film"):
+        film = (film_flat / cfg.spp).cpu().numpy().reshape(
+            cfg.height, cfg.width, 3)
     wall = time.perf_counter() - t0
     stats = metrics.build_stats(total_rays, wall, cfg.width, cfg.height,
                                 cfg.spp)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import bvh as bvh_mod
+from . import metrics
 from .camera import Camera, make_camera
 
 LAMBERTIAN, METAL, DIELECTRIC, EMISSIVE = 0, 1, 2, 3
@@ -198,11 +199,12 @@ class SceneBuilder:
         tri_src = None
         pk_oct_nodes = pk_oct_cut = None
         if use_bvh:
-            pk = bvh_mod.build_packet(tv0, tv1, tv2, tm, octants=True)
+            with metrics.span("scene.bvh"):
+                pk = bvh_mod.build_packet(tv0, tv1, tv2, tm, octants=True)
+                tree = bvh_mod.build(tv0, tv1, tv2, tm)
             pk_nodes, pk_leaves, pk_cut = pk.nodes, pk.leaves, pk.cut
             pk_oct_nodes = pk.oct_nodes.reshape(-1, 16)
             pk_oct_cut = pk.oct_cut
-            tree = bvh_mod.build(tv0, tv1, tv2, tm)
             # the BVH's leaf-padded soup replaces the raw soup
             tri_v0, tri_e1, tri_e2, tri_m = (
                 tree.tri_v0, tree.tri_e1, tree.tri_e2, tree.tri_mat)
