@@ -30,7 +30,13 @@ tpurt's one-dispatch frame pass.
     one scene render through the same FrameGraph, each film array-equal
     to the host loop's;
   * batch_schedule: the runs tpurt's render_samples dispatches
-    (tpurt/render.py:249-263).
+    (tpurt/render.py:249-263);
+  * the mega frame pass's two lanes (render._lanes): at 2, 3 and 5
+    blocks, c = 1 and c > 1, the film array-equal to the one-lane
+    path's and the host loop's, rays cast and bounces equal, each film
+    row copied back by one lane's graph, a graph.pair span a pair; a
+    list of one block, a ``reduce`` call and the wave and primary graphs
+    take one lane (no graph.pair span).
 The CUDA kernels and the captured graph are held against these on the
 card by chip_smoke.py's ``graph`` phase.
 """
@@ -44,6 +50,7 @@ from tpurt import film  # noqa: E402
 from tpurt import render as jrender  # noqa: E402
 from tpurt_torch import camera as camera_mod  # noqa: E402
 from tpurt_torch import config as tconfig  # noqa: E402
+from tpurt_torch import metrics  # noqa: E402
 from tpurt_torch import render as trender  # noqa: E402
 from tpurt_torch import scene as tscene  # noqa: E402
 from tpurt_torch import trace as ttrace  # noqa: E402
@@ -562,3 +569,101 @@ def test_graph_wrappers_raise_off_the_cpu(small, fn):
                                                       dtype=torch.int64,
                                                       device="meta"),
                                       128, 256, 2))
+
+
+# the mega frame pass's lanes: (ray_batch, spp_chunk) -> the blocks of
+# SMALL's 1,200-pixel list and the samples a chunk
+LANE_CASES = {
+    "2-blocks-c1": (640, 0),     # 640 + 560 rows: one block a lane
+    "3-blocks-c1": (512, 0),     # 1,024 + 176: two blocks and one
+    "5-blocks-c1": (256, 0),     # 768 + 432: three blocks and two
+    "2-blocks-c2": (640, 2),     # chunks of 2 samples, then the tail's 1
+    "5-blocks-c2": (256, 2),
+}
+
+
+def _lane_call(scene, cam, cfg, reduce=None, host_loop=False):
+    """render.accumulate over SMALL's unpadded tile order. Returns (the
+    film rows, the tally, the graph.pair span's calls, the graph.launch
+    span's calls)."""
+    pix = torch.from_numpy(trender.tile_order(cfg.width, cfg.height)
+                           .astype(np.int64))
+    acc = torch.zeros((pix.shape[0], 3))
+    metrics.reset_spans()
+    tally = trender.accumulate(cfg, scene, cam, pix, None, 0, cfg.spp, acc,
+                               reduce=reduce, host_loop=host_loop)
+    calls = [metrics.SPANS.get(k, {}).get("calls", 0)
+             for k in ("graph.pair", "graph.launch")]
+    metrics.reset_spans()
+    return acc, tally, *calls
+
+
+@pytest.mark.parametrize("name", sorted(LANE_CASES))
+def test_two_lanes_equal_one_lane(small, monkeypatch, name):
+    """A mega call over two blocks or more runs two lanes: the film is
+    array-equal to the one-lane path's (and to the host loop's), rays
+    cast and the bounces run are equal, every film row is copied back by
+    exactly one lane's graph (the blocks' first half, the larger when
+    odd, and the rest), and each A-then-B pair is one graph.pair span."""
+    scene, cam = small
+    ray_batch, spp_chunk = LANE_CASES[name]
+    cfg = SMALL.replace(ray_batch=ray_batch, spp_chunk=spp_chunk)
+    n = cfg.width * cfg.height
+    block = trender.block_size(n, ray_batch)
+    n_blocks = -(-n // block)
+    copied = []
+    end = fg_k.FrameGraph.end
+
+    def record(fg, acc):
+        copied.append((id(fg), acc.storage_offset() // 3, acc.shape[0]))
+        end(fg, acc)
+
+    monkeypatch.setattr(fg_k.FrameGraph, "end", record)
+    got, tally, pairs, launches = _lane_call(scene, cam, cfg)
+    runs = trender.batch_schedule(
+        0, cfg.spp, min(spp_chunk or max(1, ray_batch // block), cfg.spp))
+    cut = -(-n_blocks // 2) * block
+    # per run of equal chunks, a graph a lane, each copying back its rows
+    assert [(lo, m) for _, lo, m in copied] == \
+        [(0, cut), (cut, n - cut)] * len(runs)
+    assert len({i for i, _, _ in copied}) == 2 * len(runs)
+    copied.clear()
+    # the one-lane path
+    monkeypatch.setattr(trender, "_lanes", lambda n, *args: [(0, n)])
+    want, want_tally, one_pairs, one_launches = _lane_call(scene, cam, cfg)
+    assert {lo for _, lo, _ in copied} == {0}
+    assert torch.equal(got, want)
+    assert tally.tolist() == want_tally.tolist()
+    assert tally[1] > 0
+    host, host_tally, _, _ = _lane_call(scene, cam, cfg, host_loop=True)
+    assert torch.equal(got, host) and host_tally[0] == tally[0]
+    chunks = sum(k for _, _, k in runs)
+    assert launches == one_launches == chunks * n_blocks
+    assert pairs == chunks * (n_blocks // 2) and one_pairs == 0
+
+
+@pytest.mark.parametrize("case", ["one-block", "reduce", "wavefront",
+                                  "primary"])
+def test_one_lane_calls(small, case):
+    """A list of one block, the sample-sharded render's per-batch part
+    (``reduce``) and the wave and primary graphs take one lane, as
+    before: no graph.pair span, and the film is the host loop's."""
+    scene, cam = small
+    cfg = SMALL.replace(ray_batch=256)
+    reduce = None
+    if case == "one-block":
+        cfg = SMALL
+    elif case == "reduce":
+        def reduce(part):
+            return part * 1.0
+    else:
+        cfg = cfg.replace(mode=case)
+    n = cfg.width * cfg.height
+    block = trender.block_size(n, trender.effective_ray_batch(cfg, scene))
+    assert len(trender._lanes(n, block, trender.GRAPHS.get(
+        cfg.mode, fg_k.FrameGraph), reduce)) == 1
+    got, tally, pairs, launches = _lane_call(scene, cam, cfg, reduce)
+    assert pairs == 0 and launches > 0
+    host, host_tally, _, _ = _lane_call(scene, cam, cfg, reduce,
+                                        host_loop=True)
+    assert torch.equal(got, host) and host_tally[0] == tally[0]

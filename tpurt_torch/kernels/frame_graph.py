@@ -29,9 +29,24 @@ and seed from a view array on the device, counts rays_cast and the
 bounces run on the device, and steps the cursor itself, so launching it
 n_chunks * n_blocks times renders the range with no host read between
 launches (``render.accumulate``). The batch loop stays on the host as
-graph launches: a launch costs the host a few microseconds and no read,
-while a loop node around the batch would need a conditional node nested
-in another's body for no fewer host reads.
+graph launches: a launch reads nothing back, while a loop node around
+the batch would need a conditional node nested in another's body for no
+fewer host reads. A launch is not free, though: on an H100 machine the
+host spends ~30 us in one of a 720p mesh frame's, ~0.3 ms in one of a
+4K rank's and ~1 ms in a wave graph's (which holds the host inside the
+launch), and the card ~100-130 us between one graph's last node and the
+next graph's first.
+
+The mega frame pass runs in two lanes when its pixel list has two
+blocks or more and it folds into the film rows (``render._lanes``): the
+blocks' two halves, each a ``FrameGraph`` of its own (``get``'s
+``lane``) with its own buffers, state, cursor and search counter,
+launched in turn on two streams. The batches of one sample over
+disjoint blocks are independent (rays keyed by seed, pixel and sample;
+disjoint film rows), so one lane's graph start and the tail of its
+searches, when few long walks hold a launch that leaves most of the
+card idle, run under the other lane's kernels. Each lane folds its rows
+in the one-lane order, so the film is the one-lane film bit for bit.
 
 A ``FrameGraph`` owns every buffer the graph touches, allocated with
 torch before the capture (nothing may allocate while a stream captures):
@@ -410,17 +425,19 @@ _CACHE: dict = {}
 
 
 def get(scene, n: int, block: int, c: int, max_depth: int, rr_start,
-        reduce: bool, device, cls=FrameGraph, cap=None) -> FrameGraph:
+        reduce: bool, device, cls=FrameGraph, cap=None,
+        lane: int = 0) -> FrameGraph:
     """The ``cls`` graph (FrameGraph, wave_graph.WaveGraph,
     primary_graph.PrimaryGraph, or pool_graph.PoolGraph with its pool's
-    capacity ``cap``) of this
-    batch shape on this scene, cached (on a card, one capture per key);
-    the entry goes when any of the scene's tensors is freed."""
+    capacity ``cap``) of this batch shape on this scene for this lane of
+    the mega frame pass (``render._lanes``: two lanes of one shape need
+    two graphs), cached (on a card, one capture per key); the entry goes
+    when any of the scene's tensors is freed."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     key = (cls, tuple(id(f) for f in scene), n, block, c, max_depth,
-           rr_start, reduce, dev, cap)
+           rr_start, reduce, dev, cap, lane)
     fg = _CACHE.get(key)
     if fg is None:
         fg = cls(scene, n, block, c, max_depth, rr_start, reduce, dev, cap)

@@ -19,7 +19,9 @@ CUDA graph whose queue shrinks along tpurt's stage ladder on the device
 the host loop, ``wavefront.trace_chunk`` (one host read a bounce); or
 the megakernel for the rest: a ``kernels.frame_graph.FrameGraph`` launch
 a batch, which on a card is one CUDA graph with its bounce loop on the
-device (tpurt's one-dispatch ``_accum_frame``), or, with the host loop,
+device (tpurt's one-dispatch ``_accum_frame``; with two blocks or more
+and the film rows as its target, two such graphs over the blocks' two
+halves, launched in turn on two streams), or, with the host loop,
 ``trace.trace`` (one host read a bounce). Neither graph reads the host
 until the tally (rays cast, bounces, live history) and the film.
 ``persist`` streams each pixel block's samples through one
@@ -223,32 +225,95 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
 def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
                       sample_stop, spp_chunk, acc, reduce, cls):
     """accumulate's graph path: per run of equal chunks, one ``cls``
-    graph (GRAPHS' by mode, else FrameGraph) launched once a
-    batch (the cursor steps on the device), the film rows loaded into it
-    before and copied back after; with ``reduce``, each batch's part is
-    summed over ranks and added to acc between launches. Nothing is read
-    back to the host. Returns the tally (rays cast, bounces run, live
-    history)."""
+    graph (GRAPHS' by mode, else FrameGraph) a lane, launched once a
+    batch of its rows (the cursor steps on the device), the film rows
+    loaded into it before and copied back after; with ``reduce``, each
+    batch's part is summed over ranks and added to acc between launches.
+    The megakernel's FrameGraph folding into the film rows runs two
+    lanes when the list has two blocks or more (``_lanes``); every other
+    call, one. Nothing is read back to the host. Returns the tally (rays
+    cast, bounces run, live history)."""
     n = pix.shape[0]
-    n_pad = -(-n // block) * block
+    rows = _lanes(n, block, cls, reduce)
     tally = torch.zeros(2 + cfg.max_depth, dtype=torch.int64,
                         device=acc.device)
     for s0, c, n_chunks in batch_schedule(sample_start, sample_stop,
                                           spp_chunk):
-        fg = frame_graph.get(scene, n, block, c, cfg.max_depth,
-                             cfg.rr_start, reduce is not None, acc.device,
-                             cls)
-        fg.begin(cam, cfg.width, cfg.height, cfg.seed, pix, ok, acc, s0)
-        for _ in range(n_chunks):
-            for p0 in range(0, n_pad, block):
-                fg.launch(scene)
-                if reduce is not None:
-                    m = min(block, n - p0)
-                    acc[p0:p0 + m] += reduce(fg.film)[:m]
-        if reduce is None:
-            fg.end(acc)
-        fg.add_tally(tally)
+        graphs = [frame_graph.get(scene, hi - lo, block, c, cfg.max_depth,
+                                  cfg.rr_start, reduce is not None,
+                                  acc.device, cls, lane=k)
+                  for k, (lo, hi) in enumerate(rows)]
+        for fg, (lo, hi) in zip(graphs, rows):
+            fg.begin(cam, cfg.width, cfg.height, cfg.seed, pix[lo:hi],
+                     ok[lo:hi], acc[lo:hi], s0)
+        if len(graphs) == LANES:
+            _launch_lanes(scene, graphs, n_chunks)
+        else:
+            (fg,) = graphs
+            for _ in range(n_chunks):
+                for p0 in range(0, fg.n_pad, block):
+                    fg.launch(scene)
+                    if reduce is not None:
+                        m = min(block, n - p0)
+                        acc[p0:p0 + m] += reduce(fg.film)[:m]
+        for fg, (lo, hi) in zip(graphs, rows):
+            if reduce is None:
+                fg.end(acc[lo:hi])
+            fg.add_tally(tally)
     return tally
+
+
+# the mega frame pass's lanes: two frame graphs over disjoint halves of
+# the pixel list's blocks, launched in turn on two streams
+LANES = 2
+
+
+def _lanes(n: int, block: int, cls, reduce) -> list:
+    """The rows (lo, hi) of each lane of an n-row list cut into blocks of
+    ``block``. Two lanes for the megakernel's FrameGraph folding into the
+    film rows (mode mega, a sharded rank's persist) when the list has two
+    blocks or more: the blocks' first half (the larger when odd) and the
+    rest, so that every film row belongs to one lane, which folds it in
+    the one-lane order. One lane, the whole list, for every other call:
+    a list of one block, the sample-sharded render's per-batch part
+    (``reduce``: it is summed over ranks between launches, in order),
+    and the primary, wave and pool graphs."""
+    n_blocks = -(-n // block)
+    if cls is not frame_graph.FrameGraph or reduce is not None or \
+            n_blocks < LANES:
+        return [(0, n)]
+    cut = -(-n_blocks // LANES) * block
+    return [(0, cut), (cut, n)]
+
+
+def _launch_lanes(scene, graphs, n_chunks: int) -> None:
+    """The two lanes' launches of n_chunks chunks: in each chunk, the
+    first lane's blocks in order, each followed by the second lane's
+    block of the same place while it has one (an A-then-B pair, a
+    ``graph.pair`` span). On a card the first lane launches on the
+    current stream and the second on a stream of its own, which first
+    waits for the current stream's work (the lanes' ``begin``) and which
+    the current stream waits for after the last launch (before the films
+    and tallies are read), so the caller sees one stream. On the CPU the
+    plain schedules run in the same order."""
+    a, b = graphs
+    per_a, per_b = a.n_pad // a.block, b.n_pad // b.block
+    side = None    # torch.cuda.stream(None) changes nothing
+    if a.device.type == "cuda":
+        main = torch.cuda.current_stream(a.device)
+        side = torch.cuda.Stream(a.device)
+        side.wait_stream(main)
+    for _ in range(n_chunks):
+        for i in range(per_a):
+            if i >= per_b:
+                a.launch(scene)
+                continue
+            with metrics.span("graph.pair"):
+                a.launch(scene)
+                with torch.cuda.stream(side):
+                    b.launch(scene)
+    if side is not None:
+        main.wait_stream(side)
 
 
 def render_samples(cfg: RenderConfig, scene: Scene, cam,
