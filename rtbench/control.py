@@ -34,14 +34,13 @@ def control_numbers(cell, seed: int, n_frames: int, device,
     from .reference import pathtrace
     low_dtype = low_dtype or torch.bfloat16
     r = cell.config["render"]
-    verts, faces = scene_input.make_mesh(cell.config["mesh"])
+    layout = scene_input.parse(cell.config)
     _, job_list = check.jobs(cell, seed, check.frame_specs(cell, seed,
                                                            n_frames),
-                             scene_input.frame_camera(cell.config, verts))
+                             scene_input.frame_camera(cell.config, layout))
     out = {}
     for name, dt in (("reference", torch.float32), ("control", low_dtype)):
-        sc = pathtrace.RefScene(cell.config["layout"], verts, faces, device,
-                                dt)
+        sc = pathtrace.RefScene(layout, device, dt)
         t = time.perf_counter()
         out[name] = pathtrace.render_pixels(sc, job_list, r["max_depth"],
                                             r["rr_start"])

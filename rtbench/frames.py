@@ -5,7 +5,8 @@ parameters:
 
 - ``spp``: samples a frame, or null for the configuration's own;
 - ``camera``: "fixed" (the layout's camera every frame) or "orbit" (the
-  camera turns about the mesh's vertical axis at the layout's distance,
+  camera turns about the vertical axis through the layout's look-at
+  point, the mesh's center for a mesh layout, at the layout's distance,
   height and field of view, by a step a frame drawn uniformly from
   ``orbit_step_deg`` = [low, high] degrees).
 

@@ -9,17 +9,18 @@ for bounce:
 
 - camera: pinhole or thin-lens basis, pixel (x, y) with y = 0 the top
   row, jitter from the camera stream;
-- nearest hit over spheres, planes and every triangle of the mesh
-  (Moller-Trumbore, t in (1e-3, t_best), a triangle must be strictly
-  nearer than the spheres' and planes' best); the triangles are tested
-  in fixed groups of consecutive mesh faces, a group skipped only when
-  the ray misses its padded bounding box, which gives the answer of
-  testing them all (tests hold it against the full test);
-- miss: the sky gradient times the throughput; hit: the emission times
-  the throughput, then lambertian, metal (fuzz) or dielectric (Schlick)
-  scatter from the bounce's draws; Russian roulette from ``rr_start``
-  with the survival probability max(throughput) clamped to
-  [0.05, 0.95];
+- nearest hit over the layout's spheres, planes and triangles (the
+  quads' and the mesh's, each with its own material; Moller-Trumbore, t
+  in (1e-3, t_best), a triangle must be strictly nearer than the
+  spheres' and planes' best); the triangles are tested in fixed groups
+  of consecutive triangles, a group skipped only when the ray misses
+  its padded bounding box, which gives the answer of testing them all
+  (tests hold it against the full test);
+- miss: the sky gradient times the throughput (zero with no sky); hit:
+  the emission times the throughput, then lambertian, metal (fuzz) or
+  dielectric (Schlick) scatter from the bounce's draws; Russian
+  roulette from ``rr_start`` with the survival probability
+  max(throughput) clamped to [0.05, 0.95];
 - at most ``max_depth`` bounces.
 
 ``dtype`` is the precision of all geometry and shading (float32 as the
@@ -40,66 +41,65 @@ T_MIN = 1e-3
 INF = 3.0e38
 RR_LO, RR_HI = 0.05, 0.95
 LAMBERTIAN, METAL, DIELECTRIC, EMISSIVE = 0, 1, 2, 3
-MAT_TYPES = {"lambertian": LAMBERTIAN, "metal": METAL,
-             "dielectric": DIELECTRIC, "emissive": EMISSIVE}
 GROUP = 64          # consecutive faces a group (one level-3 patch)
-BOX_PAD = 1e-4      # of the mesh's extent, around each group's box
+BOX_PAD = 1e-4      # of the triangles' extent, around each group's box
 RAY_BATCH = 1 << 16  # rays traced together
 SEARCH_RAYS = 2048  # rays a group search
 
 
 class RefScene:
     """Spheres, planes, triangles and materials as tensors on one device,
-    built from the configuration's layout and the mesh."""
+    built from the benchmark's parsed layout (``scene_input.Layout``);
+    a class the layout leaves empty is None and never tested."""
 
-    def __init__(self, layout: dict, verts, faces, device, dtype):
+    def __init__(self, layout, device, dtype):
         self.device = torch.device(device)
         self.dtype = dtype
-        v = np.asarray(verts, np.float64)
-        f = np.asarray(faces, np.int64)
-        lo, hi = v.min(axis=0), v.max(axis=0)
-        center = (lo + hi) / 2
-        extent = float((hi - lo).max())
-        names = [m["name"] for m in layout["materials"]]
-        mat = {n: i for i, n in enumerate(names)}
 
         def t(a, dt=None):
             return torch.as_tensor(np.asarray(a), device=self.device,
                                    dtype=dt or dtype)
 
-        sph = layout["spheres"]
-        self.sph_c = t(np.array([center + np.asarray(s["offset"]) * extent
-                                 for s in sph]).astype(np.float32))
-        self.sph_r = t(np.array([s["radius"] * extent for s in sph])
-                       .astype(np.float32))
-        self.sph_mat = t([mat[s["material"]] for s in sph], torch.int64)
-        n = np.asarray(layout["plane"]["normal"], np.float64)
-        n = n / np.linalg.norm(n)
-        self.pln_n = t(n[None].astype(np.float32))
-        self.pln_k = t(np.array([lo[1]], np.float32))
-        self.pln_mat = t([mat[layout["plane"]["material"]]], torch.int64)
-        mats = layout["materials"]
-        self.mat_type = t([MAT_TYPES[m["type"]] for m in mats], torch.int64)
-        self.mat_albedo = t(np.array([m["albedo"] for m in mats], np.float32))
-        self.mat_fuzz = t(np.array([m["fuzz"] for m in mats], np.float32))
-        self.mat_ior = t(np.array([m["ior"] for m in mats], np.float32))
-        self.mat_emit = t(np.array([m["emit"] for m in mats], np.float32))
-        self.sky_a = t(np.asarray(layout["sky"][0], np.float32))
-        self.sky_b = t(np.asarray(layout["sky"][1], np.float32))
-        body = mat[layout["mesh_material"]]
-        v0 = v[f[:, 0]].astype(np.float32)
-        v1 = v[f[:, 1]].astype(np.float32)
-        v2 = v[f[:, 2]].astype(np.float32)
-        n_tri = f.shape[0]
+        self.sph_c = self.sph_r = self.sph_mat = None
+        if layout.spheres:
+            sph = layout.spheres
+            self.sph_c = t(np.array([s[0] for s in sph]).astype(np.float32))
+            self.sph_r = t(np.array([s[1] for s in sph]).astype(np.float32))
+            self.sph_mat = t([s[2] for s in sph], torch.int64)
+        self.pln_n = self.pln_k = self.pln_mat = None
+        if layout.planes:
+            n = np.array([p[0] / np.linalg.norm(p[0])
+                          for p in layout.planes])
+            self.pln_n = t(n.astype(np.float32))
+            self.pln_k = t(np.array([p[1] for p in layout.planes],
+                                    np.float32))
+            self.pln_mat = t([p[2] for p in layout.planes], torch.int64)
+        mats = layout.materials
+        self.mat_type = t([m.type for m in mats], torch.int64)
+        self.mat_albedo = t(np.array([m.albedo for m in mats], np.float32))
+        self.mat_fuzz = t(np.array([m.fuzz for m in mats], np.float32))
+        self.mat_ior = t(np.array([m.ior for m in mats], np.float32))
+        self.mat_emit = t(np.array([m.emit for m in mats], np.float32))
+        sky = layout.sky if layout.sky is not None else (np.zeros(3),) * 2
+        self.sky_a = t(np.asarray(sky[0], np.float32))
+        self.sky_b = t(np.asarray(sky[1], np.float32))
+        self.tri = None
+        n_tri = layout.n_triangles
+        if not n_tri:
+            return
+        w0, w1, w2, tri_mat = layout.triangles()
+        allv = np.concatenate([w0, w1, w2])
+        extent = float((allv.max(axis=0) - allv.min(axis=0)).max())
+        v0, v1, v2 = (w.astype(np.float32) for w in (w0, w1, w2))
         n_pad = -(-n_tri // GROUP) * GROUP
         tri = np.zeros((3, n_pad, 3), np.float32)   # pad: zero edges
         tri[0, :n_tri] = v0
         tri[1, :n_tri] = v1 - v0
         tri[2, :n_tri] = v2 - v0
         self.tri = t(tri.reshape(3, n_pad // GROUP, GROUP, 3))
-        self.tri_mat = body
-        # the groups' boxes (float32, padded; the pad rows sit at v0 = 0
-        # of a group that holds real faces, so pad only widens the box)
+        self.tri_mat = t(tri_mat, torch.int64)
+        # the groups' boxes (float32, padded; the pad rows repeat the last
+        # real face's corners, so they never widen a box)
         corners = np.stack([v0, v1, v2], axis=1)
         pad_rows = n_pad - n_tri
         if pad_rows:
@@ -264,7 +264,7 @@ def _triangles(sc, o, d, t_best, n_best, m_best, cull=True):
     nrm = torch.stack(_normalize3(gx, gy, gz), 1)
     return (torch.where(hit, win_t, t_best),
             torch.where(hit[:, None], nrm, n_best),
-            torch.where(hit, torch.full_like(m_best, sc.tri_mat), m_best))
+            torch.where(hit, sc.tri_mat[k], m_best))
 
 
 def intersect(sc, o, d, cull=True):
@@ -274,10 +274,13 @@ def intersect(sc, o, d, cull=True):
     n_best = torch.zeros((n, 3), dtype=o.dtype, device=o.device)
     n_best[:, 1] = 1
     m_best = torch.zeros(n, dtype=torch.int64, device=o.device)
-    t_best, n_best, m_best = _spheres(sc, o, d, t_best, n_best, m_best)
-    t_best, n_best, m_best = _planes(sc, o, d, t_best, n_best, m_best)
-    t_best, n_best, m_best = _triangles(sc, o, d, t_best, n_best, m_best,
-                                        cull)
+    if sc.sph_c is not None:
+        t_best, n_best, m_best = _spheres(sc, o, d, t_best, n_best, m_best)
+    if sc.pln_n is not None:
+        t_best, n_best, m_best = _planes(sc, o, d, t_best, n_best, m_best)
+    if sc.tri is not None:
+        t_best, n_best, m_best = _triangles(sc, o, d, t_best, n_best,
+                                            m_best, cull)
     front = _dot(d[:, 0], d[:, 1], d[:, 2],
                  n_best[:, 0], n_best[:, 1], n_best[:, 2]) < 0
     n_face = torch.where(front[:, None], n_best, -n_best)

@@ -6,19 +6,22 @@
 from the root of a checkout that holds ``tpurt_torch``. The run drives
 the port only, on the cards of this machine, one process a card:
 
-1. set-up: import the port, build the scene once on the host from the
-   mesh this benchmark makes (the port's ``scene.mesh_scene``: BVH and
-   all), move it to the card once, and warm the cell's graph shapes with
-   one 1-spp frame of the cell's size (the kernels load from the port's
-   build directories in the checkout; the first run there compiles);
+1. set-up: import the port, read the configuration's layout once
+   (``scene_input.parse``: materials, a plane, quads, spheres and the
+   mesh this benchmark makes), build the scene once on the host from
+   that list with the port's ``scene.SceneBuilder`` (BVH and all, by the
+   builder's own rule), move it to the card once, and
+   warm the cell's graph shapes with one 1-spp frame of the cell's size
+   (the kernels load from the port's build directories in the checkout;
+   the first run there compiles);
 2. the window: a closed loop with one client. Frame k is one call of
    the port's entry (``render.render``, or ``mesh.render_sharded`` on
    every rank) with frame k's seed and camera, and returns the host
    film. Frames start until --seconds have passed; the one in flight
    finishes. With --trace 1 the first frames run under torch.profiler;
 3. after the window: the device memory peak is read, the port's state
-   freed, and the plain reference renders the checked pixels
-   (``check``), shared out over the ranks.
+   freed, and the plain reference, built from the same parsed layout,
+   renders the checked pixels (``check``), shared out over the ranks.
 
 The last line of standard output is one JSON object (``correct``,
 ``attempted`` and ``failed`` in frames, ``metrics``, ``device``, with
@@ -128,10 +131,33 @@ def tmp_dir() -> str:
     return os.environ.get("TMPDIR") or tempfile.gettempdir()
 
 
+def port_scene(layout: scene_input.Layout):
+    """The layout's scene as the port builds it: its materials, planes,
+    quads, mesh and spheres handed to ``scene.SceneBuilder`` in that
+    order, then built (the BVH by the builder's own rule) -> the port's
+    NumPy Scene."""
+    from tpurt_torch import scene as scene_mod
+    b = scene_mod.SceneBuilder(sky=layout.sky is not None)
+    if layout.sky is not None:
+        b.sky_a = np.asarray(layout.sky[0], np.float32)
+        b.sky_b = np.asarray(layout.sky[1], np.float32)
+    for m in layout.materials:
+        b.material(m.type, m.albedo, fuzz=m.fuzz, ior=m.ior, emit=m.emit)
+    for normal, k, mat in layout.planes:
+        b.plane(normal, k, mat)
+    for corner, edge_u, edge_v, mat in layout.quads:
+        b.quad(corner, edge_u, edge_v, mat)
+    if layout.mesh is not None:
+        b.mesh(*layout.mesh)
+    for center, radius, mat in layout.spheres:
+        b.sphere(center, radius, mat)
+    return b.build()
+
+
 class Program:
     """The port, set up for one cell on one device (one rank)."""
 
-    def __init__(self, cell, device, sharded: bool, verts, faces):
+    def __init__(self, cell, device, sharded: bool, layout):
         from tpurt_torch import config as config_mod
         from tpurt_torch import camera as camera_mod
         from tpurt_torch import render as render_mod
@@ -139,8 +165,8 @@ class Program:
         self.cell = cell
         self.device = device
         self.base = config_mod.RenderConfig(**cell.config["render"])
-        self.camera_basis = scene_input.frame_camera(cell.config, verts)
-        scene, _ = scene_mod.mesh_scene(self.base.aspect, verts, faces)
+        self.camera_basis = scene_input.frame_camera(cell.config, layout)
+        scene = port_scene(layout)
         mark("scene_build")
         self.scene = scene_mod.to_device(scene, device)
         _sync(device)
@@ -234,9 +260,9 @@ def _run_rank(cell, seed, seconds, trace, device_type, rank, world, t0):
         from tpurt_torch.kernels import _build
         _build.load()
     mark("kernels")
-    verts, faces = scene_input.make_mesh(cell.config["mesh"])
+    layout = scene_input.parse(cell.config)
     mark("mesh")
-    prog = Program(cell, device, world > 1, verts, faces)
+    prog = Program(cell, device, world > 1, layout)
     traffic = frames_mod.Frames(cell.traffic, cell.config, seed)
     npix = prog.base.width * prog.base.height
     ppf = cell.params["check_pixels_per_frame"]
@@ -316,16 +342,15 @@ def _run_rank(cell, seed, seconds, trace, device_type, rank, world, t0):
     if device_type == "cuda":
         torch.cuda.empty_cache()
 
-    ref = _reference(cell, seed, n_frames, verts, faces, device, rank,
-                     world)
+    ref = _reference(cell, seed, n_frames, layout, device, rank, world)
     if rank != 0:
         return None
     return _result(cell, seed, records, failed, setup_s,
-                   gathered, ref, trace, device, world, int(faces.shape[0]),
+                   gathered, ref, trace, device, world, layout.n_triangles,
                    setup_parts(t0))
 
 
-def _reference(cell, seed, n_frames, verts, faces, device, rank, world):
+def _reference(cell, seed, n_frames, layout, device, rank, world):
     """The reference's values of the checked pixels, rendered in shares
     over the ranks; rank 0 gets (checked frames, radiance, rays)."""
     import torch
@@ -336,10 +361,9 @@ def _reference(cell, seed, n_frames, verts, faces, device, rank, world):
     checked, job_list = check.jobs(cell, seed,
                                    check.frame_specs(cell, seed, n_frames),
                                    scene_input.frame_camera(cell.config,
-                                                            verts))
+                                                            layout))
     share = check.split(job_list, world)[rank]
-    sc = pathtrace.RefScene(cell.config["layout"], verts, faces, device,
-                            torch.float32)
+    sc = pathtrace.RefScene(layout, device, torch.float32)
     t = time.perf_counter()
     rad, rays = pathtrace.render_pixels(sc, share, r["max_depth"],
                                         r["rr_start"])

@@ -74,3 +74,55 @@ def make_tiny_root(dest: Path) -> Path:
 @pytest.fixture
 def tiny_root(tmp_path):
     return make_tiny_root(tmp_path / "checkout")
+
+
+def _mat(name, type_, albedo=(0, 0, 0), fuzz=0.0, ior=1.5, emit=(0, 0, 0)):
+    return {"name": name, "type": type_, "albedo": list(albedo),
+            "fuzz": fuzz, "ior": ior, "emit": list(emit)}
+
+
+def _quad(corner, edge_u, edge_v, material):
+    return {"corner": list(corner), "edge_u": list(edge_u),
+            "edge_v": list(edge_v), "material": material}
+
+
+# the port's built-in Cornell box (``scene.cornell``) written as a layout:
+# the same materials, quads, spheres and camera, and no sky
+CORNELL_LAYOUT = {
+    "materials": [
+        _mat("white", "lambertian", (0.73, 0.73, 0.73)),
+        _mat("red", "lambertian", (0.65, 0.05, 0.05)),
+        _mat("green", "lambertian", (0.12, 0.45, 0.15)),
+        _mat("light", "emissive", emit=(15.0, 15.0, 15.0)),
+        _mat("mirror", "metal", (0.9, 0.9, 0.9), fuzz=0.08),
+        _mat("glass", "dielectric", (1, 1, 1), ior=1.5)],
+    "quads": [
+        _quad((-1, 0, -1), (2, 0, 0), (0, 0, 2), "white"),     # floor
+        _quad((-1, 2, -1), (0, 0, 2), (2, 0, 0), "white"),     # ceiling
+        _quad((-1, 0, -1), (0, 2, 0), (2, 0, 0), "white"),     # back wall
+        _quad((-1, 0, -1), (0, 0, 2), (0, 2, 0), "red"),       # left wall
+        _quad((1, 0, -1), (0, 2, 0), (0, 0, 2), "green"),      # right wall
+        _quad((-0.4, 1.999, -0.4), (0.8, 0, 0), (0, 0, 0.8), "light")],
+    "spheres": [
+        {"center": [-0.45, 0.35, 0.1], "radius": 0.35, "material": "mirror"},
+        {"center": [0.45, 0.35, -0.25], "radius": 0.35, "material": "glass"}],
+    "sky": None,
+    "camera": {"eye": [0, 1.0, 3.2], "look_at": [0, 1.0, 0], "vup": [0, 1, 0],
+               "vfov_deg": 40.0, "aperture": 0.0},
+}
+
+
+def cornell_config(**render) -> dict:
+    """A configuration of the Cornell box at the published c2-cornell
+    setting (512x512, 64 spp, max_depth 8, mega), render fields replaced
+    by ``render``."""
+    r = {"width": 512, "height": 512, "spp": 64, "max_depth": 8, "seed": 0,
+         "scene": "cornell", "mode": "mega", "rr_start": None,
+         "spp_chunk": 0, "ray_batch": 524288, "shard": "none",
+         "mesh_subdiv": 6, "smooth": False, "aperture": 0.0,
+         "focus_dist": 1.0}
+    r.update(render)
+    return {"source": "https://github.com/ACEfanatic02/par_raytracer as "
+                      "BASELINE.json configs[1]",
+            "precision": "float32", "render": r, "layout": CORNELL_LAYOUT,
+            "chips": 1}

@@ -14,6 +14,8 @@ import torch
 
 from rtbench import control, manifest, run
 
+from .conftest import cornell_config
+
 SEED = 2 ** 31 + 4099
 
 
@@ -74,6 +76,47 @@ def test_new_files_are_found_by_name(tiny_root):
     assert out["profiled_frames"] >= 1
     out = run_tiny(tiny_root, "c9-tiny.still")
     assert set(out["metrics"]) == {"mrays_per_s", "setup_s"}
+
+
+def add_cornell(root):
+    """The Cornell box at 32x24, 4 spp as new files only: a
+    configuration, an orbiting traffic mix and a cell, named by new
+    BENCHMARK.json entries."""
+    rt = root / "rtbench"
+    (rt / "configs" / "c2-tiny.json").write_text(json.dumps(
+        cornell_config(width=32, height=24, spp=4)))
+    (rt / "traffic" / "turn.json").write_text(json.dumps(
+        {"spp": None, "camera": "orbit", "orbit_step_deg": [2, 9]}))
+    cell = json.loads((rt / "cells" / "c3-mesh.offline.json").read_text())
+    cell["rays_per_sample"] = 7.0
+    (rt / "cells" / "c2-tiny.turn.json").write_text(json.dumps(cell))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({"name": "c2-tiny", "source": "https://x.org/y",
+                             "file": "rtbench/configs/c2-tiny.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "c2-tiny.turn", "config": "c2-tiny",
+                               "traffic": "turn", "chips": 1, "why": "t"})
+    for m in bench["end_to_end"]:
+        if m["name"] == "mrays_per_s":
+            m["workloads"].append("c2-tiny.turn")
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return "c2-tiny.turn"
+
+
+def test_a_layout_of_new_files_runs(tiny_root):
+    """A scene with no mesh (the Cornell box: quads, an area light, no
+    sky, no BVH) and its orbit about the layout's look-at point, added
+    as data files only: a sound run is correct and the control fails
+    both numbers."""
+    name = add_cornell(tiny_root)
+    out = run_tiny(tiny_root, name)
+    assert out["correct"], out["check"]
+    assert set(out["metrics"]) == {"mrays_per_s", "setup_s"}
+    line = control.control_numbers(manifest.load(name, tiny_root), SEED, 3,
+                                   torch.device("cpu"))
+    assert not line["control_correct"], line
+    for c in line["check"].values():
+        assert c["value"] > c["limit"], line
 
 
 def test_processes_are_the_cells_chips(tiny_root):
