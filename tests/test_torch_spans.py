@@ -4,10 +4,13 @@ the CPU:
   * the table: calls, seconds, the first and the largest call, the span
     open around the first call;
   * under torch.profiler, a small mega render and a wavefront render
-    give one ``graph.launch`` user annotation a block and chunk and one
-    ``frame.film``, inside the caller's own record_function;
+    give one ``graph.launch`` user annotation a block and chunk, one
+    ``frame.begin`` before them and one ``frame.film`` after, inside the
+    caller's own record_function;
   * with the profiler off no record_function is entered and the table
     still counts;
+  * ``frame.begin``: one a render.render call, closed before the
+    frame's first graph launch (before its first batch on a host loop);
   * ``scene.bvh``: one a scene built with a BVH, none without;
   * ``mesh.collective``: a 2-rank gloo render by tiles counts its
     all-gather and rays' all-reduce and keeps the first call; by spp, one
@@ -108,9 +111,13 @@ def test_spans_in_the_profiler_trace(mode, small, tmp_path):
     a, b = outer["ts"], outer["ts"] + outer["dur"]
     for e in by_name["graph.launch"] + by_name["frame.film"]:
         assert a <= e["ts"] and e["ts"] + e["dur"] <= b
-    # the film's way out follows the last launch
+    # the film's way out follows the last launch, the way in ends before
+    # the first
     last = max(e["ts"] + e["dur"] for e in by_name["graph.launch"])
     assert by_name["frame.film"][0]["ts"] >= last
+    (way_in,) = by_name["frame.begin"]
+    assert a <= way_in["ts"] and way_in["ts"] + way_in["dur"] <= \
+        min(e["ts"] for e in by_name["graph.launch"])
     assert metrics.SPANS["graph.launch"]["calls"] == want
 
 
@@ -126,9 +133,43 @@ def test_profiler_off_opens_no_record_function(mode, small, monkeypatch):
     trender.render(cfg, scene, cam, device="cpu")
     assert metrics.SPANS["graph.launch"]["calls"] == batches(cfg, scene)
     assert metrics.SPANS["frame.film"]["calls"] == 1
+    assert metrics.SPANS["frame.begin"]["calls"] == 1
     # mode mega's three blocks run in two lanes: a graph.pair span a pair
     pair = {"graph.pair"} if mode == "mega" else set()
-    assert set(metrics.SPANS) == {"graph.launch", "frame.film"} | pair
+    assert set(metrics.SPANS) == {"graph.launch", "frame.begin",
+                                  "frame.film"} | pair
+
+
+@pytest.mark.parametrize("mode", MODES + ("persist",))
+def test_frame_begin_closes_before_the_first_launch(mode, small,
+                                                    monkeypatch):
+    """render.render's way in: one ``frame.begin`` a call, closed when
+    the frame's first graph launch starts, with the film's way out after
+    the last; a render that passes no graph (the host loop) closes it
+    before its first batch."""
+    scene, cam = small
+    cfg = SMALL.replace(mode=mode)
+    seen = []
+    real = fg_k.FrameGraph.launch
+
+    def launch(self, scene):
+        seen.append((dict(metrics.SPANS.get("frame.begin", {"calls": 0})),
+                     list(metrics._OPEN)))
+        return real(self, scene)
+    monkeypatch.setattr(fg_k.FrameGraph, "launch", launch)
+    for k in (1, 2):
+        seen.clear()
+        trender.render(cfg, scene, cam, device="cpu")
+        first, open_at_first = seen[0]
+        assert first["calls"] == k and "frame.begin" not in open_at_first
+        assert all(e["calls"] == k for e, _ in seen)
+        assert metrics.SPANS["frame.begin"]["calls"] == k
+        assert metrics.SPANS["frame.film"]["calls"] == k
+    assert metrics._OPEN == []
+    assert metrics.SPANS["frame.begin"]["parent"] is None
+    trender.render(cfg, scene, cam, device="cpu", host_loop=True)
+    assert metrics.SPANS["frame.begin"]["calls"] == 3
+    assert metrics._OPEN == []
 
 
 @pytest.mark.parametrize("cfg, calls", [

@@ -80,6 +80,7 @@ from __future__ import annotations
 
 import weakref
 
+import numpy as np
 import torch
 
 from .. import metrics
@@ -122,13 +123,14 @@ def bounce_kernels(scene) -> dict:
 
 def read_tally(scene, tally, live_hist=None) -> int:
     """rays_cast of a render.accumulate tally ((2 + max_depth,) int64:
-    rays cast, bounces the graphs ran, the wavefront's live history),
-    read with the bounces and the history in one copy to the host. On a
-    card the bounces' kernel runs are added to _build.LAUNCHES. live_hist
-    (an int64 NumPy array of max_depth), if given, gains the history.
+    rays cast, bounces the graphs ran, the wavefront's live history, on
+    the device or copied to the host), read with the bounces and the
+    history in one copy to the host. On a card (the scene's device) the
+    bounces' kernel runs are added to _build.LAUNCHES. live_hist (an
+    int64 NumPy array of max_depth), if given, gains the history.
     Returns rays_cast."""
     rays, bounces, *hist = tally.tolist()
-    if tally.device.type == "cuda":
+    if scene.sph_c.device.type == "cuda":
         for kernel, n in bounce_kernels(scene).items():
             _build.LAUNCHES[kernel] += n * bounces
     if live_hist is not None:
@@ -199,15 +201,16 @@ class FrameGraph:
         self.max_depth, self.rr_start, self.reduce = max_depth, rr_start, \
             reduce
         f32, i32 = torch.float32, torch.int32
-        # the state, the live history and traverse's ray counter, zeroed
-        # in one allocation
-        scalars = torch.zeros(STATE_SLOTS + max_depth + 1, dtype=torch.int64,
-                              device=dev)
+        # the state, the live history, the view and traverse's ray
+        # counter in one allocation; begin loads the first three
+        # (``_load``) in one copy
+        view_at = STATE_SLOTS + max_depth
+        loaded = view_at + -(-camera_k.VIEW_WORDS // 2)
+        scalars = torch.zeros(loaded + 1, dtype=torch.int64, device=dev)
         self.state = scalars[:STATE_SLOTS]
-        self.hist = scalars[STATE_SLOTS:STATE_SLOTS + max_depth]
-        # the state and the history, zeroed by begin in one fill
-        self._tallies = scalars[:STATE_SLOTS + max_depth]
-        self.view = self.empty(camera_k.VIEW_WORDS, dtype=i32)
+        self.hist = scalars[STATE_SLOTS:view_at]
+        self.view = scalars[view_at:loaded].view(i32)[:camera_k.VIEW_WORDS]
+        self._load = scalars[:loaded]
         self.pix = self.empty(self.n_pad, dtype=torch.int64)
         self.ok = self.empty(self.n_pad, dtype=torch.bool)
         # the film rows (n, 3), or the block's part (block, 3) that the
@@ -217,7 +220,7 @@ class FrameGraph:
         # block of the kernel before each search
         self.counter = None
         if scene.pk_nodes is not None:
-            self.counter = scalars[STATE_SLOTS + max_depth:].view(i32)[:1]
+            self.counter = scalars[loaded:].view(i32)[:1]
         # WHILE nodes of the graph
         self.n_loops = 1
         # launches a replay makes besides its bounces (the camera and the
@@ -359,16 +362,20 @@ class FrameGraph:
         """Load the call's view (the camera, frame size and seed), its
         pixel list pix (n,) and live rows ok (n,) bool (the tail padded
         with the last pixel, dead), the film rows acc (n, 3) unless the
-        graph folds into a part, and the cursor (p0, s0); zero the ray
-        and bounce tallies and the live history."""
+        graph folds into a part, and the cursor (p0, s0) with the ray and
+        bounce tallies and the live history zeroed: the state, the
+        history and the view in one copy, from pinned memory on a card,
+        so that it neither waits for the stream nor lets the host change
+        the words before the card has them."""
         n = self.n
-        view = torch.tensor(camera_k.view_words(cam, width, height, seed),
-                            dtype=torch.int32)
-        if self.exec is not None:
-            # pinned, so the copy neither waits for the stream nor lets
-            # the host change the words before the card has them
-            view = view.pin_memory()
-        self.view.copy_(view, non_blocking=True)
+        words = torch.zeros(self._load.shape, dtype=torch.int64,
+                            pin_memory=self.exec is not None)
+        host = words.numpy()
+        host[S0], host[P0] = s0, p0
+        view_at = STATE_SLOTS + self.max_depth
+        host[view_at:].view(np.int32)[:camera_k.VIEW_WORDS] = \
+            camera_k.view_words(cam, width, height, seed)
+        self._load.copy_(words, non_blocking=True)
         self.pix[:n].copy_(pix)
         self.ok[:n].copy_(ok)
         if self.n_pad > n:
@@ -376,15 +383,6 @@ class FrameGraph:
             self.ok[n:].zero_()
         if not self.reduce:
             self.film.copy_(acc)
-        # fills, not a copy from the host: a copy from pageable memory
-        # may wait for the stream
-        # the zero fill spans the whole state, the cursor's p0 too (a
-        # pool graph's call that ends inside the list leaves p0 there), so
-        # only an s0 and a p0 that are not 0 need a fill of their own
-        self._tallies.zero_()
-        self.state[S0:S0 + 1].fill_(s0)
-        if p0:
-            self.state[P0:P0 + 1].fill_(p0)
 
     def launch(self, scene) -> None:
         """Trace and fold the batch at the cursor, then step the cursor:

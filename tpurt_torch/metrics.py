@@ -28,9 +28,14 @@ and updates the table: no sync, no file, no output. The port's spans:
                    second's (two graph.launch spans inside)
   graph.capture    FrameGraph._capture: one graph's capture and
                    instantiation
+  frame.begin      render.render: the frame's way in, from the entry to
+                   the frame pass's first graph launch (the scene's
+                   to_device, the order, the film, the graphs' begin)
   frame.film       render.render, mesh.render_samples_sharded: the
                    film's way out of a frame (division, assembly, copy
-                   down)
+                   down; render.render queues its division and copy
+                   behind the frame pass, and the tally's read waits for
+                   them)
   mesh.collective  mesh.render_samples_sharded: one torch.distributed
                    collective
   scene.bvh        scene.SceneBuilder.build: the host BVH build

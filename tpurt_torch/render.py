@@ -133,7 +133,7 @@ def batch_schedule(sample_start: int, sample_stop: int,
 
 def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
                sample_start: int, sample_stop: int, acc, reduce=None,
-               host_loop: bool = False):
+               host_loop: bool = False, on_start=None):
     """Add the radiance sums of samples [sample_start, sample_stop) at
     the pixel ids ``pix`` (n,) into rows of ``acc`` (n, 3), in place.
 
@@ -145,7 +145,8 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     batch. Each batch's samples are folded into acc by
     ``kernels.film_fold``; ``reduce``, if given, maps each batch's
     per-pixel sum before it is added (the sample-sharded render sums it
-    over ranks there).
+    over ranks there). on_start, if given, is called once the first run
+    of batches is loaded, just before its first launch.
     Modes: primary, the primary graph (``kernels.primary_graph``), or
     with ``host_loop`` the host's batch loop over
     ``trace.shade_primary``; wavefront, the staged wave graph
@@ -177,13 +178,15 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
         cls = GRAPHS.get(cfg.mode, frame_graph.FrameGraph)
         return _accumulate_graph(cfg, scene, cam, pix, ok, block,
                                  sample_start, sample_stop, spp_chunk, acc,
-                                 reduce, cls)
+                                 reduce, cls, on_start)
     if n_pad > n:
         pix = torch.cat([pix, pix[-1:].expand(n_pad - n)])
         ok = torch.cat([ok, torch.zeros(n_pad - n, dtype=torch.bool,
                                         device=dev)])
     nrays = torch.zeros((), dtype=torch.int64, device=dev)
     live_hist = np.zeros(cfg.max_depth, np.int64)
+    if on_start is not None:
+        on_start()
     for first, c, n_chunks in batch_schedule(sample_start, sample_stop,
                                              spp_chunk):
         for s0 in range(first, first + c * n_chunks, c):
@@ -223,7 +226,7 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
 
 
 def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
-                      sample_stop, spp_chunk, acc, reduce, cls):
+                      sample_stop, spp_chunk, acc, reduce, cls, on_start=None):
     """accumulate's graph path: per run of equal chunks, one ``cls``
     graph (GRAPHS' by mode, else FrameGraph) a lane, launched once a
     batch of its rows (the cursor steps on the device), the film rows
@@ -232,11 +235,10 @@ def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
     The megakernel's FrameGraph folding into the film rows runs two
     lanes when the list has two blocks or more (``_lanes``); every other
     call, one. Nothing is read back to the host. Returns the tally (rays
-    cast, bounces run, live history)."""
+    cast, bounces run, live history), made after the launches."""
     n = pix.shape[0]
     rows = _lanes(n, block, cls, reduce)
-    tally = torch.zeros(2 + cfg.max_depth, dtype=torch.int64,
-                        device=acc.device)
+    used = []
     for s0, c, n_chunks in batch_schedule(sample_start, sample_stop,
                                           spp_chunk):
         graphs = [frame_graph.get(scene, hi - lo, block, c, cfg.max_depth,
@@ -246,6 +248,9 @@ def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
         for fg, (lo, hi) in zip(graphs, rows):
             fg.begin(cam, cfg.width, cfg.height, cfg.seed, pix[lo:hi],
                      ok[lo:hi], acc[lo:hi], s0)
+        if on_start is not None:
+            on_start()
+            on_start = None
         if len(graphs) == LANES:
             _launch_lanes(scene, graphs, n_chunks)
         else:
@@ -256,10 +261,17 @@ def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
                     if reduce is not None:
                         m = min(block, n - p0)
                         acc[p0:p0 + m] += reduce(fg.film)[:m]
-        for fg, (lo, hi) in zip(graphs, rows):
-            if reduce is None:
+        if reduce is None:
+            for fg, (lo, hi) in zip(graphs, rows):
                 fg.end(acc[lo:hi])
-            fg.add_tally(tally)
+        used += graphs
+    if on_start is not None:
+        on_start()
+    # each graph runs once a call, so its counts stay until the end
+    tally = torch.zeros(2 + cfg.max_depth, dtype=torch.int64,
+                        device=acc.device)
+    for fg in used:
+        fg.add_tally(tally)
     return tally
 
 
@@ -327,35 +339,64 @@ def render_samples(cfg: RenderConfig, scene: Scene, cam,
     summed over batches), or the persistent pool's "persist_occupancy"
     and "persist_iterations" (one entry per pixel block). host_loop:
     accumulate's, and in mode persist the pools' host loop."""
+    film_flat, finish = _samples(cfg, scene, cam, sample_start,
+                                 sample_stop, film_flat, stats_sink,
+                                 host_loop)
+    return film_flat, finish()
+
+
+def _samples(cfg, scene, cam, sample_start, sample_stop, film_flat,
+             stats_sink, host_loop, on_start=None):
+    """render_samples up to its read of the card: (film_flat, finish).
+    finish() waits once for the card's work queued before it, so that a
+    caller can queue more (the film's copy down) to be waited on by that
+    one wait, and reads rays_cast (and fills stats_sink). on_start:
+    accumulate's (in mode persist, called before the first pool's
+    launch)."""
     if cfg.mode not in MODES:
         raise ValueError(f"unknown mode {cfg.mode!r}")
     dev = scene.sph_c.device
     npix = cfg.width * cfg.height
-    if film_flat is None:
-        film_flat = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-
     ray_batch = effective_ray_batch(cfg, scene)
     block = block_size(npix, ray_batch)
     n_samples = sample_stop - sample_start
     pix, valid, inv = order_cached(cfg.width, cfg.height, block, dev)
     if cfg.mode == "persist":
-        return _render_persist(cfg, scene, cam, film_flat, pix, valid,
-                               block, ray_batch, sample_start, n_samples,
-                               stats_sink, host_loop)
+        if film_flat is None:
+            film_flat = torch.zeros((npix, 3), dtype=torch.float32,
+                                    device=dev)
+        film_flat, rays = _render_persist(cfg, scene, cam, film_flat, pix,
+                                          valid, block, ray_batch,
+                                          sample_start, n_samples,
+                                          stats_sink, host_loop, on_start)
+
+        def finish_pools() -> int:
+            _wait(dev)
+            return rays
+        return film_flat, finish_pools
 
     # the padded tail's rows are traced dead and never read back
-    film_tiled = film_flat[pix]
+    film_tiled = (torch.zeros((pix.shape[0], 3), dtype=torch.float32,
+                              device=dev) if film_flat is None
+                  else film_flat[pix])
     tally = accumulate(cfg, scene, cam, pix, valid, sample_start,
-                       sample_stop, film_tiled, host_loop=host_loop)
-    live_hist = np.zeros(cfg.max_depth, np.int64)
-    rays = frame_graph.read_tally(scene, tally, live_hist)
-    if cfg.mode == "wavefront" and stats_sink is not None:
-        # live counts are summed over every batch, so the capacity is the
-        # queue rows issued per bounce over all of them
-        stats_sink["queue_capacity"] = -(-npix // block) * block * n_samples
-        stats_sink.setdefault("live_history", []).extend(
-            int(x) for x in live_hist)
-    return film_tiled[inv], rays
+                       sample_stop, film_tiled, host_loop=host_loop,
+                       on_start=on_start)
+
+    def finish() -> int:
+        counts = _to_host(tally)
+        _wait(dev)
+        live_hist = np.zeros(cfg.max_depth, np.int64)
+        rays = frame_graph.read_tally(scene, counts, live_hist)
+        if cfg.mode == "wavefront" and stats_sink is not None:
+            # live counts are summed over every batch, so the capacity is
+            # the queue rows issued per bounce over all of them
+            stats_sink["queue_capacity"] = \
+                -(-npix // block) * block * n_samples
+            stats_sink.setdefault("live_history", []).extend(
+                int(x) for x in live_hist)
+        return rays
+    return film_tiled[inv], finish
 
 
 def pool_capacity(rows: int, n_samples: int, ray_batch: int) -> int:
@@ -367,19 +408,22 @@ def pool_capacity(rows: int, n_samples: int, ray_batch: int) -> int:
 
 def _render_persist(cfg, scene, cam, film_flat, pix, valid, block,
                     ray_batch, sample_start, n_samples, stats_sink,
-                    host_loop=False):
+                    host_loop=False, on_start=None):
     """Persistent mode: each pixel block's whole sample range streams
     through one pool of min(ray_batch, rays) slots, rounded up to whole
     packets. pix, valid: the tile order on the device and its live rows
     (order_cached). A PoolGraph launch a pool: one graph a run of pools
     of one capacity (every pool, or all but a ragged last one), each
     pool's rays and iterations recorded on the device and read once, at
-    the end; with host_loop, wavefront.trace_persistent a pool."""
+    the end; with host_loop, wavefront.trace_persistent a pool.
+    on_start, if given, is called before the first pool's launch."""
     npix = cfg.width * cfg.height
     film_flat = film_flat.clone()    # the pool adds into it in place
     caps = [pool_capacity(min(block, npix - p0), n_samples, ray_batch)
             for p0 in range(0, npix, block)]
     if host_loop or n_samples <= 0:
+        if on_start is not None:
+            on_start()
         pairs = []
         for k, cap in enumerate(caps):
             p0 = k * block
@@ -402,6 +446,8 @@ def _render_persist(cfg, scene, cam, film_flat, pix, valid, block,
                                 caps[first])
             g.begin(cam, cfg.width, cfg.height, cfg.seed, pix[:npix],
                     valid[:npix], film_flat, sample_start, first * block)
+            if on_start is not None and first == 0:
+                on_start()
             for _ in range(first, last + 1):
                 g.launch(scene)
             g.end(film_flat)
@@ -417,23 +463,54 @@ def _render_persist(cfg, scene, cam, film_flat, pix, valid, block,
     return film_flat, sum(nrays for nrays, _ in pairs)
 
 
+def _wait(dev) -> None:
+    """Wait for the work queued on dev's current stream (none off a
+    card)."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def _to_host(t):
+    """t queued for the host: from a card, one copy into a pinned block
+    of torch's caching host allocator, whole once the card's work queued
+    so far is done (a later call reuses a block only once its tensor is
+    dropped and its copy done); t itself elsewhere."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
 def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,
            device="cuda", host_loop: bool = False):
     """Render a full frame on ``device``. Returns (film (H,W,3) linear f32
     ndarray, the per-pixel mean over cfg.spp, and a stats dict; the
     wavefront and persistent modes add "occupancy"). host_loop:
-    accumulate's."""
-    if scene is None or cam is None:
-        scene, cam = build_scene(cfg)
-    scene = to_device(scene, device)
-    sink: dict = {}
-    t0 = time.perf_counter()
-    film_flat, total_rays = render_samples(cfg, scene, cam, 0, cfg.spp,
-                                           stats_sink=sink,
-                                           host_loop=host_loop)
+    accumulate's. The way in, up to the frame pass's first launch, is the
+    ``frame.begin`` span; the way out, ``frame.film``: the mean queued
+    for the host behind the frame pass, with one wait for both, the
+    tally's read."""
+    way_in = [metrics.span("frame.begin").__enter__()]
+
+    def started():
+        if way_in:
+            way_in.pop().__exit__(None, None, None)
+
+    try:
+        if scene is None or cam is None:
+            scene, cam = build_scene(cfg)
+        scene = to_device(scene, device)
+        sink: dict = {}
+        t0 = time.perf_counter()
+        film_flat, finish = _samples(cfg, scene, cam, 0, cfg.spp, None,
+                                     sink, host_loop, started)
+    finally:
+        started()
     with metrics.span("frame.film"):
-        film = (film_flat / cfg.spp).cpu().numpy().reshape(
-            cfg.height, cfg.width, 3)
+        host = _to_host(film_flat / cfg.spp)
+    total_rays = finish()
+    film = host.numpy().reshape(cfg.height, cfg.width, 3)
     wall = time.perf_counter() - t0
     stats = metrics.build_stats(total_rays, wall, cfg.width, cfg.height,
                                 cfg.spp)
