@@ -114,6 +114,46 @@ def test_world4_matches_tpurt_mesh(case, world4):
     assert diff.max() <= 8
 
 
+@pytest.mark.parametrize("width,height,world", [(3840, 2160, 4),
+                                                (45, 31, 4), (32, 24, 5)],
+                         ids=["4k-w4", "odd-w4", "32x24-w5"])
+def test_tile_split(width, height, world):
+    """The tile split's index arithmetic: every pixel in one share once
+    (inv reads it back), equal shares with dead rows only on the pad,
+    each tile row's valid rows within one packet across ranks, and each
+    share every world-th packet of the tile order, so that it covers
+    every tile row that holds such a stride."""
+    pix, valid, inv = (a.numpy() for a in
+                       tmesh.tile_split(width, height, world, "cpu"))
+    npix, packet = width * height, 128
+    order = trender.tile_order(width, height)
+    n_pad = pix.shape[0]
+    assert n_pad % (world * packet) == 0
+    assert np.array_equal(np.sort(pix[valid]), np.arange(npix))
+    assert np.array_equal(pix[inv], np.arange(npix)) and valid[inv].all()
+    # dead rows: the pad, under one stride of packets, the last pixel's
+    assert (~valid).sum() == n_pad - npix < world * packet
+    assert (pix[~valid] == order[-1]).all()
+    tile_pos = np.empty(npix, np.int64)
+    tile_pos[order] = np.arange(npix)
+    n_rows = -(-height // 8)
+    wide = np.flatnonzero(np.bincount(np.arange(npix) // width // 8)
+                          >= world * packet)
+    share = n_pad // world
+    counts = []
+    for r in range(world):
+        mine = slice(r * share, (r + 1) * share)
+        live = pix[mine][valid[mine]]
+        counts.append(np.bincount(live // width // 8, minlength=n_rows))
+        assert (np.diff(tile_pos[live]) > 0).all()      # in tile order
+        packets = np.unique(tile_pos[live] // packet)
+        assert (packets % world == r).all()
+        assert (np.diff(packets) == world).all()
+        assert np.isin(wide, live // width // 8).all()
+    counts = np.stack(counts)
+    assert (counts.max(0) - counts.min(0)).max() <= packet
+
+
 def test_dryrun_multichip_five_ranks():
     """The port's dry run at a world that divides no frame dimension."""
     out = tmesh.dryrun_multichip(5, timeout=240)

@@ -5,10 +5,12 @@ runs one process per card, joined by NCCL (gloo for CPU processes), as
 PyTorch programs do. Each rank traces its share through the port's own
 block loop (``render.accumulate``) and the ranks meet in collectives:
 
-  * shard='tiles': the tile-ordered pixel list, padded to a multiple of
-    the world size with dead rows, is cut into one contiguous share per
-    rank; the shares' film sums are all-gathered and the ray counts
-    all-reduced.
+  * shard='tiles': the tile-ordered pixel list, padded with dead rows to
+    a multiple of world 128-row packets (one 16x8 tile each), is dealt
+    out by packet: rank r takes every packet p with p mod world == r, in
+    tile order, so that every rank traces rows from every part of the
+    frame, sky and mesh alike (``tile_split``); the shares' film sums are
+    all-gathered and the ray counts all-reduced.
   * shard='spp': every rank traces every pixel with its own slice of the
     sample range; each batch's per-pixel sum is all-reduced into the film.
 
@@ -39,6 +41,7 @@ import torch.distributed as dist
 from . import film as film_mod
 from . import metrics
 from . import render as render_mod
+from . import trace
 from .config import RenderConfig, build_scene
 from .kernels import frame_graph
 from .scene import Scene, to_device
@@ -94,6 +97,37 @@ def _check(cfg: RenderConfig) -> None:
                          f"of {SHARDS}")
 
 
+_SPLIT_CACHE: dict = {}
+
+
+def tile_split(width: int, height: int, world: int, device):
+    """Device tensors of the tile split, rank after rank, each rank's
+    share n_pad // world rows: (pix (n_pad,) int64, the pixel ids; valid
+    (n_pad,) bool, False on the pad rows, which repeat the last pixel;
+    inv (npix,) int64, the row of each pixel in the ranks' shares laid
+    end to end, as the all-gather lays them). The tile order is padded to
+    a multiple of world packets and dealt out as the module docstring
+    says: packet p = k * world + r goes to rank r, place k. Made and
+    uploaded once per (frame, world, device)."""
+    dev = torch.device(device)
+    key = (width, height, world, dev)
+    if key not in _SPLIT_CACHE:
+        order = render_mod.tile_order(width, height).astype(np.int64)
+        npix = order.shape[0]
+        packet = trace.PACKET_R
+        unit = world * packet
+        n_pad = -(-npix // unit) * unit
+        pad = np.concatenate([order, np.full(n_pad - npix, order[-1])])
+        rows = (np.arange(n_pad).reshape(-1, world, packet)
+                .transpose(1, 0, 2).reshape(-1))
+        pix, valid = pad[rows], rows < npix
+        inv = np.empty(npix, np.int64)
+        inv[pix[valid]] = np.flatnonzero(valid)
+        _SPLIT_CACHE[key] = tuple(torch.from_numpy(a).to(dev)
+                                  for a in (pix, valid, inv))
+    return _SPLIT_CACHE[key]
+
+
 def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
                            sample_start: int, sample_stop: int,
                            film_flat: Optional[np.ndarray] = None,
@@ -142,10 +176,7 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
                                       lo + per_dev, film_tiled,
                                       reduce=reduce, host_loop=host_loop)
     else:  # tiles
-        # the tile order padded to a multiple of the world (pad: dead),
-        # one contiguous share per rank
-        gpix, gvalid, inv = render_mod.order_cached(cfg.width, cfg.height,
-                                                    world, dev)
+        gpix, gvalid, inv = tile_split(cfg.width, cfg.height, world, dev)
         block = gpix.shape[0] // world
         lo = rank * block
         acc = torch.zeros((block, 3), dtype=torch.float32, device=dev)
@@ -167,7 +198,7 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
         if cfg.shard == "spp":
             film_flat = film_tiled[inv].cpu().numpy()
         else:
-            # rows follow the tile order: un-permute, adding the call's
+            # rows follow the split: un-permute, adding the call's
             # sums to the film once (the order of additions that keeps
             # resume exact); on the device, then one copy to the host
             film_d = torch.tensor(film_flat, device=dev)
