@@ -45,8 +45,8 @@ exits non-zero and prints no result):
                  alone) in 1-spp renders of c3, c2, c4, c4 persist, g5, the
                  smooth icosphere fixture, a lens camera and c1, each
                  array-equal to its plain version on the same inputs (NaN
-                 equal to NaN), the mega renders through the host loop
-                 (host_loop=True), whose calls a wrapper sees; then the
+                 equal to NaN), rendered through the host loop
+                 (host_frame), whose calls a wrapper sees; then the
                  three timed on the c3 render's own inputs as the frame
                  graph runs them, each with its bound: the camera at the
                  cursor (array-equal to the per-call entry's rays), the
@@ -62,7 +62,7 @@ exits non-zero and prints no result):
                  (dead rows): radiance array-equal, rays_cast and the
                  search counter equal (check_primary_shade), timed on
                  c1's batch with its count
-  6. frame     — (mega through the host loop) every film_fold,
+  6. frame     — (through the host loop, host_frame) every film_fold,
                  packet_compact and persist_refill call
                  (and persist_commit, the refill kernel's commit-only
                  launch) in renders of c3 and c4 at 1 spp, c4 in mode
@@ -106,38 +106,37 @@ exits non-zero and prints no result):
                  (primary_shade, not the host loop's hit_shade), and
                  g2..g5 again in modes wavefront and persist with the
                  megakernel's ray count
-  8. graph     — every mega render path through the frame graph and
-                 through the host loop (c3 at 4 spp, c2 at 8, c5 by tiles
-                 and by spp, g2..g5 unsharded and sharded, c3 through
-                 checkpoints unsharded and by tiles), and mode wavefront
-                 through the wave graph and the host loop (c4 at full
-                 width and 2 spp, g3 and g5, g5 by tiles and by spp):
-                 films array-equal, occupancy (the live history) equal,
-                 rays PHASE_RAYS and the goldens', launches counted by
-                 execution equal to the host loop's, capture and
-                 instantiate seconds apart from the walls; every cached
-                 graph's nodes as instantiated (check_node_counts: each
-                 WHILE body of three kernel nodes and no memset, BVH and
-                 brute; a parent of the camera, the WHILE node and the
-                 fold, whose last block steps the cursor (no advance
-                 node), and a memset only sharded by spp; a wave graph's
-                 parent also one WHILE node and one compaction a stage,
-                 six for c4); mode primary through the primary graph
-                 and the host loop (c1, g1 unsharded and sharded, g4's
-                 blob, c1 through checkpoints): films array-equal, a
-                 parent of five kernel nodes and no WHILE node, one
-                 primary_shade a batch; mode persist through the pool
-                 graph and
-                 the host loop (c4 at PERSIST_SPP, c4 at 1 spp, whose
-                 ragged last pool has fewer slots and so a second graph,
-                 g2 with 2,048-slot pools), each rendered twice through
-                 the cached graphs: films within film_bound (float
-                 atomics), rays, iterations and occupancy equal, a
-                 graph a pool capacity, a parent of the load,
-                 one WHILE node and the commit, a body of four kernel
-                 nodes and no memset; then frame_graph.cu's kernels
-                 against their plain versions, on no render path, timed
-                 with their bound
+  8. graph     — every mega render path through the frame graph (c3 at
+                 4 spp, c2 at 8, c5 by tiles and by spp, g2..g5
+                 unsharded and sharded, c3 through checkpoints unsharded
+                 and by tiles), and mode wavefront through the wave graph
+                 (c4 at full width and 2 spp, g3 and g5, g5 by tiles and
+                 by spp), each against the same frame through the host
+                 loop (host_frame: unsharded, one span): films
+                 array-equal (c3 checkpointed by tiles, whose film adds
+                 each span's sums, only its two graph renders), occupancy
+                 (the live history) equal, rays PHASE_RAYS and the
+                 goldens', launches counted by execution equal to the
+                 host loop's, capture and instantiate seconds apart from
+                 the walls; every cached graph's nodes as instantiated
+                 (check_node_counts: each WHILE body of three kernel
+                 nodes and no memset, BVH and brute; a parent of the
+                 camera, the WHILE node and the fold, whose last block
+                 steps the cursor (no advance node), and a memset only
+                 sharded by spp; a wave graph's parent also one WHILE
+                 node and one compaction a stage, six for c4); mode
+                 primary through the primary graph against the host loop
+                 (c1, g1 unsharded and sharded, g4's blob, c1 through
+                 checkpoints): films array-equal, a parent of five kernel
+                 nodes and no WHILE node, one primary_shade a batch; mode
+                 persist through the pool graph against the host loop
+                 (c4 at PERSIST_SPP, c4 at 1 spp, whose ragged last pool
+                 has fewer slots and so a second graph, g2 with
+                 2,048-slot pools), each rendered twice through the
+                 cached graphs: films within film_bound (float atomics),
+                 rays, iterations and occupancy equal, a graph a pool
+                 capacity, a parent of the load, one WHILE node and the
+                 commit, a body of four kernel nodes and no memset
   9. c3-mesh   — 81,920 triangles, 1280x720, max_depth 8, spp cut from
                  128 to 4
  10. c1-primary — 640x480 at 1 spp (its own size and spp) as one
@@ -195,7 +194,7 @@ persist_refill: the pool graph's load, which makes the primary rays
 with the camera kernel's code, refills and commit; in mode primary the
 camera, prims_nearest, primary_shade and the fold), and the renders of
 phases 9 and 11-15 must cast PHASE_RAYS exactly. Then the card's
-nvidia-smi line, the kernel table as one JSON object (all thirteen
+nvidia-smi line, the kernel table as one JSON object (all twelve
 kernels, each with its launches by path, its bound, its share of it and
 its operations by class), and as the last line {"ok": true, "device":
 {...}}.
@@ -722,6 +721,137 @@ def render_batch(dscene, cam, cfg, dev):
             torch.where(alive, INF, 0.0).contiguous())
 
 
+def host_accumulate(cfg, scene, cam, pix, valid, sample_start: int,
+                    sample_stop: int, acc, reduce=None):
+    """render.accumulate through the host's batch loop: the reference the
+    smoke and the tests hold the graphs against, which calls every
+    kernel through its wrapper (the calls FusedCheck and FrameCheck
+    see). The same arguments, blocks, sample chunks and fold as
+    render.accumulate; each batch's camera rays (kernels.camera), then
+    by mode trace.shade_primary (primary), the shrinking
+    wavefront.trace_chunk (wavefront: a host read a bounce) or
+    trace.trace (every other mode: a host read a bounce), folded into
+    acc by kernels.film_fold (with ``reduce``, into a part that reduce
+    maps before it is added). Returns the tally on the device,
+    (2 + max_depth,) int64: rays cast, 0 bounces run by a graph, and
+    the wavefront's live history (0 in the other modes)."""
+    import numpy as np
+    import torch
+    from tpurt_torch import render, trace, wavefront
+    from tpurt_torch.kernels import camera as camera_k
+    from tpurt_torch.kernels import film_fold as fold_k
+    dev = acc.device
+    n = pix.shape[0]
+    ray_batch = render.effective_ray_batch(cfg, scene)
+    block = render.block_size(n, ray_batch)
+    n_samples = sample_stop - sample_start
+    spp_chunk = cfg.spp_chunk or max(1, ray_batch // block)
+    spp_chunk = min(spp_chunk, max(1, n_samples))
+    n_pad = -(-n // block) * block
+    ok = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
+          else valid)
+    pix = pix.long()
+    if n_pad > n:
+        pix = torch.cat([pix, pix[-1:].expand(n_pad - n)])
+        ok = torch.cat([ok, torch.zeros(n_pad - n, dtype=torch.bool,
+                                        device=dev)])
+    nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    live_hist = np.zeros(cfg.max_depth, np.int64)
+    for first, c, n_chunks in render.batch_schedule(sample_start,
+                                                    sample_stop, spp_chunk):
+        for s0 in range(first, first + c * n_chunks, c):
+            sample_ids = torch.arange(s0, s0 + c, device=dev)
+            for p0 in range(0, n_pad, block):
+                pixf = pix[p0:p0 + block].repeat(c)          # sample-major
+                validf = ok[p0:p0 + block].repeat(c)
+                smp = sample_ids.repeat_interleave(block)
+                o, d, keys = camera_k.camera_rays(
+                    cam, cfg.width, cfg.height, cfg.seed, pixf, smp)
+                if cfg.mode == "primary":
+                    rad, _ = trace.shade_primary(scene, o, d)
+                    rad = torch.where(validf[:, None], rad, 0.0)
+                    nrays = nrays + validf.sum()
+                elif cfg.mode == "wavefront":
+                    q = wavefront.make_queue(o, d, pixf, keys,
+                                             alive=validf)
+                    rad, cast, hist = wavefront.trace_chunk(
+                        scene, q, cfg.max_depth, cfg.rr_start)
+                    nrays = nrays + cast
+                    live_hist += hist
+                else:
+                    rad, cast = trace.trace(scene, o, d, keys,
+                                            cfg.max_depth, cfg.rr_start,
+                                            valid=validf)
+                    nrays = nrays + cast
+                m = min(block, n - p0)
+                if reduce is None:
+                    fold_k.film_fold(acc[p0:p0 + m], rad, c, block)
+                else:
+                    part = torch.zeros((block, 3), dtype=torch.float32,
+                                       device=dev)
+                    part = reduce(fold_k.film_fold(part, rad, c, block))
+                    acc[p0:p0 + m] += part[:m]
+    return torch.cat([nrays.reshape(1), nrays.new_zeros(1),
+                      torch.from_numpy(live_hist).to(dev)])
+
+
+def host_frame(cfg, scene=None, cam=None, device="cpu", stats_sink=None):
+    """A whole unsharded frame through the host's loops: what
+    render.render_samples(cfg, scene, cam, 0, cfg.spp,
+    stats_sink=stats_sink) computes through the graphs. Mode persist
+    streams each pixel block through wavefront.trace_persistent (a host
+    read an iteration) with render's pool capacities; every other mode
+    runs host_accumulate over the tile order. Returns (film_flat
+    (npix, 3), the radiance sums in pixel order on the scene's device,
+    rays_cast); stats_sink gains what render_samples puts there (the
+    wavefront's "queue_capacity" and "live_history", the pools'
+    "persist_occupancy" and "persist_iterations")."""
+    import numpy as np
+    import torch
+    from tpurt_torch import config, render, wavefront
+    from tpurt_torch import scene as scene_mod
+    from tpurt_torch.kernels import frame_graph
+    if scene is None or cam is None:
+        scene, cam = config.build_scene(cfg)
+    scene = scene_mod.to_device(scene, device)
+    dev = scene.sph_c.device
+    npix = cfg.width * cfg.height
+    ray_batch = render.effective_ray_batch(cfg, scene)
+    block = render.block_size(npix, ray_batch)
+    pix, valid, inv = render.order_cached(cfg.width, cfg.height, block, dev)
+    if cfg.mode == "persist":
+        film = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+        caps = [render.pool_capacity(min(block, npix - p0), cfg.spp,
+                                     ray_batch)
+                for p0 in range(0, npix, block)]
+        pairs = []
+        for k, cap in enumerate(caps):
+            p0 = k * block
+            film, nrays, _, iters = wavefront.trace_persistent(
+                scene, cam, film, pix[p0:min(p0 + block, npix)], 0,
+                cfg.spp, cfg.seed, cfg.width, cfg.height, cfg.max_depth,
+                cfg.rr_start, cap)
+            pairs.append((nrays, iters))
+        if stats_sink is not None:
+            stats_sink.setdefault("persist_occupancy", []).extend(
+                wavefront.pool_occupancy(nrays, iters, cap)
+                for (nrays, iters), cap in zip(pairs, caps))
+            stats_sink.setdefault("persist_iterations", []).extend(
+                iters for _, iters in pairs)
+        return film, sum(nrays for nrays, _ in pairs)
+    film_tiled = torch.zeros((pix.shape[0], 3), dtype=torch.float32,
+                             device=dev)
+    tally = host_accumulate(cfg, scene, cam, pix, valid, 0, cfg.spp,
+                            film_tiled)
+    live_hist = np.zeros(cfg.max_depth, np.int64)
+    rays = frame_graph.read_tally(scene, tally, live_hist)
+    if cfg.mode == "wavefront" and stats_sink is not None:
+        stats_sink["queue_capacity"] = -(-npix // block) * block * cfg.spp
+        stats_sink.setdefault("live_history", []).extend(
+            int(x) for x in live_hist)
+    return film_tiled[inv], rays
+
+
 def dup_scene(dev, n_tri=300, n_rays=1 << 16, seed=31):
     """n_tri small random triangles, each listed twice, in a packet BVH
     built by bvh.build_packet (octant tables on), and n_rays rays aimed
@@ -923,8 +1053,7 @@ def c2_traffic(dev, cfg=None):
     render and restored after it. A bounce keeps or loses live rays, never
     gains them, so a call with more live rays than the one before starts
     the next batch."""
-    import torch
-    from tpurt_torch import config, render
+    from tpurt_torch import config
     from tpurt_torch.kernels import intersect
     cfg = cfg or config.PRESETS["c2-cornell"].replace(spp=1)
     calls = []
@@ -936,7 +1065,7 @@ def c2_traffic(dev, cfg=None):
 
     intersect.nearest_tri_small = record
     try:
-        render.render(cfg, device=dev, host_loop=True)
+        host_frame(cfg, device=dev)
     finally:
         intersect.nearest_tri_small = kernel
     out, batch, bounce, before = [], 0, 0, None
@@ -1336,7 +1465,7 @@ def phase_fused(dev):
     outputs written once) against the operations a ray needs (a dead ray
     is tested against nothing and draws nothing). Returns the kernels'
     rows."""
-    from tpurt_torch import config, render
+    from tpurt_torch import config
     from tpurt_torch.kernels import _build, bounce, camera, prims
     keep = {"camera_rays": 0, "prims_nearest": 1, "bounce_shade": 1}
     max_depth = config.PRESETS["c3-mesh"].max_depth
@@ -1346,15 +1475,14 @@ def phase_fused(dev):
         if key not in scenes:
             scenes[key] = config.build_scene(cfg)
         with FusedCheck(label, keep if label == "c3" else None) as chk:
-            _, stats = render.render(cfg, *scenes[key], device=dev,
-                                     host_loop=True)
+            _, rays = host_frame(cfg, *scenes[key], device=dev)
         need = ("camera_rays", "prims_nearest",
                 "hit_shade" if cfg.mode == "primary" else "bounce_shade")
         for k in need:
             if chk.stats.get(k, {}).get("calls", 0) == 0:
                 raise AssertionError(f"fused ({label}): {k} never called")
         cases[label] = chk.stats
-        emit("fused", case=label, mode=cfg.mode, rays=stats["rays"],
+        emit("fused", case=label, mode=cfg.mode, rays=rays,
              check="array_equal, NaN equal to NaN", **{
                  k: {"calls": v["calls"], "elements": v["elements"],
                      "bit_diffs": v["bit_diffs"]}
@@ -2120,14 +2248,14 @@ def phase_frame(dev):
     and every bounce_shade call's survivor and live-packet counts with
     the fused kernels (FusedCheck); both persist renders must regenerate,
     and c4 in mode persist must cast PHASE_RAYS["c4-persist"]; the
-    renders run the host loops, whose every call a wrapper sees. Then
-    the wave graph's entries (check_wave_entries) and the pool graph's
-    (check_pool_entries) on c4 traffic. Then each kernel and its plain
-    version timed on the kept inputs (c3's first fold at the cursor with
-    its step, c4's first shrink; the host loop's largest refill at the
-    cursor with the pool's loop, beside the host loop's entry), each with its
-    bound, and film_fold beside FOLD_LIBRARY. Returns the kernels'
-    rows."""
+    renders run the host loops (host_frame), whose every call a wrapper
+    sees. Then the wave graph's entries (check_wave_entries) and the
+    pool graph's (check_pool_entries) on c4 traffic. Then each kernel
+    and its plain version timed on the kept inputs (c3's first fold at
+    the cursor with its step, c4's first shrink; the host loop's largest
+    refill at the cursor with the pool's loop, beside the host loop's
+    entry), each with its bound, and film_fold beside FOLD_LIBRARY.
+    Returns the kernels' rows."""
     import torch
     from tpurt_torch import config, render
     from tpurt_torch.kernels import _build, compact, film_fold as fold_k
@@ -2135,9 +2263,10 @@ def phase_frame(dev):
     wave_keep = {"camera_rays": 0, "bounce_shade": 1}
     for label, cfg in frame_cases().items():
         _build.reset_launches()
+        sink = {}
         with FusedCheck(label, wave_keep if label == "c4-wavefront"
                         else None) as fused, FrameCheck(label) as chk:
-            _, stats = render.render(cfg, device=dev, host_loop=True)
+            _, rays = host_frame(cfg, device=dev, stats_sink=sink)
         if label == "c4-wavefront":
             kept_fused = fused.kept
         launches = dict(_build.LAUNCHES)
@@ -2158,10 +2287,10 @@ def phase_frame(dev):
             if chk.stats.get(k, {}).get("calls", 0) == 0:
                 raise AssertionError(f"frame ({label}): {k} never called")
         if label == "c4-persist":
-            check_rays(label, stats["rays"])
+            check_rays(label, rays)
         cases[label] = chk.stats
         emit("frame", case=label, mode=cfg.mode, spp=cfg.spp,
-             rays=stats["rays"], occupancy=stats.get("occupancy"),
+             rays=rays, occupancy=render.occupancy(sink),
              launches={k: launches[k] for k in (*FUSED, *FRAME)},
              bounce_counts_checked=fused.stats.get("bounce_shade", {}).get(
                  "calls", 0), packet_flags_checked=flag_calls,
@@ -3166,77 +3295,9 @@ def phase_oracle(golden_rays):
                                  f"card cast {golden_rays[name]}")
 
 
-FRAME_STATE_BYTES = 56   # frame_advance: 2 slots read, 5 written (int64)
 # rays_cast of tpurt_torch.entry's batch: tpurt's entry forward casts as
 # many (tests/test_torch_entry.py holds the port's against it on the CPU)
 ENTRY_RAYS = 3403
-
-
-def check_frame_kernels(dev) -> dict:
-    """frame_graph.cu's two kernels launched alone (no graph) against
-    their plain versions, array-equal state: the condition going on,
-    stopping at a live count of 0 and stopping at max_depth; the cursor
-    stepping inside the pixel list and wrapping to the next chunk, and
-    zeroing the batch slots. Then both timed (the state restored before
-    each call): the row's time, with its bound (FRAME_STATE_BYTES; a few
-    integer operations), is the cursor step's. No render launches either
-    kernel: a graph runs the condition in the last block of
-    camera_rays_cursor and bounce_shade (the fused phase's loop_step)
-    and the cursor's step in the last block of film_fold (the frame
-    phase's fold with its step) or of the pool's commit. Returns the
-    kernel's row."""
-    import torch
-    from tpurt_torch.kernels import frame_graph as fg
-    slots = fg.STATE_SLOTS
-
-    def state(p0=0, s0=0, k=0, live=0):
-        st = torch.zeros(slots, dtype=torch.int64, device=dev)
-        st[fg.P0], st[fg.S0], st[fg.K], st[fg.DEPTH] = p0, s0, k, k
-        fg.live_word(st).fill_(live)
-        return st
-
-    cases = [("cond", state(k=2, live=5)), ("cond", state(k=2)),
-             ("cond", state(k=8, live=3)), ("advance", state(p0=0, s0=4)),
-             ("advance", state(p0=2048, s0=4)),
-             ("advance", state(p0=1024, s0=4, k=3, live=9))]
-    for kind, st in cases:
-        got, want = st.clone(), st.clone()
-        if kind == "cond":
-            fg.frame_cond(got, 8)
-            fg.frame_cond_plain(want, 8)
-        else:
-            fg.frame_advance(got, 1024, 3072, 3)
-            fg.frame_advance_plain(want, 1024, 3072, 3)
-        if not torch.equal(got, want):
-            raise AssertionError(f"frame_graph: {kind} on {st.tolist()} "
-                                 f"gave {got.tolist()}, the plain version "
-                                 f"{want.tolist()}")
-    start = state(k=2, live=5)
-    st, st_p = start.clone(), start.clone()
-    row = {"shape": f"one state of {slots} int64 slots: the cursor step "
-                    "alone (0 own launches: it runs in the last block of "
-                    "film_fold and of the pool's commit); the condition "
-                    "alone in row_extra (on no render path)",
-           **bound(FRAME_STATE_BYTES, {"cmp_minmax": 8}),
-           "max_abs_err": 0.0, "check": "array_equal"}
-    k = time_ms(lambda: fg.frame_cond(st, 8), 50,
-                keep=lambda key: "frame_cond_kernel" in key,
-                setup=lambda: st.copy_(start))
-    a = time_ms(lambda: fg.frame_advance(st, 1024, 3072, 3), 50,
-                keep=lambda key: "frame_advance_kernel" in key,
-                setup=lambda: st.copy_(start))
-    p = time_ms(lambda: fg.frame_advance_plain(st_p, 1024, 3072, 3), 10,
-                setup=lambda: st_p.copy_(start), profiled=False)
-    row.update(ms=a["device"] if a["device"] is not None else a["wall"],
-               plain_ms=p["wall"], wall_ms=a["wall"],
-               by_kernel_ms=a["by_kernel"],
-               launches_per_call=a["launches_per_call"],
-               timer="profiler" if a["device"] is not None else "events",
-               row_extra={"cond_ms": k["device"] if k["device"]
-                          is not None else k["wall"],
-                          "checked_states": len(cases)})
-    emit("kernel", name="frame_graph", **row)
-    return row
 
 
 def graph_cases(golden_rays) -> dict:
@@ -3299,34 +3360,34 @@ def graph_cases(golden_rays) -> dict:
 
 
 def phase_graph(dev, golden_rays):
-    """Every mega render path through the frame graph and through the
-    host loop on the card (graph_cases): c3 at C3_SPP, c2 at C2_SPP, c5
-    by tiles and by spp (a group of one), g2..g5 unsharded and sharded,
-    and c3 through checkpoints every 2 unsharded and by tiles; and mode
-    wavefront through the wave graph and the host loop: c4 at C4_SPP,
-    g3 and g5, g5 by tiles and by spp; and mode primary through the
-    primary graph and the host loop: c1, g1 unsharded and by tiles and
-    spp, g4's blob, c1 through checkpoints. The films must be array-equal
-    (the first graph render, which captures, and a second one on the
-    cached graphs), the occupancy (the live history) equal, and every
-    render must cast its case's rays; the graph's launches, counted by
-    execution (the fixed nodes at each launch, the bounces from the
-    device counter), must equal the host loop's for every kernel both
-    run (but the compaction, which the wave graph runs once a stage of
-    tpurt's ladder: six a batch for c4, and the host loop's hit_shade,
-    where the primary graph runs primary_shade once a batch and no
-    bounce_shade), the fold one a batch and
-    frame_graph's none (the fold's last block steps the cursor, and the
+    """Every mega render path through the frame graph on the card
+    (graph_cases): c3 at C3_SPP, c2 at C2_SPP, c5 by tiles and by spp (a
+    group of one), g2..g5 unsharded and sharded, and c3 through
+    checkpoints every 2 unsharded and by tiles; mode wavefront through
+    the wave graph: c4 at C4_SPP, g3 and g5, g5 by tiles and by spp; and
+    mode primary through the primary graph: c1, g1 unsharded and by
+    tiles and spp, g4's blob, c1 through checkpoints. Each is held
+    against the same frame through the host loop (host_frame, unsharded
+    and in one span). The films must be array-equal (the first graph
+    render, which captures, a second one on the cached graphs, and the
+    host loop's, but for c3 checkpointed by tiles, which adds each
+    span's sums to the film in another order: its two graph renders
+    only), the occupancy (the live history) equal, and every render must
+    cast its case's rays; the graph's launches, counted by execution
+    (the fixed nodes at each launch, the bounces from the device
+    counter), must equal the host loop's for every kernel both run (but
+    the compaction, which the wave graph runs once a stage of tpurt's
+    ladder: six a batch for c4, and the host loop's hit_shade, where the
+    primary graph runs primary_shade once a batch and no bounce_shade),
+    and the fold one a batch (its last block steps the cursor, and the
     loop's condition runs inside the camera and the bounce), and every
     cached graph's nodes must be the graph's shape (check_node_counts).
     Mode persist runs through the pool graph against the host loop
-    (check_pool_renders). Capture and instantiate
-    seconds are reported apart from the walls. Then one scene's graphs
-    under another camera and seed (check_graph_views), the entry point's
-    twin (tpurt_torch.entry) on the card: its radiance array-equal to the
-    host loop's on the same batch, ENTRY_RAYS rays; and the loop
-    control's kernels are held against their plain versions
-    (check_frame_kernels). Returns {"frame_graph": its row}."""
+    (check_pool_renders). Capture and instantiate seconds are reported
+    apart from the walls. Then one scene's graphs under another camera
+    and seed (check_graph_views), and the entry point's twin
+    (tpurt_torch.entry) on the card: its radiance array-equal to the
+    host loop's (host_accumulate) on the same batch, ENTRY_RAYS rays."""
     import tempfile
     import numpy as np
     import torch
@@ -3344,40 +3405,54 @@ def phase_graph(dev, golden_rays):
                 scenes[key] = (scene_mod.to_device(scene, dev), cam)
             dscene, cam = scenes[key]
 
-            def draw(host_loop):
+            def draw():
                 if how == "render":
-                    return render.render(cfg, dscene, cam, device=dev,
-                                         host_loop=host_loop)
+                    return render.render(cfg, dscene, cam, device=dev)
                 if how == "sharded":
-                    return mesh.render_sharded(cfg, dscene, cam, mesh=m,
-                                               host_loop=host_loop)
+                    return mesh.render_sharded(cfg, dscene, cam, mesh=m)
                 return checkpoint.render_with_checkpoints(
                     cfg, dscene, cam, f"{tmp}/{label}.npz", every=2,
-                    mesh=m, device=dev, host_loop=host_loop)
+                    mesh=m, device=dev)
 
             built = graph_stats()
             _build.reset_launches()
-            img_g, st_g = draw(False)
+            img_g, st_g = draw()
             lg = dict(_build.LAUNCHES)
             built = {k: graph_stats()[k] - v for k, v in built.items()}
-            img_w, st_w = draw(False)
+            img_w, st_w = draw()
+            # the host loop renders the frame unsharded and in one span
+            sink = {}
             _build.reset_launches()
-            img_h, st_h = draw(True)
+            t0 = time.perf_counter()
+            film_h, rays_h = host_frame(cfg, dscene, cam, device=dev,
+                                        stats_sink=sink)
+            # the mean as the case's path takes it: a sharded render
+            # divides the host array in NumPy, an unsharded one on the
+            # card (where torch multiplies by the reciprocal)
+            img_h = ((film_h / cfg.spp).cpu().numpy() if cfg.shard == "none"
+                     else film_h.cpu().numpy() / cfg.spp).reshape(
+                         cfg.height, cfg.width, 3)
+            wall_h = time.perf_counter() - t0
             lh = dict(_build.LAUNCHES)
-            same = bool(np.array_equal(img_g, img_h)
-                        and np.array_equal(img_w, img_h))
-            rays = [st_g["rays"], st_w["rays"], st_h["rays"]]
+            # a checkpointed render by tiles adds each span's sums to the
+            # film: another order of additions than one span's
+            exact = not (how == "checkpoint" and cfg.shard == "tiles")
+            same = bool(np.array_equal(img_g, img_w) and
+                        (not exact or np.array_equal(img_w, img_h)))
+            rays = [st_g["rays"], st_w["rays"], rays_h]
             wave = cfg.mode == "wavefront"
             primary = cfg.mode == "primary"
             # the live history, as occupancy (a render's, not a rank's)
-            occ = [st.get("occupancy") for st in (st_g, st_w, st_h)]
+            occ = [st_g.get("occupancy"), st_w.get("occupancy"),
+                   render.occupancy(sink) if how == "render" else None]
             emit("graph", case=label, how=how, mode=cfg.mode, spp=cfg.spp,
                  shard=cfg.shard, rays=rays, expected_rays=want,
                  occupancy_equal=occ[0] == occ[1] == occ[2],
-                 films_array_equal=same, graphs_built=built["graphs"],
+                 films_array_equal=same, film_held_to_host_loop=exact,
+                 graphs_built=built["graphs"],
                  capture_s=built["capture_s"],
                  graph_wall_first_s=st_g["wall_s"],
-                 graph_wall_s=st_w["wall_s"], host_loop_wall_s=st_h["wall_s"],
+                 graph_wall_s=st_w["wall_s"], host_loop_wall_s=wall_h,
                  launches_by_execution=lg, host_loop_launches=lh)
             if not same:
                 raise AssertionError(f"graph ({label}): the graph's film "
@@ -3398,7 +3473,6 @@ def phase_graph(dev, golden_rays):
             # the cursor steps in the fold's last block: no advance node
             if any(lg[k] != lh[k] for k in shared) or \
                     lg["film_fold"] != lg["camera_rays"] or \
-                    lg["frame_graph"] != 0 or \
                     (wave and stages < 1) or \
                     (label == "c4-wavefront" and stages != 6) or \
                     (primary and (lg["bounce_shade"] != 0 or
@@ -3424,8 +3498,8 @@ def phase_graph(dev, golden_rays):
     cfg = entry.CONFIG.replace(seed=seed, ray_batch=pix.shape[0] * 2,
                                spp_chunk=2)
     want = torch.zeros_like(rad)
-    want_rays = frame_graph.read_tally(dscene, render.accumulate(
-        cfg, dscene, cam, pix, None, 0, 2, want, host_loop=True))
+    want_rays = frame_graph.read_tally(dscene, host_accumulate(
+        cfg, dscene, cam, pix, None, 0, 2, want))
     same = bool(torch.equal(rad, want))
     emit("graph", case="entry", rays=rays, host_loop_rays=want_rays,
          expected_rays=ENTRY_RAYS, rad_array_equal=same,
@@ -3433,7 +3507,6 @@ def phase_graph(dev, golden_rays):
     if not same or rays != want_rays or rays != ENTRY_RAYS:
         raise AssertionError(f"graph (entry): {rays} rays, the host loop's "
                              f"{want_rays}, array-equal {same}")
-    return {"frame_graph": check_frame_kernels(dev)}
 
 
 def pool_cases(golden_rays) -> dict:
@@ -3469,18 +3542,18 @@ def pool_film_bound(film_a, film_b, spp: int):
 
 
 def check_pool_renders(dev, golden_rays, scenes, nodes, total) -> None:
-    """Mode persist through the pool graph and the host loop on the card
-    (pool_cases), through render_samples: the first graph render (which
-    captures) and a second one on the cached graphs, each film within
-    pool_film_bound of the host loop's (float atomics: the commits' order
-    is not fixed) and of each other, both films nonnegative (the bound's
-    premise); rays equal and the case's, each pool's iterations and
-    occupancy equal; one PoolGraph a pool capacity of the render (the
-    ragged last pool's, where it is smaller, a graph of its own);
-    launches by execution: the search and the fused
-    bounce kernels the host loop's, persist_refill one more a pool (the
-    load, which the host loop runs as camera_rays). Every cached graph's
-    nodes are checked (check_node_counts)."""
+    """Mode persist through the pool graph (render_samples) and the host
+    loop (host_frame) on the card (pool_cases): the first graph render
+    (which captures) and a second one on the cached graphs, each film
+    within pool_film_bound of the host loop's (float atomics: the
+    commits' order is not fixed) and of each other, both films
+    nonnegative (the bound's premise); rays equal and the case's, each
+    pool's iterations and occupancy equal; one PoolGraph a pool capacity
+    of the render (the ragged last pool's, where it is smaller, a graph
+    of its own); launches by execution: the search and the fused bounce
+    kernels the host loop's, persist_refill one more a pool (the load,
+    which the host loop runs as camera_rays). Every cached graph's nodes
+    are checked (check_node_counts)."""
     import torch
     from tpurt_torch import config, render
     from tpurt_torch import scene as scene_mod
@@ -3493,12 +3566,15 @@ def check_pool_renders(dev, golden_rays, scenes, nodes, total) -> None:
             scenes[key] = (scene_mod.to_device(scene, dev), cam)
         dscene, cam = scenes[key]
 
-        def draw(host_loop):
+        def draw(host):
             sink = {}
             t0 = time.perf_counter()
-            film, rays = render.render_samples(cfg, dscene, cam, 0, cfg.spp,
-                                               stats_sink=sink,
-                                               host_loop=host_loop)
+            if host:
+                film, rays = host_frame(cfg, dscene, cam, device=dev,
+                                        stats_sink=sink)
+            else:
+                film, rays = render.render_samples(cfg, dscene, cam, 0,
+                                                   cfg.spp, stats_sink=sink)
             torch.cuda.synchronize()
             return film, rays, sink, time.perf_counter() - t0
 
@@ -3633,14 +3709,14 @@ def check_graph_views(dev, scenes) -> None:
             entries = len(frame_graph._CACHE)
         run = cfg.replace(seed=seed)
         img_g, st_g = render.render(run, dscene, c, device=dev)
-        img_h, st_h = render.render(run, dscene, c, device=dev,
-                                    host_loop=True)
+        film_h, rays_h = host_frame(run, dscene, c, device=dev)
+        img_h = (film_h / run.spp).cpu().numpy().reshape(img_g.shape)
         same = bool(np.array_equal(img_g, img_h))
         images.append(img_g)
         emit("graph", case=f"view-{label}-{k}", seed=seed,
-             rays=[st_g["rays"], st_h["rays"]], films_array_equal=same,
+             rays=[st_g["rays"], rays_h], films_array_equal=same,
              cached_graphs=len(frame_graph._CACHE))
-        if not same or st_g["rays"] != st_h["rays"]:
+        if not same or st_g["rays"] != rays_h:
             raise AssertionError(f"graph (view {label}): the graph's film or "
                                  "rays differ from the host loop's")
     if graph_stats()["graphs"] != built or \
@@ -3651,116 +3727,6 @@ def check_graph_views(dev, scenes) -> None:
             not np.array_equal(images[0], images[2]):
         raise AssertionError("graph (views): the moved camera's film is not "
                              "its own")
-
-
-WALL_REPS = 20   # warm renders a config in graph_walls
-
-
-def graph_walls(reps: int = WALL_REPS) -> dict:
-    """Warm walls of mode mega's frame graph with the scene on the card:
-    c3-mesh at C3_SPP and c2-cornell at C2_SPP, each rendered once (it
-    captures its graphs), then reps times through render.render, whose
-    wall ends with the film on the host. One line per config with every
-    wall, their median and quartiles. It uses only the package's render
-    API, so an A/B runs it in two checkouts in turns on one card."""
-    import statistics
-    import torch
-    from tpurt_torch import config, render
-    from tpurt_torch import scene as scene_mod
-    dev = torch.device("cuda", 0)
-    out = {}
-    for label, spp in (("c3-mesh", C3_SPP), ("c2-cornell", C2_SPP)):
-        cfg = config.PRESETS[label].replace(spp=spp)
-        scene, cam = config.build_scene(cfg)
-        dscene = scene_mod.to_device(scene, dev)
-        _, first = render.render(cfg, dscene, cam, device=dev)
-        runs = [render.render(cfg, dscene, cam, device=dev)[1]
-                for _ in range(reps)]
-        walls = [st["wall_s"] for st in runs]
-        q1, median, q3 = statistics.quantiles(walls, n=4)
-        out[label] = {"walls_s": walls, "median_s": median,
-                      "quartiles_s": [q1, q3],
-                      "first_wall_s": first["wall_s"],
-                      "rays": [st["rays"] for st in runs]}
-        emit("graph_walls", preset=label, spp=spp, device=smi_line(),
-             **out[label])
-        if any(st["rays"] != PHASE_RAYS[label] for st in runs):
-            raise AssertionError(f"graph_walls ({label}): rays "
-                                 f"{out[label]['rays']}")
-    return out
-
-
-def wave_walls(reps: int = WALL_REPS) -> dict:
-    """Warm walls of mode wavefront with the scene on the card: c4 at
-    C4_SPP through the wave graph and through the host loop
-    (host_loop=True), each rendered once first (the graph captures),
-    then reps times each, in turns, through render.render, whose wall
-    ends with the film on the host. One line with every wall, the
-    medians and quartiles."""
-    import statistics
-    import torch
-    from tpurt_torch import config, render
-    from tpurt_torch import scene as scene_mod
-    dev = torch.device("cuda", 0)
-    cfg = config.PRESETS["c4-wavefront"].replace(spp=C4_SPP)
-    scene, cam = config.build_scene(cfg)
-    dscene = scene_mod.to_device(scene, dev)
-    out = {}
-    for host_loop in (False, True):
-        render.render(cfg, dscene, cam, device=dev, host_loop=host_loop)
-    runs = {False: [], True: []}
-    for _ in range(reps):
-        for host_loop in (False, True):
-            runs[host_loop].append(render.render(
-                cfg, dscene, cam, device=dev, host_loop=host_loop)[1])
-    for host_loop, label in ((False, "wave_graph"), (True, "host_loop")):
-        walls = [st["wall_s"] for st in runs[host_loop]]
-        q1, median, q3 = statistics.quantiles(walls, n=4)
-        out[label] = {"walls_s": walls, "median_s": median,
-                      "quartiles_s": [q1, q3]}
-        if any(st["rays"] != PHASE_RAYS["c4-wavefront"]
-               for st in runs[host_loop]):
-            raise AssertionError(f"wave_walls ({label}): rays")
-    emit("wave_walls", preset="c4-wavefront", spp=C4_SPP, device=smi_line(),
-         **out)
-    return out
-
-
-def pool_walls(reps: int = WALL_REPS) -> dict:
-    """Warm walls of mode persist with the scene on the card: c4 at
-    PERSIST_SPP through the pool graph and through the host loop
-    (host_loop=True), each rendered once first (the graph captures),
-    then reps times each, in turns, through render.render, whose wall
-    ends with the film on the host. One line with every wall, the
-    medians and quartiles."""
-    import statistics
-    import torch
-    from tpurt_torch import config, render
-    from tpurt_torch import scene as scene_mod
-    dev = torch.device("cuda", 0)
-    cfg = config.PRESETS["c4-wavefront"].replace(spp=PERSIST_SPP,
-                                                 mode="persist")
-    scene, cam = config.build_scene(cfg)
-    dscene = scene_mod.to_device(scene, dev)
-    out = {}
-    for host_loop in (False, True):
-        render.render(cfg, dscene, cam, device=dev, host_loop=host_loop)
-    runs = {False: [], True: []}
-    for _ in range(reps):
-        for host_loop in (False, True):
-            runs[host_loop].append(render.render(
-                cfg, dscene, cam, device=dev, host_loop=host_loop)[1])
-    for host_loop, label in ((False, "pool_graph"), (True, "host_loop")):
-        walls = [st["wall_s"] for st in runs[host_loop]]
-        q1, median, q3 = statistics.quantiles(walls, n=4)
-        out[label] = {"walls_s": walls, "median_s": median,
-                      "quartiles_s": [q1, q3]}
-        if any(st["rays"] != PHASE_RAYS["c4-persist"]
-               for st in runs[host_loop]):
-            raise AssertionError(f"pool_walls ({label}): rays")
-    emit("pool_walls", preset="c4-wavefront", mode="persist",
-         spp=PERSIST_SPP, device=smi_line(), **out)
-    return out
 
 
 def span_cost(calls: int = 200_000) -> dict:
@@ -3812,13 +3778,11 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                      "cudaGraphLaunch")
 
 
-# kernels counted under another LAUNCHES name: frame_graph.cu's two, the
-# pool's commit and load (counted as persist_refill launches), and the
-# merge alone (hit_shade, counted as bounce_shade: mode primary's host
-# loop, which a parent before the primary graph runs)
-PROFILE_NAMES = {"frame_cond_kernel": "frame_graph",
-                 "frame_advance_kernel": "frame_graph",
-                 "film_commit_kernel": "persist_refill",
+# kernels counted under another LAUNCHES name: the pool's commit and
+# load (counted as persist_refill launches), and the merge alone
+# (hit_shade, counted as bounce_shade: mode primary's host loop, which a
+# parent before the primary graph runs)
+PROFILE_NAMES = {"film_commit_kernel": "persist_refill",
                  "persist_load_kernel": "persist_refill",
                  "hit_shade_kernel": "bounce_shade"}
 
@@ -4101,8 +4065,6 @@ SOURCES = {
                        "tpurt/wavefront.py:149"),
     "persist_refill": ("tpurt_torch/kernels/csrc/persist_refill.cu",
                        "tpurt/wavefront.py:496"),
-    "frame_graph": ("tpurt_torch/kernels/csrc/frame_graph.cu",
-                    "tpurt/trace.py:267"),
 }
 
 
@@ -4128,11 +4090,11 @@ def main() -> int:
                                  f"{results[k]['launches_per_call']} CUDA "
                                  "kernels a call")
     golden_rays = phase_goldens(dev)
-    results.update(phase_child("phase_graph", args=[golden_rays]))
+    phase_child("phase_graph", args=[golden_rays])
     # the loop step runs inside bounce_shade and the cursor camera: its
     # cost is theirs with it against without it (phase_fused)
-    results["frame_graph"].setdefault("row_extra", {})[
-        "loop_step_in_last_block"] = results.pop("loop_step")
+    results["bounce_shade"]["row_extra"]["loop_step_in_last_block"] = \
+        results.pop("loop_step")
     world = torch.cuda.device_count()
     # the main paths, each read on its own
     paths = {
@@ -4189,11 +4151,11 @@ def main() -> int:
     # prims_nearest and film_fold on every render path (in mode mega as
     # nodes of the frame graph, counted by execution), bounce_shade on
     # every one but c1-primary's, primary_shade on c1-primary's and g1's
-    # (one node a batch of the primary graph);
-    # frame_graph on none (its kernels run on no render path: the loop's
-    # condition runs inside camera_rays, bounce_shade and, in the wave
-    # graph, packet_compact; the cursor's step inside film_fold and the
-    # pool's commit); packet_compact (one a stage of the wave graph) on
+    # (one node a batch of the primary graph); the loop control runs in
+    # no kernel of its own (the loop's condition runs inside
+    # camera_rays, bounce_shade and, in the wave graph, packet_compact;
+    # the cursor's step inside film_fold and the pool's commit);
+    # packet_compact (one a stage of the wave graph) on
     # c4-wavefront (and a wavefront rank of c5 would), persist_refill
     # (the pool graph's load, refills and commit) on c4-persist.
     print(json.dumps({"kernels": [row(k) for k in SOURCES]}), flush=True)

@@ -319,11 +319,11 @@ def test_smoke_frame_check_on_a_cpu_render(mode):
             chip_smoke.FrameCheck("cpu") as chk:
         # the host loop, whose wrapper calls the checks see (a graph's
         # schedule passes fixed out buffers), as the frame phase renders
-        img, stats = trender.render(cfg, device="cpu", host_loop=True)
+        _, rays = chip_smoke.host_frame(cfg)
     assert (fold_k.film_fold, compact.packet_compact, refill.persist_refill,
             refill.persist_commit) == wrapped
     _, mega = trender.render(cfg.replace(mode="mega"), device="cpu")
-    assert stats["rays"] == mega["rays"]
+    assert rays == mega["rays"]
     if mode == "wavefront":
         assert chk.stats["film_fold"]["calls"] > 0
         assert chk.stats["film_fold"]["bit_diffs"] == 0

@@ -4,8 +4,8 @@ tpurt's one-dispatch frame pass.
 
   * the cursor camera (camera_rays_cursor_plain, and the wrapper with
     out buffers): array-equal to camera_rays_plain on the explicit
-    repeats of render.accumulate's host loop, at a ragged last block and
-    with c > 1, with alive and the live count;
+    repeats of the host loop (chip_smoke.host_accumulate), at a ragged
+    last block and with c > 1, with alive and the live count;
   * bounce_shade_plain with the bounce index as a 0-dim tensor (the
     graph's device counter): bit-equal to the same call with an int;
   * the loop control in the last block (loop_ctl.Loop): the cursor
@@ -25,7 +25,8 @@ tpurt's one-dispatch frame pass.
     rays_cast on the device) against tpurt's render_samples in mode mega
     on g3 and a small blob: rays_cast equal, the film within 1e-4 RMSE
     (XLA's CPU compiler contracts FMAs, which moves radiance by ulps and,
-    rarely, a path); against the port's host loop: array-equal;
+    rarely, a path); against the port's host loop
+    (chip_smoke.host_frame): array-equal;
   * one cached graph per scene and shape: two cameras and two seeds on
     one scene render through the same FrameGraph, each film array-equal
     to the host loop's;
@@ -40,6 +41,9 @@ tpurt's one-dispatch frame pass.
 The CUDA kernels and the captured graph are held against these on the
 card by chip_smoke.py's ``graph`` phase.
 """
+
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -59,6 +63,9 @@ from tpurt_torch.kernels import camera as camera_k  # noqa: E402
 from tpurt_torch.kernels import film_fold as fold_k  # noqa: E402
 from tpurt_torch.kernels import frame_graph as fg_k  # noqa: E402
 from tpurt_torch.kernels import loop_ctl, prims, refill  # noqa: E402
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 SMALL = tconfig.RenderConfig(width=40, height=30, spp=3, seed=7,
                              scene="spheres_plane", max_depth=6, rr_start=2)
@@ -379,11 +386,11 @@ def test_condition_stops_where_the_host_loop_stops(live, max_depth):
     word = fg_k.live_word(st)
     depths = []
     word.fill_(live[0])
-    fg_k.frame_cond(st, max_depth)
+    fg_k.frame_cond_plain(st, max_depth)
     while int(st[fg_k.GO]):
         depths.append(int(st[fg_k.DEPTH]))
         word.fill_(live[len(depths)] if len(depths) < len(live) else 0)
-        fg_k.frame_cond(st, max_depth)
+        fg_k.frame_cond_plain(st, max_depth)
     assert depths == want_depths
     assert int(st[fg_k.RAYS]) == sum(live[k] for k in want_depths)
     assert int(st[fg_k.ITERS]) == int(st[fg_k.K]) == len(want_depths)
@@ -400,7 +407,7 @@ def test_advance_walks_the_host_loop_order(n, block, c, chunks):
     st, got = _state(0, 9), []
     for _ in want:
         got.append((int(st[fg_k.P0]), int(st[fg_k.S0])))
-        fg_k.frame_advance(st, block, n_pad, c)
+        fg_k.frame_advance_plain(st, block, n_pad, c)
     assert got == want
     assert (int(st[fg_k.P0]), int(st[fg_k.S0])) == (0, 9 + c * chunks)
 
@@ -427,8 +434,7 @@ def test_plain_frame_loop_matches_tpurt_render_samples(name):
                                           jcfg.spp)
     assert rays == int(jrays)
     assert film.rmse(got.numpy(), np.asarray(jfilm)) < 1e-4
-    host, host_rays = trender.render_samples(tcfg, dev, cam, 0, tcfg.spp,
-                                             host_loop=True)
+    host, host_rays = chip_smoke.host_frame(tcfg, dev, cam)
     assert host_rays == rays and torch.equal(host, got)
 
 
@@ -447,8 +453,8 @@ def test_frame_graph_state_after_a_call(small):
     g.launch(scene)
     g.end(acc)
     want = torch.zeros_like(acc)
-    want_tally = trender.accumulate(cfg, scene, cam, pix, valid, 1, 3, want,
-                                    host_loop=True)
+    want_tally = chip_smoke.host_accumulate(cfg, scene, cam, pix, valid, 1,
+                                            3, want)
     # rays, no graph bounces, and no live history (mode mega)
     assert want_tally.tolist() == [int(g.state[fg_k.RAYS]), 0] + \
         [0] * cfg.max_depth
@@ -479,8 +485,7 @@ def test_one_graph_serves_every_camera_and_seed():
     for c, seed in ((cam, cfg.seed), (other, cfg.seed), (other, 99)):
         run = cfg.replace(seed=seed)
         got, rays = trender.render_samples(run, scene, c, 0, run.spp)
-        want, want_rays = trender.render_samples(run, scene, c, 0, run.spp,
-                                                 host_loop=True)
+        want, want_rays = chip_smoke.host_frame(run, scene, c)
         assert rays == want_rays and torch.equal(got, want)
         films.append(got)
         assert len(set(fg_k._CACHE) - before) == 1
@@ -514,13 +519,13 @@ def test_batch_schedule_equals_tpurt(monkeypatch, start, stop, chunk):
                                   min(chunk, max(1, stop - start))) == runs
 
 
-@pytest.mark.parametrize("fn", ["camera", "camera_loop", "fold", "cond",
-                                "advance", "fold_step", "pool_load",
-                                "pool_refill", "pool_commit"])
+@pytest.mark.parametrize("fn", ["camera", "camera_loop", "fold",
+                                "fold_step", "pool_load", "pool_refill",
+                                "pool_commit"])
 def test_graph_wrappers_raise_off_the_cpu(small, fn):
     """A wrapper runs its plain version only for CPU tensors; tensors on
-    another device (here meta) must launch a kernel or raise: the frame
-    graph's, the fold with its cursor tail, and the pool graph's load,
+    another device (here meta) must launch a kernel or raise: the cursor
+    camera's, the fold with its cursor tail, and the pool graph's load,
     refill at the cursor with the pool's loop, and commit with the end
     of the pool."""
     _, cam = small
@@ -546,10 +551,6 @@ def test_graph_wrappers_raise_off_the_cpu(small, fn):
             fold_k.film_fold(torch.zeros((256, 3), device="meta"),
                              torch.zeros((256, 3), device="meta"), 1, 256,
                              st)
-        elif fn == "cond":
-            fg_k.frame_cond(st, 4)
-        elif fn == "advance":
-            fg_k.frame_advance(st, 128, 256, 1)
         elif fn == "fold_step":
             fold_k.film_fold(torch.zeros((256, 3), device="meta"),
                              torch.zeros((256, 3), device="meta"), 1, 256,
@@ -582,16 +583,17 @@ LANE_CASES = {
 }
 
 
-def _lane_call(scene, cam, cfg, reduce=None, host_loop=False):
-    """render.accumulate over SMALL's unpadded tile order. Returns (the
-    film rows, the tally, the graph.pair span's calls, the graph.launch
-    span's calls)."""
+def _lane_call(scene, cam, cfg, reduce=None, accumulate=trender.accumulate):
+    """render.accumulate (or ``accumulate``: chip_smoke.host_accumulate,
+    the host loop) over SMALL's unpadded tile order. Returns (the film
+    rows, the tally, the graph.pair span's calls, the graph.launch span's
+    calls)."""
     pix = torch.from_numpy(trender.tile_order(cfg.width, cfg.height)
                            .astype(np.int64))
     acc = torch.zeros((pix.shape[0], 3))
     metrics.reset_spans()
-    tally = trender.accumulate(cfg, scene, cam, pix, None, 0, cfg.spp, acc,
-                               reduce=reduce, host_loop=host_loop)
+    tally = accumulate(cfg, scene, cam, pix, None, 0, cfg.spp, acc,
+                       reduce=reduce)
     calls = [metrics.SPANS.get(k, {}).get("calls", 0)
              for k in ("graph.pair", "graph.launch")]
     metrics.reset_spans()
@@ -635,7 +637,8 @@ def test_two_lanes_equal_one_lane(small, monkeypatch, name):
     assert torch.equal(got, want)
     assert tally.tolist() == want_tally.tolist()
     assert tally[1] > 0
-    host, host_tally, _, _ = _lane_call(scene, cam, cfg, host_loop=True)
+    host, host_tally, _, _ = _lane_call(
+        scene, cam, cfg, accumulate=chip_smoke.host_accumulate)
     assert torch.equal(got, host) and host_tally[0] == tally[0]
     chunks = sum(k for _, _, k in runs)
     assert launches == one_launches == chunks * n_blocks
@@ -664,6 +667,6 @@ def test_one_lane_calls(small, case):
         cfg.mode, fg_k.FrameGraph), reduce)) == 1
     got, tally, pairs, launches = _lane_call(scene, cam, cfg, reduce)
     assert pairs == 0 and launches > 0
-    host, host_tally, _, _ = _lane_call(scene, cam, cfg, reduce,
-                                        host_loop=True)
+    host, host_tally, _, _ = _lane_call(
+        scene, cam, cfg, reduce, accumulate=chip_smoke.host_accumulate)
     assert torch.equal(got, host) and host_tally[0] == tally[0]

@@ -690,26 +690,30 @@ def test_bounce_within_ulp_bound(shim, name, rr_start):
 
 def test_smoke_fused_check_on_a_cpu_render():
     """chip_smoke.FusedCheck (the card's fused phase) around a small CPU
-    render through the host loop, as that phase drives it: every wrapped
-    call runs and compares, the survivor counts agree, the image is the
-    frame graph's, and the kept arguments call the wrappers again."""
+    render through the host loop (chip_smoke.host_frame), as that phase
+    drives it: every wrapped call runs and compares, the survivor counts
+    agree, the film is the frame graph's, and the kept arguments call the
+    wrappers again."""
     import chip_smoke
     from tpurt_torch import render
     cfg = tconfig.RenderConfig(width=32, height=24, spp=2, max_depth=5,
                                rr_start=2, seed=3, scene="spheres_plane")
+    scene, cam = tconfig.build_scene(cfg)
+    scene = tscene.to_device(scene, "cpu")
     keep = {"camera_rays": 0, "prims_nearest": 1, "bounce_shade": 1}
     wrapped = (camera_k.camera_rays, prims.prims_nearest,
                bounce_k.bounce_shade)
     with chip_smoke.FusedCheck("cpu", keep) as chk:
         assert camera_k.camera_rays is not wrapped[0]
-        img, stats = render.render(cfg, device="cpu", host_loop=True)
+        film, _ = chip_smoke.host_frame(cfg, scene, cam)
     assert (camera_k.camera_rays, prims.prims_nearest,
             bounce_k.bounce_shade) == wrapped         # restored on exit
     assert {k: v["calls"] for k, v in chk.stats.items()} == {
         "camera_rays": 1, "prims_nearest": 5, "bounce_shade": 5}
     assert all(v["bit_diffs"] == 0 for v in chk.stats.values())
-    want, _ = render.render(cfg, device="cpu")     # the frame graph's loop
-    assert np.array_equal(img, want)
+    # the frame graph's loop
+    want, _ = render.render_samples(cfg, scene, cam, 0, cfg.spp)
+    assert torch.equal(film, want)
     args, _ = chk.kept["camera_rays"]
     _equal(camera_k.camera_rays(*args), camera_k.camera_rays_plain(*args),
            "kept camera")

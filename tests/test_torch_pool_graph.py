@@ -26,8 +26,8 @@ persistent render.
   * one pool graph a scene, shape and capacity serves every camera and
     seed; two renders of a ragged-capacity config on one scene (two
     graphs, the first ending inside the list) each equal the host
-    loop's; a checkpointed persist render resumes bit for bit, on a
-    ragged-capacity config too; a
+    loop's (chip_smoke.host_frame); a checkpointed persist render
+    resumes bit for bit, on a ragged-capacity config too; a
     sample-sharded persist render runs the megakernel's frame graph,
     not the pool graph (as tpurt's sharded render does).
 The CUDA kernels and the captured graph are held against these on the
@@ -345,10 +345,15 @@ def test_commit_with_the_end_of_the_pool(p0):
 RENDERS = {"g2-2048": G2, "c4-ragged-rr": C4}
 
 
-def _render(cfg, scene, cam, **kw):
+def _render(cfg, scene, cam, frame=None):
+    """render_samples over the whole frame, or ``frame`` (the host loop:
+    chip_smoke.host_frame): (film, rays, stats sink)."""
     sink = {}
-    got, rays = trender.render_samples(cfg, scene, cam, 0, cfg.spp,
-                                       stats_sink=sink, **kw)
+    if frame is None:
+        got, rays = trender.render_samples(cfg, scene, cam, 0, cfg.spp,
+                                           stats_sink=sink)
+    else:
+        got, rays = frame(cfg, scene, cam, stats_sink=sink)
     return got, rays, sink
 
 
@@ -364,7 +369,8 @@ def test_pool_graph_render_equals_host_loop_and_tpurt(name):
     scene, cam = tconfig.build_scene(cfg)
     scene = tscene.to_device(scene, "cpu")
     got, rays, sink = _render(cfg, scene, cam)
-    want, want_rays, want_sink = _render(cfg, scene, cam, host_loop=True)
+    want, want_rays, want_sink = _render(cfg, scene, cam,
+                                         chip_smoke.host_frame)
     assert torch.equal(got, want) and rays == want_rays
     assert sink == want_sink
     npix = cfg.width * cfg.height
@@ -407,7 +413,8 @@ def test_one_pool_graph_serves_every_camera_and_seed():
     for c, seed in ((cam, cfg.seed), (other, cfg.seed), (other, 99)):
         run = cfg.replace(seed=seed)
         got, rays, sink = _render(run, scene, c)
-        want, want_rays, want_sink = _render(run, scene, c, host_loop=True)
+        want, want_rays, want_sink = _render(run, scene, c,
+                                             chip_smoke.host_frame)
         assert rays == want_rays and torch.equal(got, want)
         assert sink == want_sink
         films.append(got)
@@ -428,7 +435,8 @@ def test_ragged_pool_graphs_render_twice_on_one_scene():
     host loop's; rays, iterations and per-pool occupancy equal."""
     scene, cam = tconfig.build_scene(C4)
     scene = tscene.to_device(scene, "cpu")
-    want, want_rays, want_sink = _render(C4, scene, cam, host_loop=True)
+    want, want_rays, want_sink = _render(C4, scene, cam,
+                                         chip_smoke.host_frame)
     for k in range(2):
         got, rays, sink = _render(C4, scene, cam)
         assert torch.equal(got, want) and rays == want_rays
@@ -453,8 +461,7 @@ CHECKPOINTS = {"g2": (G2.replace(width=32, height=24, spp=4, ray_batch=512),
 def test_checkpointed_persist_render_resumes_exactly(tmp_path, name):
     """A persist render checkpointed in two spans (a pool graph call a
     span and pool capacity): a crash after the first span, resumed,
-    equals the uninterrupted run bit for bit with equal rays, and both
-    equal the host loop's checkpointed run."""
+    equals the uninterrupted run bit for bit with equal rays."""
     cfg, every = CHECKPOINTS[name]
     scene, cam = tconfig.build_scene(cfg)
     scene = tscene.to_device(scene, "cpu")
@@ -465,13 +472,10 @@ def test_checkpointed_persist_render_resumes_exactly(tmp_path, name):
         cfg, scene, cam, str(path), every=every, resume=True, device="cpu")
     f_full, s_full = tckpt.render_with_checkpoints(
         cfg, scene, cam, str(tmp_path / "q.npz"), every=every, device="cpu")
-    f_host, s_host = tckpt.render_with_checkpoints(
-        cfg, scene, cam, str(tmp_path / "r.npz"), every=every, device="cpu",
-        host_loop=True)
     assert s_res["resumed_from_spp"] == every
     assert s_full["checkpoints_written"] == 1
-    assert np.array_equal(f_res, f_full) and np.array_equal(f_full, f_host)
-    assert s_res["rays"] == s_full["rays"] == s_host["rays"]
+    assert np.array_equal(f_res, f_full)
+    assert s_res["rays"] == s_full["rays"]
 
 
 @pytest.mark.parametrize("shard", ["spp", "tiles"])

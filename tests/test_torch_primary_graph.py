@@ -19,7 +19,7 @@ primary.
     schedule against tpurt's render_samples for g1-primary and a blob
     with a ragged last block and spp_chunk 2: rays equal, the film
     within RMSE 1e-4 (test_torch_frame_graph.py's bound), and equal to
-    the port's host loop;
+    the port's host loop (chip_smoke.host_frame);
   * the graph's state after a call: rays_cast c times the live rows over
     the launches, no bounce, the cursor past the range; its fixed
     launches are the five kernels; one graph serves every camera and
@@ -251,8 +251,7 @@ def test_primary_graph_render_equals_tpurt_and_host_loop(cfg):
                                           jcfg.spp)
     assert rays == int(jrays) == cfg.width * cfg.height * cfg.spp
     assert film.rmse(got.numpy(), np.asarray(jfilm)) < 1e-4
-    host, host_rays = trender.render_samples(cfg, dev, cam, 0, cfg.spp,
-                                             host_loop=True)
+    host, host_rays = chip_smoke.host_frame(cfg, dev, cam)
     assert host_rays == rays and torch.equal(host, got)
 
 
@@ -288,8 +287,8 @@ def test_primary_graph_state_after_a_call():
     assert st[fg_k.DEPTH:].tolist() == [0] * (fg_k.STATE_SLOTS - fg_k.DEPTH)
     assert int(g.counter) == 0
     want = torch.zeros_like(acc)
-    want_tally = trender.accumulate(cfg, scene, cam, pix[:n], valid[:n], 1, 3,
-                                    want, host_loop=True)
+    want_tally = chip_smoke.host_accumulate(cfg, scene, cam, pix[:n],
+                                            valid[:n], 1, 3, want)
     assert torch.equal(acc, want)
     tally = torch.zeros(2 + cfg.max_depth, dtype=torch.int64)
     g.add_tally(tally)
@@ -310,8 +309,7 @@ def test_one_primary_graph_serves_every_camera_and_seed():
     for c, seed in ((cam, cfg.seed), (other, cfg.seed), (other, 99)):
         run = cfg.replace(seed=seed)
         got, rays = trender.render_samples(run, scene, c, 0, run.spp)
-        want, want_rays = trender.render_samples(run, scene, c, 0, run.spp,
-                                                 host_loop=True)
+        want, want_rays = chip_smoke.host_frame(run, scene, c)
         assert rays == want_rays and torch.equal(got, want)
         films.append(got)
         assert len(set(fg_k._CACHE) - before) == 1
@@ -326,7 +324,7 @@ def test_one_primary_graph_serves_every_camera_and_seed():
 def test_sharded_primary_render_runs_the_primary_graph(shard):
     """mesh.render_samples_sharded in mode primary (the one-rank group of
     this process) traces with the primary graph, and its film and rays
-    are the unsharded render's and the sharded host loop's."""
+    are the unsharded render's."""
     cfg = BLOB.replace(spp=2, spp_chunk=0, shard=shard)
     scene, cam = tconfig.build_scene(cfg)
     scene = tscene.to_device(scene, "cpu")
@@ -336,18 +334,15 @@ def test_sharded_primary_render_runs_the_primary_graph(shard):
                                              mesh=mesh)
     new = [fg_k._CACHE[k] for k in set(fg_k._CACHE) - before]
     assert new and all(type(g) is primary_graph.PrimaryGraph for g in new)
-    host, host_rays = tmesh.render_samples_sharded(cfg, scene, cam, 0, 2,
-                                                   mesh=mesh, host_loop=True)
     want, want_rays = trender.render_samples(cfg, scene, cam, 0, 2)
-    assert rays == host_rays == want_rays
-    assert np.array_equal(got, host)
+    assert rays == want_rays
     assert np.array_equal(got, want.numpy())
 
 
 def test_checkpointed_primary_render_resumes_exactly(tmp_path):
     """A primary render checkpointed every 2 of 4 samples: a crash after
     the first span, resumed, equals the uninterrupted run bit for bit
-    with equal rays, and both equal the host loop's."""
+    with equal rays."""
     cfg = G1.replace(width=32, height=24, spp=4)
     scene, cam = tconfig.build_scene(cfg)
     scene = tscene.to_device(scene, "cpu")
@@ -358,12 +353,9 @@ def test_checkpointed_primary_render_resumes_exactly(tmp_path):
         cfg, scene, cam, str(path), every=2, resume=True, device="cpu")
     f_full, s_full = tckpt.render_with_checkpoints(
         cfg, scene, cam, str(tmp_path / "q.npz"), every=2, device="cpu")
-    f_host, s_host = tckpt.render_with_checkpoints(
-        cfg, scene, cam, str(tmp_path / "r.npz"), every=2, device="cpu",
-        host_loop=True)
     assert s_res["resumed_from_spp"] == 2
-    assert np.array_equal(f_res, f_full) and np.array_equal(f_full, f_host)
-    assert s_res["rays"] == s_full["rays"] == s_host["rays"] == 32 * 24 * 4
+    assert np.array_equal(f_res, f_full)
+    assert s_res["rays"] == s_full["rays"] == 32 * 24 * 4
 
 
 def test_primary_shade_and_graph_raise_off_the_cpu():

@@ -82,6 +82,50 @@ def test_sample_ranges_sum_to_the_whole():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("mode", trender.MODES)
+def test_an_empty_sample_range_adds_nothing(mode, monkeypatch):
+    """render_samples over samples [2, 2) launches no graph and returns
+    the film as it was with 0 rays; in mode persist each pool reports an
+    occupancy of 0.0 and 0 iterations, as wavefront.trace_persistent does
+    for no samples, and in mode wavefront the live history is zeros."""
+    from tpurt_torch import wavefront as twave
+    from tpurt_torch.kernels import frame_graph as fg_k
+    cfg = tconfig.RenderConfig(width=40, height=24, spp=4, seed=4,
+                               scene="spheres_plane", max_depth=4,
+                               ray_batch=512, mode=mode)
+    scene, cam = tconfig.build_scene(cfg)
+    dev = tscene.to_device(scene, "cpu")
+    npix = cfg.width * cfg.height
+    film0 = torch.from_numpy(np.random.RandomState(1).uniform(
+        size=(npix, 3)).astype(np.float32))
+
+    def launch(self, scene):
+        raise AssertionError("a graph launched")
+    monkeypatch.setattr(fg_k.FrameGraph, "launch", launch)
+    sink = {}
+    got, rays = trender.render_samples(cfg, dev, cam, 2, 2,
+                                       film_flat=film0.clone(),
+                                       stats_sink=sink)
+    assert torch.equal(got, film0) and rays == 0
+    pools = -(-npix // trender.block_size(npix, cfg.ray_batch))
+    if mode == "persist":
+        assert pools == 2
+        assert sink == {"persist_occupancy": [0.0] * pools,
+                        "persist_iterations": [0] * pools}
+        pix = torch.arange(512)
+        film, nrays, _, iters = twave.trace_persistent(
+            dev, cam, film0.clone(), pix, 2, 0, cfg.seed, cfg.width,
+            cfg.height, cfg.max_depth, cfg.rr_start,
+            trender.pool_capacity(512, 0, cfg.ray_batch))
+        assert torch.equal(film, film0) and (nrays, iters) == (0, 0)
+        assert twave.pool_occupancy(nrays, iters, 0) == 0.0
+    elif mode == "wavefront":
+        assert sink == {"queue_capacity": 0,
+                        "live_history": [0] * cfg.max_depth}
+    else:
+        assert sink == {}
+
+
 @pytest.mark.parametrize("size", [(48, 32), (45, 31), (17, 9), (3840, 2160)])
 def test_tile_order_equals_tpurt(size):
     """The port places pixels by their tile key instead of sorting them:

@@ -145,8 +145,7 @@ def test_frame_begin_closes_before_the_first_launch(mode, small,
                                                     monkeypatch):
     """render.render's way in: one ``frame.begin`` a call, closed when
     the frame's first graph launch starts, with the film's way out after
-    the last; a render that passes no graph (the host loop) closes it
-    before its first batch."""
+    the last."""
     scene, cam = small
     cfg = SMALL.replace(mode=mode)
     seen = []
@@ -167,9 +166,6 @@ def test_frame_begin_closes_before_the_first_launch(mode, small,
         assert metrics.SPANS["frame.film"]["calls"] == k
     assert metrics._OPEN == []
     assert metrics.SPANS["frame.begin"]["parent"] is None
-    trender.render(cfg, scene, cam, device="cpu", host_loop=True)
-    assert metrics.SPANS["frame.begin"]["calls"] == 3
-    assert metrics._OPEN == []
 
 
 @pytest.mark.parametrize("cfg, calls", [

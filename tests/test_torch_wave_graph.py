@@ -9,7 +9,8 @@ tpurt's one-dispatch staged wavefront and the port's host loop.
     FMAs); against the port's host loop (wavefront.trace_chunk):
     radiance array-equal;
   * render_samples in mode wavefront through the graph's plain schedule
-    against the host loop: film array-equal, rays and occupancy equal;
+    against the host loop (chip_smoke.host_frame): film array-equal, rays
+    and occupancy equal;
   * a stage that runs no bounce compacts by the flags the stage before
     wrote, never by stale ones; a stage stopped by max_depth with more
     live packets than its cap sends the live rows past the cap home;
@@ -24,7 +25,9 @@ card by chip_smoke.py's ``frame`` and ``graph`` phases.
 """
 
 import ctypes
+import pathlib
 import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +45,9 @@ from tpurt_torch.kernels import bounce as bounce_k
 from tpurt_torch.kernels import camera as camera_k
 from tpurt_torch.kernels import compact, loop_ctl, prims, wave_graph
 from tpurt_torch.kernels import frame_graph as fg_k
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 W, H = 64, 64        # a 4,096-pixel frame: one 32-packet batch
 STAGED_BOUND = 1e-4  # test_trace_chunk_matches_jax_staged's radiance bound
@@ -148,9 +154,8 @@ def test_render_samples_graph_equals_host_loop(kw):
     sink_g, sink_h = {}, {}
     got, rays = trender.render_samples(cfg, scene, cam, 0, cfg.spp,
                                        stats_sink=sink_g)
-    want, want_rays = trender.render_samples(cfg, scene, cam, 0, cfg.spp,
-                                             stats_sink=sink_h,
-                                             host_loop=True)
+    want, want_rays = chip_smoke.host_frame(cfg, scene, cam,
+                                            stats_sink=sink_h)
     assert rays == want_rays
     assert torch.equal(got, want)
     assert sink_g == sink_h
@@ -466,8 +471,8 @@ def test_wave_graph_state_after_a_call(spheres):
     g = fg_k.get(scene, n, block, 1, cfg.max_depth, cfg.rr_start, False,
                  "cpu", wave_graph.WaveGraph)
     want = torch.zeros((n, 3))
-    want_tally = trender.accumulate(cfg, scene, cam, pix[:n], valid[:n], 1,
-                                    3, want, host_loop=True)
+    want_tally = chip_smoke.host_accumulate(cfg, scene, cam, pix[:n],
+                                            valid[:n], 1, 3, want)
     acc = torch.zeros((n, 3))
     tally = trender.accumulate(cfg, scene, cam, pix[:n], valid[:n], 1, 3,
                                acc)

@@ -61,8 +61,7 @@ def load(path: str, cfg: RenderConfig):
 def render_with_checkpoints(cfg: RenderConfig, scene: Optional[Scene] = None,
                             cam=None, path: str = "render.ckpt.npz",
                             every: int = 64, resume: bool = False,
-                            mesh=None, device="cuda",
-                            host_loop: bool = False):
+                            mesh=None, device="cuda"):
     """Full-frame render that checkpoints every ``every`` samples.
 
     The output contract of render.render; if ``resume`` and ``path``
@@ -70,8 +69,7 @@ def render_with_checkpoints(cfg: RenderConfig, scene: Optional[Scene] = None,
     routes each sample span through mesh.render_samples_sharded (on
     ``mesh``, or a mesh made on ``device``): rank 0 writes the file while
     the other ranks wait at a barrier, and every rank reads it on resume.
-    The final state goes to the image, never to the file. host_loop:
-    render.accumulate's."""
+    The final state goes to the image, never to the file."""
     if scene is None or cam is None:
         scene, cam = build_scene(cfg)
     npix = cfg.width * cfg.height
@@ -100,11 +98,10 @@ def render_with_checkpoints(cfg: RenderConfig, scene: Optional[Scene] = None,
         s1 = min(s0 + every, cfg.spp)
         if sharded:
             film_flat, nrays = mesh_mod.render_samples_sharded(
-                cfg, scene, cam, s0, s1, film_flat, mesh,
-                host_loop=host_loop)
+                cfg, scene, cam, s0, s1, film_flat, mesh)
         else:
             film_flat, nrays = render_mod.render_samples(
-                cfg, scene, cam, s0, s1, film_flat, host_loop=host_loop)
+                cfg, scene, cam, s0, s1, film_flat)
         total_rays += nrays
         if s1 < cfg.spp:  # final state goes to the image, not the file
             if not sharded:

@@ -58,8 +58,6 @@ SIGNATURES = {
     "tt_primary_shade": "p" * 19 + "fffff" + "i",
     "tt_bounce_shade": "p" * 8 + "iii" + "p" * 23 + "ipipip" + "i",
     "tt_film_fold": "ppp" + "iii" + "pi",
-    "tt_frame_graph": "pp" + "ii",
-    "tt_frame_advance": "p" + "iii",
     "tt_graph_begin": "pi",
     "tt_graph_while": "ppp",
     "tt_graph_while_end": "",
@@ -83,8 +81,7 @@ ARG_TYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 LAUNCHES = {"slab_step": 0, "leaf_phase": 0, "traverse_nearest": 0,
             "nearest_tri_small": 0, "vmemloop": 0, "camera_rays": 0,
             "prims_nearest": 0, "bounce_shade": 0, "primary_shade": 0,
-            "film_fold": 0, "packet_compact": 0, "persist_refill": 0,
-            "frame_graph": 0}
+            "film_fold": 0, "packet_compact": 0, "persist_refill": 0}
 
 # True while kernels/frame_graph.py captures a graph: the wrappers then
 # record nodes, which run (and are counted) only when the graph is

@@ -115,8 +115,9 @@ def camera_rays_cursor_plain(view, pix_pad, ok_pad, state, c: int,
                              block: int, live=None, loop=None,
                              queue_out=None, packet_flags=None):
     """Plain PyTorch version of the cursor camera: the explicit repeats
-    of render.accumulate's host loop at p0 = state[0], s0 = state[1],
-    with the camera, frame size and seed of ``view`` (view_words).
+    of the smoke's host loop (``host_accumulate``) at p0 = state[0],
+    s0 = state[1], with the camera, frame size and seed of ``view``
+    (view_words).
     Returns (o, d, keys, alive, atten, rad); live (1,) int32 gains the
     live rays. With ``loop`` (live None, state its state) the live rays
     go into the loop state's live word (with a staged loop, the packets

@@ -21,8 +21,7 @@
 // on the state's done counter (loop_ctl.cuh's last_block) and the last
 // block to finish runs cursor_step (p0 += block, wrapping to s0 += c at
 // the end of the padded list, the batch slots zeroed: the plain version
-// is kernels/loop_ctl.py::frame_advance_plain), which replaces the frame
-// graph's one-thread frame_advance node. The row to fold at (state) and
+// is kernels/loop_ctl.py::frame_advance_plain). The row to fold at (state) and
 // the state to step (step) are separate: the sample-sharded render folds
 // a zeroed part at row 0 (state null) and still steps the cursor. They
 // may be the same array: every block reads p0 before its barrier and

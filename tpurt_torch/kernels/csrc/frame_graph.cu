@@ -1,14 +1,13 @@
 // frame_graph: the C entry points that capture the megakernel frame pass
-// as one CUDA graph, and the loop control as standalone one-thread
-// kernels.
+// as one CUDA graph.
 //
 // Replaces what keeps tpurt's frame pass one device dispatch: the bounce
 // lax.while_loop's cond (tpurt/trace.py:267-269), its ray counter (:272)
 // and the fori_loop indices over sample chunks and pixel blocks
 // (tpurt/render.py:144-176). The loop control's arithmetic and the
-// state's layout (STATE_SLOTS int64 slots) are in loop_ctl.cuh; the
-// plain versions are kernels/loop_ctl.py::frame_cond_plain and
-// frame_advance_plain.
+// state's layout (STATE_SLOTS int64 slots) are in loop_ctl.cuh, run in
+// the last block of the graph's kernels; the plain versions are
+// kernels/loop_ctl.py::frame_cond_plain and frame_advance_plain.
 //
 // The graph of a batch (kernels/frame_graph.py::FrameGraph captures it
 // through these entry points on a side stream; the WHILE node needs CUDA
@@ -29,37 +28,12 @@
 // primary's graph (kernels/primary_graph.py) with none: tt_graph_begin
 // with no handle, no tt_graph_while, so both forms of the CUDA 13 split
 // below (capture_info, tt_graph_while) take a graph with no WHILE node.
-//
-// tt_frame_graph (the condition, loop_cond) and tt_frame_advance (the
-// cursor's step and the batch slots' reset, cursor_step) run on no
-// render path: they are the loop control alone, which chip_smoke.py
-// holds against the plain versions and times. In a graph the condition
-// runs in the last block of the kernel that makes the live count and the
-// cursor's step in the last block of film_fold or of the pool's commit.
-//
-// Bound on the H100: the two kernels move under 100 bytes and are bound
-// by a launch's latency, not by bytes or operations. Design: one thread,
-// no atomics (nothing else runs beside them in the graph).
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "loop_ctl.cuh"
-
 namespace {
-
-__global__ void frame_cond_kernel(long long* st,
-                                  cudaGraphConditionalHandle handle,
-                                  int max_depth, bool in_graph) {
-  const bool go = tt::loop_cond(st, max_depth);
-  if (in_graph) cudaGraphSetConditional(handle, go ? 1u : 0u);
-}
-
-__global__ void frame_advance_kernel(long long* st, long long block,
-                                     long long n_pad, long long c) {
-  tt::cursor_step(st, block, n_pad, c);
-}
 
 // The graph a stream is capturing into, and the nodes its next capture
 // depends on (the signature changed in CUDA 13).
@@ -80,26 +54,6 @@ cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
 }
 
 }  // namespace
-
-// The loop condition: state (int64, loop_ctl.cuh's slots), the WHILE node's
-// handle (an unsigned 64-bit value passed as a pointer), max_depth;
-// in_graph 0 leaves the handle alone (a launch outside a graph).
-extern "C" int tt_frame_graph(void* state, const void* handle, int max_depth,
-                              int in_graph, void* stream) {
-  frame_cond_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      (long long*)state, (cudaGraphConditionalHandle)(uintptr_t)handle,
-      max_depth, in_graph != 0);
-  return (int)cudaGetLastError();
-}
-
-// The cursor's step to the next batch of a frame of n_pad padded rows,
-// with the batch slots' reset.
-extern "C" int tt_frame_advance(void* state, int block, int n_pad, int c,
-                                void* stream) {
-  frame_advance_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
-      (long long*)state, block, n_pad, c);
-  return (int)cudaGetLastError();
-}
 
 // Starts capturing the stream (thread-local mode: this thread may not
 // allocate until the capture ends) and creates n_handles condition

@@ -1,10 +1,9 @@
 """The megakernel frame pass as one CUDA graph a batch: ``FrameGraph``
 (port of tpurt's one-dispatch frame pass, tpurt/render.py:107-180
 ``_accum_frame`` with the bounce ``lax.while_loop`` of
-tpurt/trace.py:267-269), and the loop control as standalone kernels,
-``frame_cond`` / ``frame_advance`` (``csrc/frame_graph.cu``; the state's
-layout and the plain versions are in ``loop_ctl``), which no render
-runs.
+tpurt/trace.py:267-269). The loop control runs inside the graph's
+kernels (``csrc/loop_ctl.cuh``; the state's layout and the plain
+versions are in ``loop_ctl``).
 
 tpurt traces a whole sample range as one device dispatch: the sample
 chunks and pixel blocks are ``fori_loop``s and each batch's bounce loop
@@ -136,39 +135,6 @@ def read_tally(scene, tally, live_hist=None) -> int:
     if live_hist is not None:
         live_hist += hist
     return rays
-
-
-def frame_cond(state, max_depth: int, handle=None):
-    """The loop condition on state's device: the plain version for a CPU
-    tensor, the CUDA kernel for a CUDA tensor (or an error). handle: a
-    WHILE node's condition handle while capturing a graph, else None.
-    No render runs it: in the frame graph the condition runs in the last
-    block of camera_rays_cursor and bounce_shade (``loop_ctl.Loop``).
-    Returns state."""
-    if state.device.type == "cpu":
-        return frame_cond_plain(state, max_depth)
-    dev = _build.cuda_device("frame_graph", state)
-    _build.check("state", state, (STATE_SLOTS,), torch.int64, dev)
-    _build.launch("tt_frame_graph", dev, state,
-                  0 if handle is None else handle, max_depth,
-                  int(handle is not None))
-    _build.count("frame_graph")
-    return state
-
-
-def frame_advance(state, block: int, n_pad: int, c: int):
-    """The cursor's step and the batch slots' reset on state's device:
-    the plain version for a CPU tensor, the CUDA kernel for a CUDA tensor
-    (or an error). No render runs it: in a graph the same step runs in
-    the last block of film_fold (its ``step``) or of the pool's commit.
-    Returns state."""
-    if state.device.type == "cpu":
-        return frame_advance_plain(state, block, n_pad, c)
-    dev = _build.cuda_device("frame_graph", state)
-    _build.check("state", state, (STATE_SLOTS,), torch.int64, dev)
-    _build.launch("tt_frame_advance", dev, state, block, n_pad, c)
-    _build.count("frame_graph")
-    return state
 
 
 def graph_memset(t) -> None:

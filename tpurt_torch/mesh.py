@@ -132,16 +132,16 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
                            sample_start: int, sample_stop: int,
                            film_flat: Optional[np.ndarray] = None,
                            mesh: Optional[Mesh] = None,
-                           host_loop: bool = False, mean: bool = False):
+                           mean: bool = False):
     """Add the radiance sum of samples [sample_start, sample_stop) over
     the mesh to film_flat (npix, 3), a host float32 array, so the result
     is directly checkpointable. Every rank returns (film_flat,
     rays_cast); with ``mean``, film_flat divided by the sample count.
     Modes as tpurt's: primary, wavefront (render.accumulate's wave
     graph), and the megakernel for every other mode (persist included):
-    its frame graph; with host_loop, its host loops. Each collective is
-    a ``mesh.collective`` span, and the film's way out, from the
-    gathered sums to the host array, one ``frame.film``."""
+    its frame graph. Each collective is a ``mesh.collective`` span, and
+    the film's way out, from the gathered sums to the host array, one
+    ``frame.film``."""
     _check(cfg)
     if mesh is None:
         mesh = make_mesh()
@@ -174,7 +174,7 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
 
         tally = render_mod.accumulate(cfg, scene, cam, pix, valid, lo,
                                       lo + per_dev, film_tiled,
-                                      reduce=reduce, host_loop=host_loop)
+                                      reduce=reduce)
     else:  # tiles
         gpix, gvalid, inv = tile_split(cfg.width, cfg.height, world, dev)
         block = gpix.shape[0] // world
@@ -182,7 +182,7 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
         acc = torch.zeros((block, 3), dtype=torch.float32, device=dev)
         tally = render_mod.accumulate(cfg, scene, cam, gpix[lo:lo + block],
                                       gvalid[lo:lo + block], sample_start,
-                                      sample_stop, acc, host_loop=host_loop)
+                                      sample_stop, acc)
         parts = [torch.empty_like(acc) for _ in range(world)]
         with metrics.span("mesh.collective"):
             dist.all_gather(parts, acc, group=mesh.group)
@@ -210,11 +210,10 @@ def render_samples_sharded(cfg: RenderConfig, scene: Scene, cam,
 
 
 def render_sharded(cfg: RenderConfig, scene: Optional[Scene] = None,
-                   cam=None, mesh: Optional[Mesh] = None, device="cuda",
-                   host_loop: bool = False):
+                   cam=None, mesh: Optional[Mesh] = None, device="cuda"):
     """Sharded render of a full frame; the contract of render.render.
     Every rank returns (film (H,W,3), stats); stats carry "devices" (the
-    world size) and "shard". host_loop: render.accumulate's."""
+    world size) and "shard"."""
     _check(cfg)
     if scene is None or cam is None:
         scene, cam = build_scene(cfg)
@@ -223,7 +222,6 @@ def render_sharded(cfg: RenderConfig, scene: Optional[Scene] = None,
     t0 = time.perf_counter()
     film_flat, total_rays = render_samples_sharded(cfg, scene, cam, 0,
                                                    cfg.spp, mesh=mesh,
-                                                   host_loop=host_loop,
                                                    mean=True)
     film = film_flat.reshape(cfg.height, cfg.width, 3)
     wall = time.perf_counter() - t0

@@ -7,32 +7,26 @@ folded into the film in tile order on the device (``kernels.film_fold``)
 and the film is permuted back at the end, by order tensors uploaded
 once per frame size (``order_cached``). The block loop (``accumulate``)
 runs over any list of pixel ids, so a rank of a sharded render
-(``mesh``) traces its share through it. Each batch is traced by mode:
-``primary`` (one-bounce shading), a ``kernels.primary_graph.PrimaryGraph``
-launch a batch, which on a card is one CUDA graph of five kernels and no
-loop (tpurt's one-dispatch ``_accum_frame`` in mode primary), or, when a
-caller asks for the host loop, ``trace.shade_primary`` (eager torch
-after the merge); ``wavefront``, a
-``kernels.wave_graph.WaveGraph`` launch a batch, which on a card is one
-CUDA graph whose queue shrinks along tpurt's stage ladder on the device
-(tpurt's one-dispatch ``_wavefront_frame``), or, when a caller asks for
-the host loop, ``wavefront.trace_chunk`` (one host read a bounce); or
-the megakernel for the rest: a ``kernels.frame_graph.FrameGraph`` launch
-a batch, which on a card is one CUDA graph with its bounce loop on the
-device (tpurt's one-dispatch ``_accum_frame``; with two blocks or more
-and the film rows as its target, two such graphs over the blocks' two
-halves, launched in turn on two streams), or, with the host loop,
-``trace.trace`` (one host read a bounce). Neither graph reads the host
-until the tally (rays cast, bounces, live history) and the film.
-``persist`` streams each pixel block's samples through one
-fixed-capacity pool into the film in pixel order: a
-``kernels.pool_graph.PoolGraph`` launch a pool, which on a card is one
-CUDA graph with the pool's loop on the device (tpurt's one-dispatch
-``trace_persistent``) that reads the host only for the pools' counts,
-once a render, and the film; or, when a caller asks for the host loop,
-``wavefront.trace_persistent`` (one host read an iteration). RNG
-streams are keyed by (seed, pixel, sample), so the image does not
-depend on the batching or the mode.
+(``mesh``) traces its share through it. Each batch is one graph launch,
+by mode: ``primary`` (one-bounce shading), a
+``kernels.primary_graph.PrimaryGraph``, which on a card is one CUDA
+graph of five kernels and no loop (tpurt's one-dispatch
+``_accum_frame`` in mode primary); ``wavefront``, a
+``kernels.wave_graph.WaveGraph``, one CUDA graph whose queue shrinks
+along tpurt's stage ladder on the device (tpurt's one-dispatch
+``_wavefront_frame``); the megakernel for the rest, a
+``kernels.frame_graph.FrameGraph``, one CUDA graph with its bounce loop
+on the device (tpurt's one-dispatch ``_accum_frame``; with two blocks or
+more and the film rows as its target, two such graphs over the blocks'
+two halves, launched in turn on two streams). ``persist`` streams each
+pixel block's samples through one fixed-capacity pool into the film in
+pixel order: a ``kernels.pool_graph.PoolGraph`` launch a pool, one CUDA
+graph with the pool's loop on the device (tpurt's one-dispatch
+``trace_persistent``). No graph reads the host until the tally (rays
+cast, bounces, live history; the pools' counts, once a render) and the
+film. On the CPU each graph runs the same schedule with the plain
+versions of its kernels. RNG streams are keyed by (seed, pixel,
+sample), so the image does not depend on the batching or the mode.
 """
 
 from __future__ import annotations
@@ -46,8 +40,6 @@ import torch
 from . import metrics, trace, wavefront
 from .config import RenderConfig, build_scene
 from .kernels import frame_graph, pool_graph, primary_graph, wave_graph
-from .kernels import camera as camera_k
-from .kernels import film_fold as fold_k
 from .scene import Scene, to_device
 
 BRUTE_RAY_BATCH = 1 << 17  # batch cap for no-BVH bounce paths
@@ -133,7 +125,7 @@ def batch_schedule(sample_start: int, sample_stop: int,
 
 def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
                sample_start: int, sample_stop: int, acc, reduce=None,
-               host_loop: bool = False, on_start=None):
+               on_start=None):
     """Add the radiance sums of samples [sample_start, sample_stop) at
     the pixel ids ``pix`` (n,) into rows of ``acc`` (n, 3), in place.
 
@@ -142,101 +134,34 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     traced, never counted), None for none. The list is cut into blocks
     of ``block_size(n, effective_ray_batch)`` pixels (the last padded
     with dead rows) and samples into chunks of about ray_batch rays per
-    batch. Each batch's samples are folded into acc by
-    ``kernels.film_fold``; ``reduce``, if given, maps each batch's
-    per-pixel sum before it is added (the sample-sharded render sums it
-    over ranks there). on_start, if given, is called once the first run
-    of batches is loaded, just before its first launch.
-    Modes: primary, the primary graph (``kernels.primary_graph``), or
-    with ``host_loop`` the host's batch loop over
-    ``trace.shade_primary``; wavefront, the staged wave graph
-    (``kernels.wave_graph``), or with ``host_loop`` the host's batch
-    loop over the shrinking ``wavefront.trace_chunk``; and the
-    megakernel for every other mode: the frame graph
-    (``kernels.frame_graph``), or with ``host_loop`` the host's batch
-    loop over ``trace.trace`` (a host read a bounce; the per-call paths
-    the smoke checks kernels on). Mode persist renders its pools in
-    render_samples (``_render_persist``); it comes here only from a
-    sharded rank (``mesh``), which traces it with the megakernel, as
-    tpurt's sharded render does. Returns a tally on the device,
-    (2 + max_depth,) int64: rays cast, the bounces the graphs ran (0 on
-    the host loops), and the wavefront's live history (the live rays
-    after each bounce, summed over batches; 0 in the other modes);
-    ``frame_graph.read_tally`` reads it."""
-    dev = acc.device
+    batch. Per run of equal chunks, one graph a lane (GRAPHS' by mode:
+    ``kernels.primary_graph``, ``kernels.wave_graph``; the megakernel's
+    ``kernels.frame_graph`` for every other mode), launched once a batch
+    of its rows (the cursor steps on the device), the film rows loaded
+    into it before and copied back after. The megakernel's FrameGraph
+    folding into the film rows runs two lanes when the list has two
+    blocks or more (``_lanes``); every other call, one. ``reduce``, if
+    given, maps each batch's per-pixel sum before it is added to acc
+    between launches (the sample-sharded render sums it over ranks
+    there). on_start, if given, is called once the first run of batches
+    is loaded, just before its first launch. Mode persist renders its
+    pools in render_samples (``_render_persist``); it comes here only
+    from a sharded rank (``mesh``), which traces it with the megakernel,
+    as tpurt's sharded render does. Nothing is read back to the host.
+    Returns a tally on the device, made after the launches,
+    (2 + max_depth,) int64: rays cast, the bounces the graphs ran, and
+    the wavefront's live history (the live rays after each bounce,
+    summed over batches; 0 in the other modes); ``frame_graph.read_tally``
+    reads it."""
     n = pix.shape[0]
     ray_batch = effective_ray_batch(cfg, scene)
     block = block_size(n, ray_batch)
-    n_samples = sample_stop - sample_start
     spp_chunk = cfg.spp_chunk or max(1, ray_batch // block)
-    spp_chunk = min(spp_chunk, max(1, n_samples))
-    n_pad = -(-n // block) * block
-    ok = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
+    spp_chunk = min(spp_chunk, max(1, sample_stop - sample_start))
+    ok = (torch.ones(n, dtype=torch.bool, device=acc.device) if valid is None
           else valid)
     pix = pix.long()
-    if not host_loop:
-        cls = GRAPHS.get(cfg.mode, frame_graph.FrameGraph)
-        return _accumulate_graph(cfg, scene, cam, pix, ok, block,
-                                 sample_start, sample_stop, spp_chunk, acc,
-                                 reduce, cls, on_start)
-    if n_pad > n:
-        pix = torch.cat([pix, pix[-1:].expand(n_pad - n)])
-        ok = torch.cat([ok, torch.zeros(n_pad - n, dtype=torch.bool,
-                                        device=dev)])
-    nrays = torch.zeros((), dtype=torch.int64, device=dev)
-    live_hist = np.zeros(cfg.max_depth, np.int64)
-    if on_start is not None:
-        on_start()
-    for first, c, n_chunks in batch_schedule(sample_start, sample_stop,
-                                             spp_chunk):
-        for s0 in range(first, first + c * n_chunks, c):
-            sample_ids = torch.arange(s0, s0 + c, device=dev)
-            for p0 in range(0, n_pad, block):
-                pixf = pix[p0:p0 + block].repeat(c)          # sample-major
-                validf = ok[p0:p0 + block].repeat(c)
-                smp = sample_ids.repeat_interleave(block)
-                o, d, keys = camera_k.camera_rays(
-                    cam, cfg.width, cfg.height, cfg.seed, pixf, smp)
-                if cfg.mode == "primary":
-                    rad, _ = trace.shade_primary(scene, o, d)
-                    rad = torch.where(validf[:, None], rad, 0.0)
-                    nrays = nrays + validf.sum()
-                elif cfg.mode == "wavefront":
-                    q = wavefront.make_queue(o, d, pixf, keys,
-                                             alive=validf)
-                    rad, cast, hist = wavefront.trace_chunk(
-                        scene, q, cfg.max_depth, cfg.rr_start)
-                    nrays = nrays + cast
-                    live_hist += hist
-                else:
-                    rad, cast = trace.trace(scene, o, d, keys,
-                                            cfg.max_depth, cfg.rr_start,
-                                            valid=validf)
-                    nrays = nrays + cast
-                m = min(block, n - p0)
-                if reduce is None:
-                    fold_k.film_fold(acc[p0:p0 + m], rad, c, block)
-                else:
-                    part = torch.zeros((block, 3), dtype=torch.float32,
-                                       device=dev)
-                    part = reduce(fold_k.film_fold(part, rad, c, block))
-                    acc[p0:p0 + m] += part[:m]
-    return torch.cat([nrays.reshape(1), nrays.new_zeros(1),
-                      torch.from_numpy(live_hist).to(dev)])
-
-
-def _accumulate_graph(cfg, scene, cam, pix, ok, block, sample_start,
-                      sample_stop, spp_chunk, acc, reduce, cls, on_start=None):
-    """accumulate's graph path: per run of equal chunks, one ``cls``
-    graph (GRAPHS' by mode, else FrameGraph) a lane, launched once a
-    batch of its rows (the cursor steps on the device), the film rows
-    loaded into it before and copied back after; with ``reduce``, each
-    batch's part is summed over ranks and added to acc between launches.
-    The megakernel's FrameGraph folding into the film rows runs two
-    lanes when the list has two blocks or more (``_lanes``); every other
-    call, one. Nothing is read back to the host. Returns the tally (rays
-    cast, bounces run, live history), made after the launches."""
-    n = pix.shape[0]
+    cls = GRAPHS.get(cfg.mode, frame_graph.FrameGraph)
     rows = _lanes(n, block, cls, reduce)
     used = []
     for s0, c, n_chunks in batch_schedule(sample_start, sample_stop,
@@ -330,23 +255,20 @@ def _launch_lanes(scene, graphs, n_chunks: int) -> None:
 
 def render_samples(cfg: RenderConfig, scene: Scene, cam,
                    sample_start: int, sample_stop: int, film_flat=None,
-                   stats_sink: Optional[dict] = None,
-                   host_loop: bool = False):
+                   stats_sink: Optional[dict] = None):
     """Add the radiance sum of samples [sample_start, sample_stop) to
     film_flat (npix, 3) on the scene's device. Returns (film_flat,
     rays_cast). stats_sink (dict, optional) receives the wavefront's
     "queue_capacity" and "live_history" (live rays after each bounce,
     summed over batches), or the persistent pool's "persist_occupancy"
-    and "persist_iterations" (one entry per pixel block). host_loop:
-    accumulate's, and in mode persist the pools' host loop."""
+    and "persist_iterations" (one entry per pixel block)."""
     film_flat, finish = _samples(cfg, scene, cam, sample_start,
-                                 sample_stop, film_flat, stats_sink,
-                                 host_loop)
+                                 sample_stop, film_flat, stats_sink)
     return film_flat, finish()
 
 
 def _samples(cfg, scene, cam, sample_start, sample_stop, film_flat,
-             stats_sink, host_loop, on_start=None):
+             stats_sink, on_start=None):
     """render_samples up to its read of the card: (film_flat, finish).
     finish() waits once for the card's work queued before it, so that a
     caller can queue more (the film's copy down) to be waited on by that
@@ -368,7 +290,7 @@ def _samples(cfg, scene, cam, sample_start, sample_stop, film_flat,
         film_flat, rays = _render_persist(cfg, scene, cam, film_flat, pix,
                                           valid, block, ray_batch,
                                           sample_start, n_samples,
-                                          stats_sink, host_loop, on_start)
+                                          stats_sink, on_start)
 
         def finish_pools() -> int:
             _wait(dev)
@@ -380,8 +302,7 @@ def _samples(cfg, scene, cam, sample_start, sample_stop, film_flat,
                               device=dev) if film_flat is None
                   else film_flat[pix])
     tally = accumulate(cfg, scene, cam, pix, valid, sample_start,
-                       sample_stop, film_tiled, host_loop=host_loop,
-                       on_start=on_start)
+                       sample_stop, film_tiled, on_start=on_start)
 
     def finish() -> int:
         counts = _to_host(tally)
@@ -408,30 +329,24 @@ def pool_capacity(rows: int, n_samples: int, ray_batch: int) -> int:
 
 def _render_persist(cfg, scene, cam, film_flat, pix, valid, block,
                     ray_batch, sample_start, n_samples, stats_sink,
-                    host_loop=False, on_start=None):
+                    on_start=None):
     """Persistent mode: each pixel block's whole sample range streams
     through one pool of min(ray_batch, rays) slots, rounded up to whole
     packets. pix, valid: the tile order on the device and its live rows
     (order_cached). A PoolGraph launch a pool: one graph a run of pools
     of one capacity (every pool, or all but a ragged last one), each
     pool's rays and iterations recorded on the device and read once, at
-    the end; with host_loop, wavefront.trace_persistent a pool.
-    on_start, if given, is called before the first pool's launch."""
+    the end. An empty sample range leaves the film as it is, each pool
+    with 0 rays and 0 iterations. on_start, if given, is called before
+    the first pool's launch."""
     npix = cfg.width * cfg.height
     film_flat = film_flat.clone()    # the pool adds into it in place
     caps = [pool_capacity(min(block, npix - p0), n_samples, ray_batch)
             for p0 in range(0, npix, block)]
-    if host_loop or n_samples <= 0:
+    if n_samples <= 0:
         if on_start is not None:
             on_start()
-        pairs = []
-        for k, cap in enumerate(caps):
-            p0 = k * block
-            film_flat, nrays, _, iters = wavefront.trace_persistent(
-                scene, cam, film_flat, pix[p0:min(p0 + block, npix)],
-                sample_start, n_samples, cfg.seed, cfg.width, cfg.height,
-                cfg.max_depth, cfg.rr_start, cap)
-            pairs.append((nrays, iters))
+        pairs = [(0, 0)] * len(caps)
     else:
         counts = torch.zeros((len(caps), 2), dtype=torch.int64,
                              device=film_flat.device)
@@ -483,14 +398,13 @@ def _to_host(t):
 
 
 def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,
-           device="cuda", host_loop: bool = False):
+           device="cuda"):
     """Render a full frame on ``device``. Returns (film (H,W,3) linear f32
     ndarray, the per-pixel mean over cfg.spp, and a stats dict; the
-    wavefront and persistent modes add "occupancy"). host_loop:
-    accumulate's. The way in, up to the frame pass's first launch, is the
-    ``frame.begin`` span; the way out, ``frame.film``: the mean queued
-    for the host behind the frame pass, with one wait for both, the
-    tally's read."""
+    wavefront and persistent modes add "occupancy"). The way in, up to
+    the frame pass's first launch, is the ``frame.begin`` span; the way
+    out, ``frame.film``: the mean queued for the host behind the frame
+    pass, with one wait for both, the tally's read."""
     way_in = [metrics.span("frame.begin").__enter__()]
 
     def started():
@@ -504,7 +418,7 @@ def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,
         sink: dict = {}
         t0 = time.perf_counter()
         film_flat, finish = _samples(cfg, scene, cam, 0, cfg.spp, None,
-                                     sink, host_loop, started)
+                                     sink, started)
     finally:
         started()
     with metrics.span("frame.film"):
@@ -514,11 +428,21 @@ def render(cfg: RenderConfig, scene: Optional[Scene] = None, cam=None,
     wall = time.perf_counter() - t0
     stats = metrics.build_stats(total_rays, wall, cfg.width, cfg.height,
                                 cfg.spp)
+    occ = occupancy(sink)
+    if occ is not None:
+        stats["occupancy"] = occ
+    return film, stats
+
+
+def occupancy(sink: dict) -> Optional[dict]:
+    """A frame's "occupancy" stat from what render_samples put in its
+    stats sink: the wavefront's live history against its queue capacity
+    (metrics.occupancy), the pools' mean occupancy, or None in the other
+    modes."""
     if "live_history" in sink:
-        stats["occupancy"] = metrics.occupancy(sink["live_history"],
-                                               sink["queue_capacity"])
+        return metrics.occupancy(sink["live_history"],
+                                 sink["queue_capacity"])
     if "persist_occupancy" in sink:
         occ = sink["persist_occupancy"]
-        stats["occupancy"] = {"mean_occupancy": sum(occ) / len(occ),
-                              "chunks": len(occ)}
-    return film, stats
+        return {"mean_occupancy": sum(occ) / len(occ), "chunks": len(occ)}
+    return None

@@ -129,7 +129,8 @@ def shade_primary(scene, o, d):
     albedo * (ambient + (1 - ambient) * max(0, n.L)) + emission on a
     hit, sky on a miss (``kernels.bounce.primary_radiance``), every row
     intersected. Returns (radiance (N,3), rays). The eager form that
-    render.accumulate's host loop runs; the primary graph runs the same
-    shading as one kernel (``kernels.bounce.primary_shade``)."""
+    the smoke's host loop (``host_accumulate``) runs; the primary graph
+    runs the same shading as one kernel
+    (``kernels.bounce.primary_shade``)."""
     h = intersect(scene, o, d)
     return bounce_k.primary_radiance(scene, d, h.n, h.mat, h.ok), o.shape[0]

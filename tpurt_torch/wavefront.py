@@ -6,9 +6,10 @@ A render in mode wavefront traces each batch through
 CUDA graph a batch whose queue shrinks along tpurt's stage ladder on the
 device, as tpurt's one-dispatch ``trace_chunk_staged``, with no host
 read until the film. ``trace_chunk`` is the host-loop reference that
-``host_loop=True`` runs (the smoke checks each kernel call on it): one
-``step`` per bounce and one 8-byte host read per bounce (live rays and
-live packets), and the queue shrinks as rays die: when the packets that
+the smoke's ``host_accumulate`` and the tests hold the graph against
+(the smoke checks each kernel call on it): one ``step`` per bounce and
+one 8-byte host read per bounce (live rays and live packets), and the
+queue shrinks as rays die: when the packets that
 still hold a live ray fit a smaller power of two (8 packets at least),
 one ``kernels.compact.packet_compact`` call (one kernel launch on a
 card) moves live packets to the front, in the order of the per-packet
@@ -25,11 +26,12 @@ A render in mode persist traces each pool through
 one CUDA graph a pool, the pool's loop on the device as tpurt's
 one-dispatch ``trace_persistent``, with no host read until the pools'
 counts and the film. ``trace_persistent`` is the host-loop reference
-that ``host_loop=True`` runs (the smoke checks each kernel call on it):
-it keeps tpurt's regeneration rule exactly
-(``kernels.refill.persist_refill``, one kernel launch a step on a card,
-its scan state allocated once per call): dead slots take the next rays
-off a global counter in slot order, so its iteration count and
+that the smoke's ``host_frame`` and the tests hold the graph against
+(the smoke checks each kernel call on it): it keeps tpurt's
+regeneration rule exactly (``kernels.refill.persist_refill``, one
+kernel launch a step on a card, its scan state allocated once per
+call): dead slots take the next rays off a global counter in slot
+order, so its iteration count and
 occupancy equal tpurt's. It reads the host once per iteration (4
 bytes). The graph runs the same steps in the same order, so on the CPU
 its film is array-equal to this loop's.
