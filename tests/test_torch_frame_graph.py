@@ -32,12 +32,14 @@ tpurt's one-dispatch frame pass.
     to the host loop's;
   * batch_schedule: the runs tpurt's render_samples dispatches
     (tpurt/render.py:249-263);
-  * the mega frame pass's two lanes (render._lanes): at 2, 3 and 5
-    blocks, c = 1 and c > 1, the film array-equal to the one-lane
-    path's and the host loop's, rays cast and bounces equal, each film
-    row copied back by one lane's graph, a graph.pair span a pair; a
-    list of one block, a ``reduce`` call and the wave and primary graphs
-    take one lane (no graph.pair span).
+  * the frame passes' two lanes (render._lanes), in modes mega,
+    wavefront and primary: at 2, 3 and 5 blocks, c = 1 and c > 1 (with
+    c = 3 the wave graph's ladder shrinks the queue), the film
+    array-equal to the one-lane path's and the host loop's, rays cast,
+    bounces and the live history equal, each film row copied back by
+    one lane's graph, a graph.pair span a pair; a list of one block (in
+    each of those modes), a ``reduce`` call and the persist pools take
+    one lane (no graph.pair span).
 The CUDA kernels and the captured graph are held against these on the
 card by chip_smoke.py's ``graph`` phase.
 """
@@ -572,7 +574,7 @@ def test_graph_wrappers_raise_off_the_cpu(small, fn):
                                       128, 256, 2))
 
 
-# the mega frame pass's lanes: (ray_batch, spp_chunk) -> the blocks of
+# the frame passes' lanes: (ray_batch, spp_chunk) -> the blocks of
 # SMALL's 1,200-pixel list and the samples a chunk
 LANE_CASES = {
     "2-blocks-c1": (640, 0),     # 640 + 560 rows: one block a lane
@@ -580,6 +582,9 @@ LANE_CASES = {
     "5-blocks-c1": (256, 0),     # 768 + 432: three blocks and two
     "2-blocks-c2": (640, 2),     # chunks of 2 samples, then the tail's 1
     "5-blocks-c2": (256, 2),
+    # 1,024 + 176 rows, all 3 samples a batch: a wave graph's queue of
+    # 24 packets shrinks to 12 (wave_graph.stage_caps)
+    "2-blocks-c3": (1024, 3),
 }
 
 
@@ -600,16 +605,18 @@ def _lane_call(scene, cam, cfg, reduce=None, accumulate=trender.accumulate):
     return acc, tally, *calls
 
 
+@pytest.mark.parametrize("mode", ["mega", "wavefront", "primary"])
 @pytest.mark.parametrize("name", sorted(LANE_CASES))
-def test_two_lanes_equal_one_lane(small, monkeypatch, name):
-    """A mega call over two blocks or more runs two lanes: the film is
-    array-equal to the one-lane path's (and to the host loop's), rays
-    cast and the bounces run are equal, every film row is copied back by
-    exactly one lane's graph (the blocks' first half, the larger when
-    odd, and the rest), and each A-then-B pair is one graph.pair span."""
+def test_two_lanes_equal_one_lane(small, monkeypatch, name, mode):
+    """A call over two blocks or more runs two lanes in every mode:
+    the film is array-equal to the one-lane path's (and to the host
+    loop's), rays cast, the bounces run and the live history are equal,
+    every film row is copied back by exactly one lane's graph (the
+    blocks' first half, the larger when odd, and the rest), and each
+    A-then-B pair is one graph.pair span."""
     scene, cam = small
     ray_batch, spp_chunk = LANE_CASES[name]
-    cfg = SMALL.replace(ray_batch=ray_batch, spp_chunk=spp_chunk)
+    cfg = SMALL.replace(ray_batch=ray_batch, spp_chunk=spp_chunk, mode=mode)
     n = cfg.width * cfg.height
     block = trender.block_size(n, ray_batch)
     n_blocks = -(-n // block)
@@ -636,26 +643,33 @@ def test_two_lanes_equal_one_lane(small, monkeypatch, name):
     assert {lo for _, lo, _ in copied} == {0}
     assert torch.equal(got, want)
     assert tally.tolist() == want_tally.tolist()
-    assert tally[1] > 0
+    # the primary graph runs no bounce loop
+    assert (int(tally[1]) > 0) == (mode != "primary")
     host, host_tally, _, _ = _lane_call(
         scene, cam, cfg, accumulate=chip_smoke.host_accumulate)
     assert torch.equal(got, host) and host_tally[0] == tally[0]
+    # the live history (the wavefront's; zeros in mode mega)
+    assert torch.equal(tally[2:], host_tally[2:])
+    assert (int(tally[2:].sum()) > 0) == (mode == "wavefront")
     chunks = sum(k for _, _, k in runs)
     assert launches == one_launches == chunks * n_blocks
     assert pairs == chunks * (n_blocks // 2) and one_pairs == 0
 
 
 @pytest.mark.parametrize("case", ["one-block", "reduce", "wavefront",
-                                  "primary"])
+                                  "primary", "persist"])
 def test_one_lane_calls(small, case):
-    """A list of one block, the sample-sharded render's per-batch part
-    (``reduce``) and the wave and primary graphs take one lane, as
-    before: no graph.pair span, and the film is the host loop's."""
+    """A list of one block (in modes mega, wavefront and primary), the
+    sample-sharded render's per-batch part (``reduce``) and the persist
+    pools take one lane: no graph.pair span, and the film is the host
+    loop's."""
     scene, cam = small
     cfg = SMALL.replace(ray_batch=256)
     reduce = None
     if case == "one-block":
         cfg = SMALL
+    elif case in ("wavefront", "primary"):
+        cfg = SMALL.replace(mode=case)
     elif case == "reduce":
         def reduce(part):
             return part * 1.0
@@ -663,8 +677,18 @@ def test_one_lane_calls(small, case):
         cfg = cfg.replace(mode=case)
     n = cfg.width * cfg.height
     block = trender.block_size(n, trender.effective_ray_batch(cfg, scene))
-    assert len(trender._lanes(n, block, trender.GRAPHS.get(
-        cfg.mode, fg_k.FrameGraph), reduce)) == 1
+    if case == "persist":
+        # render_samples streams each of the five blocks through its pool
+        metrics.reset_spans()
+        got, rays = trender.render_samples(cfg, scene, cam, 0, cfg.spp)
+        pairs, launches = [metrics.SPANS.get(k, {}).get("calls", 0)
+                           for k in ("graph.pair", "graph.launch")]
+        metrics.reset_spans()
+        assert pairs == 0 and launches == -(-n // block)
+        host, host_rays = chip_smoke.host_frame(cfg, scene, cam)
+        assert torch.equal(got, host) and rays == host_rays
+        return
+    assert len(trender._lanes(n, block, reduce)) == 1
     got, tally, pairs, launches = _lane_call(scene, cam, cfg, reduce)
     assert pairs == 0 and launches > 0
     host, host_tally, _, _ = _lane_call(

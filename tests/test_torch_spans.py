@@ -134,10 +134,10 @@ def test_profiler_off_opens_no_record_function(mode, small, monkeypatch):
     assert metrics.SPANS["graph.launch"]["calls"] == batches(cfg, scene)
     assert metrics.SPANS["frame.film"]["calls"] == 1
     assert metrics.SPANS["frame.begin"]["calls"] == 1
-    # mode mega's three blocks run in two lanes: a graph.pair span a pair
-    pair = {"graph.pair"} if mode == "mega" else set()
-    assert set(metrics.SPANS) == {"graph.launch", "frame.begin",
-                                  "frame.film"} | pair
+    # the three blocks run in two lanes (modes mega and wavefront): a
+    # graph.pair span a pair
+    assert set(metrics.SPANS) == {"graph.launch", "graph.pair",
+                                  "frame.begin", "frame.film"}
 
 
 @pytest.mark.parametrize("mode", MODES + ("persist",))

@@ -455,11 +455,14 @@ def test_one_wave_graph_a_shape_and_its_node_plan(spheres):
 
 
 def test_wave_graph_state_after_a_call(spheres):
-    """One accumulate call through a WaveGraph on the CPU (two batches of
-    two samples, a ragged last one): the film, rays_cast and the live
-    history are the host loop's; the cursor ends past the range, the
-    bounces the graph ran are counted, and the fold's step leaves the
-    batch slots, the live words and the done counter at 0."""
+    """One accumulate call through the wave graph on the CPU (samples 1
+    and 2, a chunk each, over two blocks of 2,560 rows, the second
+    ragged), which runs in two lanes, a WaveGraph a block: the film,
+    rays_cast and the live history are the host loop's; in each lane's
+    graph the cursor ends past the range, the bounces it ran are
+    counted, and the fold's step leaves the batch slots, the live words
+    and the done counter at 0; the lanes' rays, bounces and histories
+    add up to the tally's."""
     scene, cam, _ = spheres
     cfg = tconfig.RenderConfig(width=W, height=H, spp=4, seed=3,
                                scene="spheres_plane", mode="wavefront",
@@ -468,8 +471,11 @@ def test_wave_graph_state_after_a_call(spheres):
     n = W * H
     block = trender.block_size(n, cfg.ray_batch)
     pix, valid, _ = trender.order_cached(W, H, block, "cpu")
-    g = fg_k.get(scene, n, block, 1, cfg.max_depth, cfg.rr_start, False,
-                 "cpu", wave_graph.WaveGraph)
+    rows = trender._lanes(n, block, None)
+    assert rows == [(0, block), (block, n)]
+    lanes = [fg_k.get(scene, hi - lo, block, 1, cfg.max_depth, cfg.rr_start,
+                      False, "cpu", wave_graph.WaveGraph, lane=k)
+             for k, (lo, hi) in enumerate(rows)]
     want = torch.zeros((n, 3))
     want_tally = chip_smoke.host_accumulate(cfg, scene, cam, pix[:n],
                                             valid[:n], 1, 3, want)
@@ -477,14 +483,18 @@ def test_wave_graph_state_after_a_call(spheres):
     tally = trender.accumulate(cfg, scene, cam, pix[:n], valid[:n], 1, 3,
                                acc)
     assert torch.equal(acc, want)
-    assert tally[0] == want_tally[0] == int(g.state[loop_ctl.RAYS])
+    assert tally[0] == want_tally[0] == \
+        sum(int(g.state[loop_ctl.RAYS]) for g in lanes)
     assert torch.equal(tally[2:], want_tally[2:])
-    assert torch.equal(g.hist, want_tally[2:])
-    assert int(tally[1]) == int(g.state[loop_ctl.ITERS]) > 0
-    st = g.state
-    assert (int(st[loop_ctl.P0]), int(st[loop_ctl.S0])) == (0, 3)
-    assert st[loop_ctl.DEPTH:loop_ctl.GO].tolist() == [0, 0, 0]
-    assert int(st[loop_ctl.GO]) == int(st[loop_ctl.DONE]) == 0
+    assert torch.equal(sum(g.hist for g in lanes), want_tally[2:])
+    assert int(tally[1]) == sum(int(g.state[loop_ctl.ITERS])
+                                for g in lanes)
+    for g in lanes:
+        st = g.state
+        assert int(st[loop_ctl.RAYS]) > 0 and int(st[loop_ctl.ITERS]) > 0
+        assert (int(st[loop_ctl.P0]), int(st[loop_ctl.S0])) == (0, 3)
+        assert st[loop_ctl.DEPTH:loop_ctl.GO].tolist() == [0, 0, 0]
+        assert int(st[loop_ctl.GO]) == int(st[loop_ctl.DONE]) == 0
 
 
 @pytest.mark.parametrize("fn", ["compact_keep0", "compact_no_cap",

@@ -36,16 +36,20 @@ host spends ~30 us in one of a 720p mesh frame's, ~0.3 ms in one of a
 launch), and the card ~100-130 us between one graph's last node and the
 next graph's first.
 
-The mega frame pass runs in two lanes when its pixel list has two
-blocks or more and it folds into the film rows (``render._lanes``): the
-blocks' two halves, each a ``FrameGraph`` of its own (``get``'s
-``lane``) with its own buffers, state, cursor and search counter,
-launched in turn on two streams. The batches of one sample over
-disjoint blocks are independent (rays keyed by seed, pixel and sample;
-disjoint film rows), so one lane's graph start and the tail of its
-searches, when few long walks hold a launch that leaves most of the
-card idle, run under the other lane's kernels. Each lane folds its rows
-in the one-lane order, so the film is the one-lane film bit for bit.
+A frame pass runs in two lanes when the pixel list has two blocks or
+more and it folds into the film rows (``render._lanes``): the blocks'
+two halves, each a graph of its own (``FrameGraph``, ``WaveGraph`` or
+``PrimaryGraph``; ``get``'s ``lane``) with its own buffers (a wave
+graph's queues, packet flags and ``rad_out`` too), state, cursor, live
+history and search counter, launched in turn on two streams. The
+batches of one sample over disjoint blocks are independent (rays keyed
+by seed, pixel and sample; disjoint film rows), so one lane's graph
+start and the tail of its searches, when few long walks hold a launch
+that leaves most of the card idle (in a wave graph, its late stages'
+small queues), run under the other lane's kernels. Each lane folds its
+rows in the one-lane order, so the film is the one-lane film bit for
+bit, and the lanes' tallies (integer sums) add up to the one-lane
+tally.
 
 A ``FrameGraph`` owns every buffer the graph touches, allocated with
 torch before the capture (nothing may allocate while a stream captures):
@@ -394,9 +398,9 @@ def get(scene, n: int, block: int, c: int, max_depth: int, rr_start,
     """The ``cls`` graph (FrameGraph, wave_graph.WaveGraph,
     primary_graph.PrimaryGraph, or pool_graph.PoolGraph with its pool's
     capacity ``cap``) of this batch shape on this scene for this lane of
-    the mega frame pass (``render._lanes``: two lanes of one shape need
-    two graphs), cached (on a card, one capture per key); the entry goes
-    when any of the scene's tensors is freed."""
+    the frame pass (``render._lanes``: two lanes of one shape need two
+    graphs), cached (on a card, one capture per key);
+    the entry goes when any of the scene's tensors is freed."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

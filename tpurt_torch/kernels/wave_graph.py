@@ -46,6 +46,13 @@ not the host loop's power of two (``wavefront.trace_chunk``): images,
 rays_cast and the live history do not depend on where a queue shrinks,
 since every draw is keyed by (seed, pixel, sample, bounce).
 
+A batch is one graph launch on one stream; a frame of two blocks or
+more runs in two lanes (``render._lanes``, ``frame_graph``'s module
+docstring): two WaveGraphs, one a half of the blocks, each with its own
+queues, flags, ``rad_out``, state and history, launched in turn on two
+streams, so that one lane's gap between graphs and its late stages'
+small launches run under the other lane's kernels.
+
 On the CPU ``launch`` runs the same schedule with the plain versions
 (each WHILE a loop over GO): the graph's plain version.
 """

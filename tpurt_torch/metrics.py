@@ -23,8 +23,8 @@ and updates the table: no sync, no file, no output. The port's spans:
 
   graph.launch     kernels/frame_graph.FrameGraph.launch: one graph
                    launch on a card (the plain schedule on the CPU)
-  graph.pair       render._launch_lanes: one launch of each of the mega
-                   frame pass's two lanes, the first lane's then the
+  graph.pair       render._launch_lanes: one launch of each of a frame
+                   pass's two lanes, the first lane's then the
                    second's (two graph.launch spans inside)
   graph.capture    FrameGraph._capture: one graph's capture and
                    instantiation

@@ -16,9 +16,10 @@ graph of five kernels and no loop (tpurt's one-dispatch
 along tpurt's stage ladder on the device (tpurt's one-dispatch
 ``_wavefront_frame``); the megakernel for the rest, a
 ``kernels.frame_graph.FrameGraph``, one CUDA graph with its bounce loop
-on the device (tpurt's one-dispatch ``_accum_frame``; with two blocks or
-more and the film rows as its target, two such graphs over the blocks'
-two halves, launched in turn on two streams). ``persist`` streams each
+on the device (tpurt's one-dispatch ``_accum_frame``). With two blocks
+or more and the film rows as its target, a primary, wave or frame graph
+runs in two lanes: two such graphs over the blocks' two halves,
+launched in turn on two streams. ``persist`` streams each
 pixel block's samples through one fixed-capacity pool into the film in
 pixel order: a ``kernels.pool_graph.PoolGraph`` launch a pool, one CUDA
 graph with the pool's loop on the device (tpurt's one-dispatch
@@ -138,17 +139,16 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     ``kernels.primary_graph``, ``kernels.wave_graph``; the megakernel's
     ``kernels.frame_graph`` for every other mode), launched once a batch
     of its rows (the cursor steps on the device), the film rows loaded
-    into it before and copied back after. The megakernel's FrameGraph
-    folding into the film rows runs two lanes when the list has two
-    blocks or more (``_lanes``); every other call, one. ``reduce``, if
-    given, maps each batch's per-pixel sum before it is added to acc
-    between launches (the sample-sharded render sums it over ranks
-    there). on_start, if given, is called once the first run of batches
-    is loaded, just before its first launch. Mode persist renders its
-    pools in render_samples (``_render_persist``); it comes here only
-    from a sharded rank (``mesh``), which traces it with the megakernel,
-    as tpurt's sharded render does. Nothing is read back to the host.
-    Returns a tally on the device, made after the launches,
+    into it before and copied back after. A list of two blocks or more
+    runs in two lanes (``_lanes``) unless ``reduce`` is given.
+    ``reduce``, if given, maps each batch's per-pixel sum before it is
+    added to acc between launches (the sample-sharded render sums it
+    over ranks there). on_start, if given, is called once the first run
+    of batches is loaded, just before its first launch. Mode persist
+    renders its pools in render_samples (``_render_persist``); it comes
+    here only from a sharded rank (``mesh``), which traces it with the
+    megakernel, as tpurt's sharded render does. Nothing is read back to
+    the host. Returns a tally on the device, made after the launches,
     (2 + max_depth,) int64: rays cast, the bounces the graphs ran, and
     the wavefront's live history (the live rays after each bounce,
     summed over batches; 0 in the other modes); ``frame_graph.read_tally``
@@ -162,7 +162,7 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
           else valid)
     pix = pix.long()
     cls = GRAPHS.get(cfg.mode, frame_graph.FrameGraph)
-    rows = _lanes(n, block, cls, reduce)
+    rows = _lanes(n, block, reduce)
     used = []
     for s0, c, n_chunks in batch_schedule(sample_start, sample_stop,
                                           spp_chunk):
@@ -200,24 +200,23 @@ def accumulate(cfg: RenderConfig, scene: Scene, cam, pix, valid,
     return tally
 
 
-# the mega frame pass's lanes: two frame graphs over disjoint halves of
-# the pixel list's blocks, launched in turn on two streams
+# the frame pass's lanes: two graphs over disjoint halves of the pixel
+# list's blocks, launched in turn on two streams
 LANES = 2
 
 
-def _lanes(n: int, block: int, cls, reduce) -> list:
+def _lanes(n: int, block: int, reduce) -> list:
     """The rows (lo, hi) of each lane of an n-row list cut into blocks of
-    ``block``. Two lanes for the megakernel's FrameGraph folding into the
-    film rows (mode mega, a sharded rank's persist) when the list has two
-    blocks or more: the blocks' first half (the larger when odd) and the
-    rest, so that every film row belongs to one lane, which folds it in
-    the one-lane order. One lane, the whole list, for every other call:
-    a list of one block, the sample-sharded render's per-batch part
-    (``reduce``: it is summed over ranks between launches, in order),
-    and the primary, wave and pool graphs."""
+    ``block``. Two lanes when the list has two blocks or more and the
+    graphs fold into the film rows (every graph accumulate runs: the
+    megakernel's, the wavefront's and the primary's): the blocks' first
+    half (the larger when odd) and the rest, so that every film row
+    belongs to one lane, which folds it in the one-lane order. One lane,
+    the whole list, for a list of one block and for the sample-sharded
+    render's per-batch part (``reduce``: it is summed over ranks between
+    launches, in order)."""
     n_blocks = -(-n // block)
-    if cls is not frame_graph.FrameGraph or reduce is not None or \
-            n_blocks < LANES:
+    if reduce is not None or n_blocks < LANES:
         return [(0, n)]
     cut = -(-n_blocks // LANES) * block
     return [(0, cut), (cut, n)]
